@@ -1,0 +1,419 @@
+// The march kernel: one still frame of emission-absorption ray marching
+// through every galaxy instance of a scene, for sm_90a.
+//
+// Replaces the TPU kernel K1 of gamer_tpu/engine/pallas_render.py — the
+// camera-ray branch of _make_kernel (:284-383) with _march_instance
+// (:386-679), _apply_bulge (:682-702), the component gates and emission
+// (:705-914) and the arm/winding/twirl helpers (:917-988), launched by
+// _compiled (:1094-1121) through _tile_call (:1022-1062) — together with
+// its in-kernel noise (K2, noise.cuh).
+//
+// Design. One thread per pixel ray, each with its own loop exit: the
+// reference's per-pixel loop (rasterizer.cpp:447-475). The TPU kernel's
+// tile-wide triggers (pl.when(jnp.any(...))) only skipped work; here each
+// thread tests the same conservative trigger and the exact gates for its
+// own sample and skips its own noise. The scene's numbers arrive as the
+// float32 scalar page and its structure as an int32 table
+// (engine/cuda_render.py); one precompiled kernel walks the table at run
+// time. The table is the same for every thread of a launch, so the class
+// switch does not diverge, and a new scene never needs a rebuild. The page,
+// the table and PERM are copied to shared memory at block start (PERM is
+// indexed by data, so __constant__ would serialize). The march state
+// (p, I, tacc, step_prev) lives in registers; I carries across instances
+// and each instance has its own MAX_ITERS counter. The global row offset is
+// read from the page (row0), so a row band needs no kernel change.
+//
+// Bound. ALU and SFU bound: exp, pow, sin/cos and sqrt per sample, ~40 raw
+// simplex evaluations per step on the default spiral, with trip counts
+// that diverge between neighbouring rays. Device memory traffic is ~12 B
+// per pixel out plus a few KB of page and tables per block.
+//
+// Numerics. Built with -fmad=false and without --use_fast_math, so every
+// a*b+c rounds twice as in the JAX expressions (contraction alone moves
+// frames by ~1 uint8 LSB). Ray normalization is 1.0f/sqrtf (IEEE sqrt and
+// division), not rsqrtf. Masked updates are selects, never multiplies by
+// a mask, and min/max propagate NaN like jnp.maximum/jnp.minimum.
+#include <cuda_runtime.h>
+
+#include "noise.cuh"
+
+namespace gamer {
+
+constexpr int MAX_ITERS = 131072;
+
+// Scalar page offsets (engine/cuda_render.py::_build_layout).
+constexpr int G_CAMERA = 16, G_RAY_STEP = 19, G_MIN_STEP = 20, G_ROW0 = 21;
+constexpr int I_POS = 0, I_AXIS_INV = 3, I_AXIS_X = 6, I_WINDING_B = 7,
+              I_WINDING_N = 8, I_ARMS = 9, I_ROTMAT = 13, I_TWIRL = 17,
+              I_ORIENT = 20, I_ISCALE = 23;
+constexpr int C_STRENGTH = 0, C_ARM = 1, C_Z0 = 2, C_R0 = 3, C_INNER = 4,
+              C_DELTA = 5, C_WINDING = 6, C_SCALE = 7, C_NOFF = 8,
+              C_NTILT = 9, C_KS = 10, C_SPEC = 11, C_RIDGED_W = 14;
+
+// Structure table (engine/cuda_render.py::_build_table).
+constexpr int T_N_INST = 0, T_DITHER = 1, T_HDR = 2;
+constexpr int T_INST = 4;  // n_comps, max_arms, page_off, comp_row
+constexpr int T_COMP = 9;  // cid, arm_en, wind_en, star_extra, oct10, oct9,
+                           // oct4, n_ridged, page_off
+
+enum { CID_BULGE = 0, CID_DISK = 1, CID_DUST = 2, CID_DUST2 = 3,
+       CID_DUST_POSITIVE = 4, CID_STARS = 5, CID_STARS_SMALL = 6 };
+
+struct Quat { float w, x, y, z; };
+
+__device__ __forceinline__ void quat_rotate(const Quat& q, float vx, float vy,
+                                            float vz, float& ox, float& oy,
+                                            float& oz) {
+    float uvx = q.y * vz - q.z * vy;
+    float uvy = q.z * vx - q.x * vz;
+    float uvz = q.x * vy - q.y * vx;
+    float uuvx = q.y * uvz - q.z * uvy;
+    float uuvy = q.z * uvx - q.x * uvz;
+    float uuvz = q.x * uvy - q.y * uvx;
+    ox = vx + 2.0f * (q.w * uvx + uuvx);
+    oy = vy + 2.0f * (q.w * uvy + uuvy);
+    oz = vz + 2.0f * (q.w * uvz + uuvz);
+}
+
+// Rotation by angle t*pi about the unit twirl axis (galaxycomponent.h:86-90).
+__device__ __forceinline__ void twirl(const float* ax, float t, float vx,
+                                      float vy, float vz, float& ox, float& oy,
+                                      float& oz) {
+    float half = t * F32(PI * 0.5);
+    float s = sinf(half);
+    float c = cosf(half);
+    Quat q{c, ax[0] * s, ax[1] * s, ax[2] * s};
+    quat_rotate(q, vx, vy, vz, ox, oy, oz);
+}
+
+// galaxycomponent.h:156-165.
+__device__ __forceinline__ float get_winding(float rad, float wb, float wn) {
+    float r = rad + F32(0.05);
+    return atan_f32(expf(F32(-0.25) / (0.5f * r)) / wb) * 2.0f * wn;
+}
+
+__device__ __forceinline__ float find_difference(float t1, float t2) {
+    float d = t1 - t2;
+    float v = fabsf(d);
+    v = nan_min(v, fabsf(d - F32(2 * PI)));
+    v = nan_min(v, fabsf(d + F32(2 * PI)));
+    v = nan_min(v, fabsf(d - F32(4 * PI)));
+    v = nan_min(v, fabsf(d + F32(4 * PI)));
+    return v;
+}
+
+// galaxycomponent.h:120-146: the literal pow ladder (pow(negative,
+// integral) is finite and may win), std::max NaN order.
+__device__ float arm_value(const float* ip, const float* cp, int max_arms,
+                           const Quat& rot, float radius, float Px, float Py,
+                           float Pz) {
+    float rx, ry, rz;
+    quat_rotate(rot, Px, Py, Pz, rx, ry, rz);
+    float theta = atan2_f32(rx, rz) + cp[C_DELTA];
+    float ww = get_winding(radius, ip[I_WINDING_B], ip[I_WINDING_N]);
+    float arm15 = cp[C_ARM] * 15.0f;
+    float val = 0.0f;
+    for (int a = 0; a < max_arms; ++a) {
+        float v = fabsf(find_difference(ww, -theta + ip[I_ARMS + a])) / F32(PI);
+        float arm_v = powf(1.0f - v, arm15);
+        val = (a == 0 || arm_v > val) ? arm_v : val;
+    }
+    return val;
+}
+
+struct Ray {
+    float I0, I1, I2;
+};
+
+// One non-bulge component at one sample (galaxycomponent.cpp:45-88 and
+// the galaxycomponents.cpp class kernels).
+__device__ void apply_component(const int* perm, const int* ct,
+                                const float* ip, const float* cp, int max_arms,
+                                const Quat& rot, float px, float py, float pz,
+                                float Px, float Py, float Pz, float dott,
+                                float radius, float weight, float ray_step,
+                                Ray& I) {
+    const float z0 = cp[C_Z0];
+    const float r0 = cp[C_R0];
+    // conservative trigger (pallas_render.py:705-720): h <= 2 and the
+    // widened radial cutoff; a superset of the exact gates below
+    float h = fabsf(dott / z0);
+    float r_thr = r0 > 0.0f ? r0 * F32(2.2552) : F32(3.4e38);
+    if (!((h <= 2.0f) && (radius < r_thr))) return;
+
+    float eh = expf(h);
+    float sech = 2.0f / (eh + 1.0f / eh);
+    float z = h > 2.0f ? 0.0f : sech * sech;
+    float ri = expf(-radius / (r0 * 0.5f));
+    float intensity = qt_clamp(ri - F32(0.01), 0.0f, 1.0f);
+    intensity = intensity > F32(0.1) ? F32(0.1) : intensity;
+    if (!((z > F32(0.01)) && (intensity > F32(0.001)))) return;
+
+    // smoothstep(0, inner, radius) with the raw division: inner == 0 gives
+    // inf/NaN -> clamp -> 1, inner < 0 gives 0
+    float t_s = qt_clamp(radius / cp[C_INNER], 0.0f, 1.0f);
+    float sib = t_s * t_s * (3.0f - 2.0f * t_s);
+    float scale_inner = (sib * sib) * (sib * sib);
+
+    const int arm_en = ct[1], wind_en = ct[2];
+    float arm_val = 1.0f, winding = 0.0f;
+    if (arm_en) {
+        arm_val = arm_value(ip, cp, max_arms, rot, radius, Px, Py, Pz);
+        if (wind_en)
+            winding = get_winding(radius, ip[I_WINDING_B], ip[I_WINDING_N])
+                      * cp[C_WINDING];
+    }
+    const float iscale = ip[I_ISCALE];
+    float val = cp[C_STRENGTH] * scale_inner * arm_val * z * intensity * iscale;
+    float ival = val * weight;
+    if (!(ival > F32(0.0005))) return;
+
+    const float ks = cp[C_KS], cscale = cp[C_SCALE];
+    const float noff = cp[C_NOFF], ntilt = cp[C_NTILT];
+    const float* spec = cp + C_SPEC;
+    const float* tw = ip + I_TWIRL;
+    const int cid = ct[0];
+    float tx, ty, tz;
+
+    float cval;  // this sample's noise factor
+    if (cid == CID_DUST) {
+        twirl(tw, winding, px, py, pz, tx, ty, tz);
+        cval = octave_noise_3d(perm, ct[5], ks, cscale * F32(0.1), tx, ty, tz);
+        cval = nan_max(cval - noff, 0.0f);
+        cval = qt_clamp(powf(5.0f * cval, ntilt), -10.0f, 10.0f);
+    } else if (cid == CID_DUST2 || cid == CID_DUST_POSITIVE) {
+        twirl(tw, winding, px, py, pz, tx, ty, tz);
+        cval = nan_max(ridged_mf(perm, tx * cscale, ty * cscale, tz * cscale,
+                                 cp + C_RIDGED_W, ct[7], 2.5f, noff, ntilt),
+                       0.0f);
+    } else if (cid == CID_DISK) {
+        twirl(tw, winding, px, py, pz, tx, ty, tz);
+        cval = fabsf(octave_noise_3d(perm, ct[4], ks, cscale * F32(0.1),
+                                     tx, ty, tz));
+        cval = nan_max(cval, F32(0.01));
+        cval = powf(cval, ntilt);
+        cval = cval + noff;
+        if (!(cval >= 0.0f)) return;
+    } else if (cid == CID_STARS) {
+        float freq = (F32(0.01) * cscale) * 100.0f;
+        float perlin = fabsf(octave_noise_3d(perm, ct[4], ks, freq, px, py, pz));
+        float add_n = 0.0f;
+        if (ct[3]) {  // star_extra
+            twirl(tw, winding, px, py, pz, tx, ty, tz);
+            add_n = noff * octave_noise_3d(perm, ct[6], -2.0f, F32(2.0 * 0.1),
+                                           tx, ty, tz);
+            twirl(tw, winding * 0.5f, px, py, pz, tx, ty, tz);
+            add_n = add_n + 0.5f * noff * octave_noise_3d(
+                perm, ct[6], -2.0f, F32(4.0 * 0.1), tx, ty, tz);
+        }
+        cval = fabsf(powf(perlin + 1.0f + add_n, ntilt));
+    } else if (cid == CID_STARS_SMALL) {
+        // seeded position-hash sparkle (engine.render._sparkle_hash)
+        int hu = abs_i32(hash3_i32(__float_as_int(px), __float_as_int(py),
+                                   __float_as_int(pz)));
+        int scale_i = max(__float2int_rz(cscale), 1);
+        if (floor_mod(hu, scale_i) != 0) return;
+        float dval = (float)floor_mod(hu >> 8, 10);
+        cval = powf(dval, ntilt);
+    } else {
+        return;  // unknown class: no-op (the reference skips it)
+    }
+    if (cid == CID_DUST || cid == CID_DUST2) {
+        // absorbers multiply the accumulator
+        float e = -cval * ival * F32(0.01);
+        I.I0 = I.I0 * expf(e * spec[0]);
+        I.I1 = I.I1 * expf(e * spec[1]);
+        I.I2 = I.I2 * expf(e * spec[2]);
+        return;
+    }
+    float add = ival * cval * ray_step;
+    I.I0 = I.I0 + spec[0] * add;
+    I.I1 = I.I1 + spec[1] * add;
+    I.I2 = I.I2 + spec[2] * add;
+}
+
+// Bulge (galaxycomponents.cpp:5-39): no gating, every active sample.
+__device__ __forceinline__ void apply_bulge(const float* ip, const float* cp,
+                                            const Quat& rot, float px, float py,
+                                            float pz, float weight,
+                                            float ray_step, Ray& I) {
+    float bx, by, bz;
+    quat_rotate(rot, px, py, pz, bx, by, bz);
+    float rad = (sqrtf(bx * bx + by * by + bz * bz) + F32(0.01)) * cp[C_R0]
+                + F32(0.01);
+    float ival = (cp[C_STRENGTH] * weight)
+                 * (powf(rad, F32(-0.855)) * expf(-sqrtf(sqrtf(rad))) - F32(0.05))
+                 * ip[I_ISCALE];
+    ival = ival < 0.0f ? 0.0f : ival;
+    float add = ival * ray_step;
+    I.I0 = I.I0 + cp[C_SPEC + 0] * add;
+    I.I1 = I.I1 + cp[C_SPEC + 1] * add;
+    I.I2 = I.I2 + cp[C_SPEC + 2] * add;
+}
+
+// Intersect and march one instance (rasterizer.cpp:379-483).
+__device__ void march_instance(const int* perm, const int* tab,
+                               const float* pg, const int* it, bool dither,
+                               float dx, float dy, float dz, Ray& I) {
+    const int n_comps = it[0], max_arms = it[1];
+    const float* ip = pg + it[2];
+    const int* ct0 = tab + it[3];
+    const float ray_step = pg[G_RAY_STEP];
+    const float min_step = pg[G_MIN_STEP];
+
+    const float cx = pg[G_CAMERA + 0] - ip[I_POS + 0];
+    const float cy = pg[G_CAMERA + 1] - ip[I_POS + 1];
+    const float cz = pg[G_CAMERA + 2] - ip[I_POS + 2];
+    const float ivx = ip[I_AXIS_INV + 0];
+    const float ivy = ip[I_AXIS_INV + 1];
+    const float ivz = ip[I_AXIS_INV + 2];
+
+    float A = dx * dx * ivx + dy * dy * ivy + dz * dz * ivz;
+    float B = 2.0f * (dx * cx * ivx + dy * cy * ivy + dz * cz * ivz);
+    float C = (cx * cx * ivx + cy * cy * ivy + cz * cz * ivz) - 1.0f;
+    float Sdisc = B * B - 4.0f * A * C;
+    bool hit = Sdisc > 0.0f;
+    float sq = sqrtf(hit ? Sdisc : 0.0f);
+    float t0 = (-B - sq) / (2.0f * A);
+    float t1 = (-B + sq) / (2.0f * A);
+    // behind-camera rules (rasterizer.cpp:396-403)
+    float near_t = t1 > 0.0f ? 0.0f : t1;
+    bool alive = hit && !((t0 > 0.0f) && (t1 > 0.0f));
+    if (!alive) return;
+
+    float o1x = cx + dx * t0, o1y = cy + dy * t0, o1z = cz + dz * t0;
+    float o2x = cx + dx * near_t, o2y = cy + dy * near_t, o2z = cz + dz * near_t;
+    float fx = o1x - o2x, fy = o1y - o2y, fz = o1z - o2z;
+    float length = sqrtf(fx * fx + fy * fy + fz * fz);
+    float safe = length == 0.0f ? 1.0f : length;
+    float mdx = fx / safe, mdy = fy / safe, mdz = fz / safe;
+    // camera distance is affine along the march: |p - cam| = -t0 - tacc
+    float dist0 = -t0;
+
+    float px = o1x, py = o1y, pz = o1z, tacc = 0.0f;
+    if (dither) {
+        // per-ray start jitter by a hash of the direction bits
+        int hsh = hash3_i32(__float_as_int(dx), __float_as_int(dy),
+                            __float_as_int(dz));
+        float h01 = (float)floor_mod(abs_i32(hsh), 8192) * F32(1.0 / 8192.0);
+        float delta = nan_min(
+            qt_clamp(dist0 * ray_step, min_step, F32(0.01)) * h01, length);
+        px = o1x - mdx * delta;
+        py = o1y - mdy * delta;
+        pz = o1z - mdz * delta;
+        tacc = delta;
+    }
+    float steppr = ray_step;
+
+    const float ox = ip[I_ORIENT + 0], oy = ip[I_ORIENT + 1],
+                oz = ip[I_ORIENT + 2];
+    const float axis_x = ip[I_AXIS_X];
+    const Quat rot{ip[I_ROTMAT + 0], ip[I_ROTMAT + 1], ip[I_ROTMAT + 2],
+                   ip[I_ROTMAT + 3]};
+
+    for (int iter = 0; iter < MAX_ITERS; ++iter) {
+        // loop exit (rasterizer.cpp:447): path length vs chord
+        if (tacc >= length + steppr) break;
+        float dist = dist0 - tacc;
+        float step = qt_clamp(dist * ray_step, min_step, F32(0.01));
+        float weight = step * 200.0f;
+
+        float dott = px * ox + py * oy + pz * oz;
+        float Px = px - ox * dott, Py = py - oy * dott, Pz = pz - oz * dott;
+        float radius = sqrtf(Px * Px + Py * Py + Pz * Pz) / axis_x;
+
+        // strictly in list order: emission adds, absorption multiplies
+        for (int c = 0; c < n_comps; ++c) {
+            const int* ct = ct0 + c * T_COMP;
+            const float* cp = pg + ct[8];
+            if (ct[0] == CID_BULGE)
+                apply_bulge(ip, cp, rot, px, py, pz, weight, ray_step, I);
+            else
+                apply_component(perm, ct, ip, cp, max_arms, rot, px, py, pz,
+                                Px, Py, Pz, dott, radius, weight, ray_step, I);
+        }
+
+        // advance (rasterizer.cpp:467-470), then RasterPixel::Floor:
+        // negatives and NaN to 0
+        px = px - mdx * step;
+        py = py - mdy * step;
+        pz = pz - mdz * step;
+        tacc = tacc + step;
+        steppr = step;
+        I.I0 = I.I0 >= 0.0f ? I.I0 : 0.0f;
+        I.I1 = I.I1 >= 0.0f ? I.I1 : 0.0f;
+        I.I2 = I.I2 >= 0.0f ? I.I2 : 0.0f;
+    }
+}
+
+__global__ void __launch_bounds__(256)
+march_kernel(const float* __restrict__ page, int n_page,
+             const int* __restrict__ table, int n_table,
+             const int* __restrict__ perm_g, float* __restrict__ out,
+             int size) {
+    extern __shared__ int smem[];
+    int* perm = smem;                                     // [512]
+    int* tab = perm + 512;                                // [n_table]
+    float* pg = reinterpret_cast<float*>(tab + n_table);  // [n_page]
+    const int tid = threadIdx.y * blockDim.x + threadIdx.x;
+    const int nthr = blockDim.x * blockDim.y;
+    for (int k = tid; k < 512; k += nthr) perm[k] = perm_g[k];
+    for (int k = tid; k < n_table; k += nthr) tab[k] = table[k];
+    for (int k = tid; k < n_page; k += nthr) pg[k] = page[k];
+    __syncthreads();
+
+    const int col = blockIdx.x * blockDim.x + threadIdx.x;
+    const int row = blockIdx.y * blockDim.y + threadIdx.y;
+    if (row >= size || col >= size) return;
+
+    // ray from the inverse view-projection (gamercamera.cpp:210-217)
+    const float jrow = pg[G_ROW0] + (float)row;
+    const float icol = (float)col;
+    const float fsize = (float)size;
+    const float half = F32((double)size * 0.5);
+    const float xx = icol / half - 1.0f;
+    const float yy = jrow / half - 1.0f;
+    float w[3];
+    for (int r = 0; r < 3; ++r)
+        w[r] = pg[4 * r] * xx - pg[4 * r + 1] * yy + pg[4 * r + 2] + pg[4 * r + 3];
+    const float inv_n = 1.0f / sqrtf(w[0] * w[0] + w[1] * w[1] + w[2] * w[2]);
+    const float dx = w[0] * inv_n, dy = w[1] * inv_n, dz = w[2] * inv_n;
+
+    Ray I{0.0f, 0.0f, 0.0f};
+    if (jrow < fsize && icol < fsize) {
+        const bool dither = tab[T_DITHER] != 0;
+        for (int gi = 0; gi < tab[T_N_INST]; ++gi)
+            march_instance(perm, tab, pg, tab + T_HDR + gi * T_INST, dither,
+                           dx, dy, dz, I);
+    }
+    // final scale (rasterizer.cpp:409)
+    const float fs = F32(0.01) / pg[G_RAY_STEP];
+    float* o = out + ((size_t)row * size + col) * 3;
+    o[0] = I.I0 * fs;
+    o[1] = I.I1 * fs;
+    o[2] = I.I2 * fs;
+}
+
+}  // namespace gamer
+
+extern "C" int gamer_march(const float* page, int n_page, const int* table,
+                           int n_table, const int* perm, float* out, int size,
+                           void* stream) {
+    if (size <= 0) return 0;
+    const size_t smem = (size_t)(512 + n_table + n_page) * 4;
+    if (smem > 48 * 1024) {
+        cudaError_t e = cudaFuncSetAttribute(
+            gamer::march_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
+            (int)smem);
+        if (e != cudaSuccess) return (int)e;
+    }
+    dim3 block(16, 16);
+    dim3 grid((size + 15) / 16, (size + 15) / 16);
+    gamer::march_kernel<<<grid, block, smem, (cudaStream_t)stream>>>(
+        page, n_page, table, n_table, perm, out, size);
+    return (int)cudaGetLastError();
+}
+
+extern "C" const char* gamer_error_string(int code) {
+    return cudaGetErrorString((cudaError_t)code);
+}

@@ -1,0 +1,625 @@
+"""The still-frame path: scene -> scalar page + structure table -> march
+kernel (csrc/march.cu) -> torch epilogue (pooling, stars, post) -> uint8.
+
+The counterpart of ``gamer_tpu.engine.pallas_render.render_scene_pallas``.
+The host side packs the scene's numbers into one float32 page
+(``_build_layout`` / ``_pack_scalars``, as the TPU kernel's SMEM row) and
+its structure into a small int32 table (``_build_table``) that the one
+precompiled CUDA kernel walks at run time.
+
+``march`` is the kernel's wrapper: a tensor on the CPU runs ``march_plain``,
+the lockstep torch version with the kernel's arithmetic (the ``tacc`` /
+``dist0 - tacc`` recurrence and ``tacc >= length + step_prev`` exit of
+pallas_render.py:428-434,578, the minimax atan); a CUDA tensor launches the
+kernel or raises.
+"""
+
+from __future__ import annotations
+
+import warnings
+
+import numpy as np
+import torch
+
+from ..ops.camera import inv_view_projection, ray_grid
+from ..ops.math3d import PI, atan2_f32, atan_f32, floor0, qt_clamp, quat_rotate
+from ..ops.noise import octave_noise_3d, perm_table, ridged_mf, ridged_weights
+from ..post.stars import pad_star_rows, star_field_device, star_params
+from ..scene.schema import (
+    CID_BULGE,
+    CID_DISK,
+    CID_DUST,
+    CID_DUST2,
+    CID_DUST_POSITIVE,
+    CID_STARS,
+    CID_STARS_SMALL,
+    Scene,
+)
+from .render import abs_i32, hash3_i32, pool_linear, post_process
+from .scene_prep import COMP_FIELDS, SceneStatic, flatten_scene
+
+f32 = np.float32
+
+# Hard safety cap on march substeps per instance (pallas_render.py:67-73):
+# guards against a non-terminating loop if the exit test goes NaN.
+MAX_ITERS = 131072
+RIDGED_OCTAVES = 9
+
+# Page offsets the kernel reads (csrc/march.cu): globals, then per instance
+# relative to "i{gi}.pos", per component relative to its first field.
+G_INV_VP, G_CAMERA, G_RAY_STEP, G_MIN_STEP, G_ROW0 = 0, 16, 19, 20, 21
+I_POS, I_AXIS_INV, I_AXIS_X, I_WINDING_B, I_WINDING_N = 0, 3, 6, 7, 8
+I_ARMS, I_ROTMAT, I_TWIRL, I_ORIENT, I_ISCALE = 9, 13, 17, 20, 23
+C_SPEC, C_RIDGED_W = 11, 14
+C_FIELD = {f: k for k, f in enumerate(COMP_FIELDS)}
+
+# Structure table: a header, one row per instance, one row per component.
+T_N_INST, T_DITHER, T_HDR = 0, 1, 2
+T_INST = 4   # n_comps, max_arms, page_off, comp_row
+T_COMP = 9   # cid, arm_en, wind_en, star_extra, oct10, oct9, oct4, n_ridged,
+             # page_off
+
+
+def _noise_kind_unsupported(kind: str) -> NotImplementedError:
+    return NotImplementedError(
+        f"noise_kind={kind!r} is not ported yet: the march kernel implements "
+        "simplex only (the perlin and iq raw-noise backends are listed in "
+        "ROADMAP.md's port queue)")
+
+
+class _Layout:
+    """Scalar packing: names -> offsets into one flat float32 page."""
+
+    def __init__(self):
+        self.names = []
+        self.sizes = {}
+        self.offsets = {}
+        self.n = 0
+
+    def add(self, name: str, k: int) -> int:
+        self.offsets[name] = self.n
+        self.sizes[name] = k
+        self.names.append(name)
+        self.n += k
+        return self.offsets[name]
+
+
+def _build_layout(static: SceneStatic) -> _Layout:
+    """pallas_render._build_layout for the simplex kernel (same names, same
+    order, so the page equals the TPU page's first ``n`` entries)."""
+    for inst in static.instances:
+        for cs in inst.comps:
+            if cs.noise_kind != "simplex":
+                raise _noise_kind_unsupported(cs.noise_kind)
+    lay = _Layout()
+    lay.add("inv_vp", 16)
+    lay.add("camera", 3)
+    lay.add("ray_step", 1)
+    lay.add("min_step", 1)
+    # global row offset of the rendered rows (0 for whole frames)
+    lay.add("row0", 1)
+    for gi, inst in enumerate(static.instances):
+        p = f"i{gi}."
+        lay.add(p + "pos", 3)
+        lay.add(p + "axis_inv", 3)   # 1/axis^2
+        lay.add(p + "axis_x", 1)
+        lay.add(p + "winding_b", 1)
+        lay.add(p + "winding_n", 1)
+        lay.add(p + "arms", 4)
+        lay.add(p + "rotmat", 4)
+        lay.add(p + "twirl_axis", 3)
+        lay.add(p + "orientation", 3)
+        lay.add(p + "iscale", 1)
+        for ci, cs in enumerate(inst.comps):
+            cp = f"{p}c{ci}."
+            for f in COMP_FIELDS:
+                lay.add(cp + f, 1)
+            lay.add(cp + "spec", 3)
+            if cs.cid in (CID_DUST2, CID_DUST_POSITIVE):
+                lay.add(cp + "ridged_w", cs.oct(RIDGED_OCTAVES))
+    return lay
+
+
+def _pack_scalars(static: SceneStatic, lay: _Layout, params, camera, inv_vp,
+                  ray_step, min_step) -> np.ndarray:
+    """The scene's numbers as one flat float32 page of ``lay.n`` entries."""
+    row = np.zeros(lay.n, np.float32)
+
+    def put(name, v):
+        off = lay.offsets[name]
+        flat = np.asarray(v, np.float32).reshape(-1)
+        row[off:off + flat.shape[0]] = flat
+
+    put("inv_vp", inv_vp)
+    put("camera", camera)
+    put("ray_step", ray_step)
+    put("min_step", min_step)
+    put("row0", 0.0)
+    for gi, (inst, pr) in enumerate(zip(static.instances, params)):
+        p = f"i{gi}."
+        axis = np.asarray(pr["axis"], np.float32)
+        put(p + "pos", pr["position"])
+        put(p + "axis_inv", np.float32(1.0) / (axis * axis))
+        put(p + "axis_x", axis[0])
+        put(p + "winding_b", pr["winding_b"])
+        put(p + "winding_n", pr["winding_n"])
+        put(p + "arms", pr["arms"])
+        put(p + "rotmat", pr["rotmat"])
+        put(p + "twirl_axis", pr["twirl_axis"])
+        put(p + "orientation", pr["orientation"])
+        put(p + "iscale", pr["intensity_scale"])
+        for ci, (cs, cp) in enumerate(zip(inst.comps, pr["comps"])):
+            cpre = f"{p}c{ci}."
+            for f in COMP_FIELDS:
+                put(cpre + f, cp[f])
+            put(cpre + "spec", cp["spec"])
+            if cs.cid in (CID_DUST2, CID_DUST_POSITIVE):
+                # pow(ks * 2.5^k, -0.05) per octave (noise.cpp:122), numpy f32
+                put(cpre + "ridged_w",
+                    ridged_weights(float(cp["ks"]), cs.oct(RIDGED_OCTAVES)))
+    return row
+
+
+def _build_table(static: SceneStatic, lay: _Layout) -> np.ndarray:
+    """The scene's structure as int32 rows the kernel walks at run time."""
+    n_inst = len(static.instances)
+    comp_row = T_HDR + n_inst * T_INST
+    rows = [n_inst, int(static.dither)]
+    comp_rows = []
+    for gi, inst in enumerate(static.instances):
+        p = f"i{gi}."
+        base = lay.offsets[p + "pos"]
+        if lay.offsets[p + "iscale"] - base != I_ISCALE:
+            raise RuntimeError("page layout disagrees with the kernel's offsets")
+        rows += [len(inst.comps), inst.max_arms, base,
+                 comp_row + len(comp_rows)]
+        for ci, cs in enumerate(inst.comps):
+            comp_rows += [cs.cid, int(cs.arm_enabled), int(cs.winding_enabled),
+                          int(cs.star_extra), cs.oct(10), cs.oct(9), cs.oct(4),
+                          cs.oct(RIDGED_OCTAVES),
+                          lay.offsets[f"{p}c{ci}.{COMP_FIELDS[0]}"]]
+    return np.asarray(rows + comp_rows, np.int32)
+
+
+def _check_march_cap(scene: Scene) -> None:
+    """Warn when a scene's worst-case march (a closed-form bound on the
+    step schedule) exceeds MAX_ITERS per instance: rays needing more would
+    lose their camera-near segment."""
+    cfg = scene.config
+    max_axis = max(
+        (max(gi.galaxy.params.axis) for gi in scene.instances), default=1.0)
+    bound = conservative_step_bound(cfg.ray_step, cfg.min_ray_step, max_axis)
+    if bound > MAX_ITERS:
+        warnings.warn(
+            f"scene's worst-case march length (~{bound} substeps/instance, "
+            f"axis {max_axis:g}, min step {cfg.min_ray_step:g}) exceeds the "
+            f"kernel cap MAX_ITERS={MAX_ITERS}; rays needing more substeps "
+            "would truncate their camera-near segment. Use a larger "
+            "min_ray_step or smaller ellipsoid axes.",
+            RuntimeWarning, stacklevel=3)
+
+
+def conservative_step_bound(ray_step: float, min_step: float,
+                            max_axis: float = 1.0, slack: float = 1.15) -> int:
+    """A trip bound >= the march's trip count for any ray
+    (gamer_tpu.engine.diff.conservative_step_bound). The step is
+    clamp(dist*ray_step, min_step, 0.01) and a chord is <= 2*max(axis):
+    below d1 = min_step/ray_step the step is min_step, between d1 and
+    d2 = 0.01/ray_step it grows geometrically, beyond d2 it is 0.01."""
+    import math
+
+    chord = 2.0 * max_axis
+    d1 = min_step / ray_step
+    d2 = 0.01 / ray_step
+    trips = min(chord, 2.0 * d1) / min_step
+    rem = chord - min(chord, 2.0 * d1)
+    if rem > 0 and d2 > d1:
+        trips += 2.0 * math.log(d2 / d1) / ray_step
+        rem -= min(rem, 2.0 * (d2 - d1))
+    if rem > 0:
+        trips += rem / 0.01
+    return int(trips * slack) + 16
+
+
+# ---------------------------------------------------------------------------
+# the plain version of the march kernel
+# ---------------------------------------------------------------------------
+
+
+def _twirl(axis, t, vx, vy, vz):
+    """Rotate by angle t*pi about the unit twirl axis (galaxycomponent.h:86-90)."""
+    half = t * (PI * 0.5)
+    s = torch.sin(half)
+    ax, ay, az = axis
+    return quat_rotate((torch.cos(half), ax * s, ay * s, az * s), vx, vy, vz)
+
+
+def _get_winding(rad, wb, wn):
+    """galaxycomponent.h:156-165 (atan via the minimax polynomial)."""
+    r = rad + 0.05
+    return atan_f32(torch.exp(-0.25 / (0.5 * r)) / wb) * 2.0 * wn
+
+
+def _find_difference(t1, t2):
+    d = t1 - t2
+    v = torch.abs(d)
+    for k in (-2 * PI, 2 * PI, -4 * PI, 4 * PI):
+        v = torch.minimum(v, torch.abs(d + k))
+    return v
+
+
+def _arm_value(inst, cp, max_arms, radius, Px, Py, Pz):
+    """galaxycomponent.h:120-146: the literal pow ladder, std::max NaN order."""
+    rx, _, rz = quat_rotate(inst["rotmat"], Px, Py, Pz)
+    theta = atan2_f32(rx, rz) + cp["delta"]
+    ww = _get_winding(radius, inst["winding_b"], inst["winding_n"])
+    arm15 = float(f32(cp["arm"]) * f32(15.0))
+    val = None
+    for a in range(max_arms):
+        v = torch.abs(_find_difference(ww, -theta + inst["arms"][a])) / PI
+        arm_v = torch.pow(1.0 - v, arm15)
+        val = arm_v if val is None else torch.where(arm_v > val, arm_v, val)
+    return val
+
+
+def _cloud(inst, octaves, t, ks_, pers_, px, py, pz):
+    """octave noise of the twirled sample at frequency ks_*0.1, with the
+    call sites' (scale, persistence) argument order (pallas_render.py:835)."""
+    tx, ty, tz = _twirl(inst["twirl_axis"], t, px, py, pz)
+    return octave_noise_3d(octaves, pers_, f32(ks_) * f32(0.1), tx, ty, tz)
+
+
+def _component(st, inst, cp, max_arms, px, py, pz, Px, Py, Pz, dott, radius,
+               weight, ray_step, I):
+    """One non-bulge component on the current active rays (all tensors are
+    per active ray); I is the list [I0, I1, I2], updated in place."""
+    z0, r0 = cp["z0"], cp["r0"]
+    h = torch.abs(dott / z0)
+    r_thr = float(f32(r0) * f32(2.2552)) if r0 > 0 else float(f32(3.4e38))
+    trig = (h <= 2.0) & (radius < r_thr)
+    if not bool(trig.any()):
+        return
+    s = trig.nonzero().squeeze(1)
+    h, radius, w_s = h[s], radius[s], weight[s]
+
+    eh = torch.exp(h)
+    sech = 2.0 / (eh + 1.0 / eh)
+    z = torch.where(h > 2.0, 0.0, sech * sech)
+    ri = torch.exp(-radius / float(f32(r0) * f32(0.5)))
+    intensity = qt_clamp(ri - 0.01, 0.0, 1.0)
+    intensity = torch.where(intensity > 0.1, 0.1, intensity)
+    gates = (z > 0.01) & (intensity > 0.001)
+
+    t_s = qt_clamp(radius / cp["inner"], 0.0, 1.0)
+    sib = t_s * t_s * (3.0 - 2.0 * t_s)
+    scale_inner = (sib * sib) * (sib * sib)
+    if st["arm_en"]:
+        arm_val = _arm_value(inst, cp, max_arms, radius, Px[s], Py[s], Pz[s])
+        if st["wind_en"]:
+            winding = _get_winding(radius, inst["winding_b"],
+                                   inst["winding_n"]) * cp["winding"]
+        else:
+            winding = torch.zeros_like(radius)
+    else:
+        arm_val = torch.ones_like(radius)
+        winding = torch.zeros_like(radius)
+    val = cp["strength"] * scale_inner * arm_val * z * intensity * inst["iscale"]
+    ival = val * w_s
+    emit = gates & (ival > 0.0005)
+    if not bool(emit.any()):
+        return
+    e = emit.nonzero().squeeze(1)
+    se = s[e]
+    ival, winding = ival[e], winding[e]
+    ex, ey, ez = px[se], py[se], pz[se]
+    ks, cscale = cp["ks"], cp["scale"]
+    noff, ntilt = cp["noise_offset"], cp["noise_tilt"]
+    spec = cp["spec"]
+    cid = st["cid"]
+
+    keep = None  # rows of `se` that emit, where a class has a second gate
+    if cid == CID_DUST:
+        contrib = _cloud(inst, st["oct9"], winding, cscale, ks, ex, ey, ez)
+        contrib = torch.clamp(contrib - noff, min=0.0)
+        contrib = qt_clamp(torch.pow(5.0 * contrib, ntilt), -10.0, 10.0)
+    elif cid in (CID_DUST2, CID_DUST_POSITIVE):
+        tx, ty, tz = _twirl(inst["twirl_axis"], winding, ex, ey, ez)
+        contrib = torch.clamp(ridged_mf(tx * cscale, ty * cscale, tz * cscale,
+                                        cp["ridged_w"], 2.5, noff, ntilt),
+                              min=0.0)
+    elif cid == CID_DISK:
+        contrib = torch.abs(_cloud(inst, st["oct10"], winding, cscale, ks,
+                                   ex, ey, ez))
+        contrib = torch.pow(torch.clamp(contrib, min=0.01), ntilt) + noff
+        keep = contrib >= 0
+    elif cid == CID_STARS:
+        freq = (f32(0.01) * f32(cscale)) * f32(100.0)
+        perlin = torch.abs(octave_noise_3d(st["oct10"], ks, freq, ex, ey, ez))
+        add_n = torch.zeros_like(perlin)
+        if st["star_extra"]:
+            add_n = noff * _cloud(inst, st["oct4"], winding, 2.0, -2.0,
+                                  ex, ey, ez)
+            add_n = add_n + float(f32(0.5) * f32(noff)) * _cloud(
+                inst, st["oct4"], winding * 0.5, 4.0, -2.0, ex, ey, ez)
+        contrib = torch.abs(torch.pow(perlin + 1.0 + add_n, ntilt))
+    elif cid == CID_STARS_SMALL:
+        # seeded position-hash sparkle (engine.render._sparkle_hash)
+        hu = abs_i32(hash3_i32(ex.view(torch.int32), ey.view(torch.int32),
+                               ez.view(torch.int32)))
+        scale_i = max(int(np.float32(cscale).astype(np.int32)), 1)
+        keep = torch.remainder(hu, scale_i) == 0
+        dval = torch.remainder(hu >> 8, 10).to(torch.float32)
+        contrib = torch.pow(dval, ntilt)
+    else:
+        return  # unknown class: no-op (the reference skips it)
+    if cid in (CID_DUST, CID_DUST2):
+        # absorbers multiply the accumulator
+        ea = -contrib * ival * 0.01
+        for k in range(3):
+            I[k][se] = I[k][se] * torch.exp(ea * spec[k])
+        return
+    add = ival * contrib * ray_step
+    if keep is not None:
+        k_idx = keep.nonzero().squeeze(1)
+        se, add = se[k_idx], add[k_idx]
+    for k in range(3):
+        I[k][se] = I[k][se] + spec[k] * add
+
+
+def _bulge(inst, cp, px, py, pz, weight, ray_step, I):
+    """Bulge (galaxycomponents.cpp:5-39): no gating, every active sample."""
+    bx, by, bz = quat_rotate(inst["rotmat"], px, py, pz)
+    rad = (torch.sqrt(bx * bx + by * by + bz * bz) + 0.01) * cp["r0"] + 0.01
+    ival = (cp["strength"] * weight) * (
+        torch.pow(rad, -0.855) * torch.exp(-torch.sqrt(torch.sqrt(rad))) - 0.05
+    ) * inst["iscale"]
+    ival = torch.where(ival < 0, 0.0, ival)
+    add = ival * ray_step
+    for k in range(3):
+        I[k] = I[k] + cp["spec"][k] * add
+
+
+def _read_scene(pg: np.ndarray, tb: np.ndarray):
+    """Decode the page and table into per-instance dicts of float32 values
+    (as Python floats) and per-component structure rows."""
+    insts = []
+    n_inst = int(tb[T_N_INST])
+    for gi in range(n_inst):
+        n_comps, max_arms, base, crow = (int(v) for v in
+                                         tb[T_HDR + gi * T_INST:][:T_INST])
+        v = [float(x) for x in pg[base:base + I_ISCALE + 1]]
+        inst = {
+            "pos": v[I_POS:I_POS + 3],
+            "axis_inv": v[I_AXIS_INV:I_AXIS_INV + 3],
+            "axis_x": v[I_AXIS_X],
+            "winding_b": v[I_WINDING_B],
+            "winding_n": v[I_WINDING_N],
+            "arms": v[I_ARMS:I_ARMS + 4],
+            "rotmat": v[I_ROTMAT:I_ROTMAT + 4],
+            "twirl_axis": v[I_TWIRL:I_TWIRL + 3],
+            "orientation": v[I_ORIENT:I_ORIENT + 3],
+            "iscale": v[I_ISCALE],
+            "max_arms": max_arms,
+            "comps": [],
+        }
+        for ci in range(n_comps):
+            r = [int(x) for x in tb[crow + ci * T_COMP:][:T_COMP]]
+            st = dict(cid=r[0], arm_en=bool(r[1]), wind_en=bool(r[2]),
+                      star_extra=bool(r[3]), oct10=r[4], oct9=r[5], oct4=r[6])
+            off = r[8]
+            cp = {f: float(pg[off + C_FIELD[f]]) for f in COMP_FIELDS}
+            cp["spec"] = [float(x) for x in pg[off + C_SPEC:off + C_SPEC + 3]]
+            cp["ridged_w"] = pg[off + C_RIDGED_W:off + C_RIDGED_W + r[7]].copy()
+            inst["comps"].append((st, cp))
+        insts.append(inst)
+    return insts
+
+
+def _march_instance_plain(inst, dirs, valid, camera, ray_step, min_step,
+                          dither, I_out):
+    """Intersect and march one instance for all rays in lockstep; rays are
+    dropped from the working set as they finish, so every op runs only on
+    rays that are still marching."""
+    cx = float(f32(camera[0]) - f32(inst["pos"][0]))
+    cy = float(f32(camera[1]) - f32(inst["pos"][1]))
+    cz = float(f32(camera[2]) - f32(inst["pos"][2]))
+    ivx, ivy, ivz = inst["axis_inv"]
+    dx, dy, dz = dirs[:, 0], dirs[:, 1], dirs[:, 2]
+    A = dx * dx * ivx + dy * dy * ivy + dz * dz * ivz
+    B = 2.0 * (dx * cx * ivx + dy * cy * ivy + dz * cz * ivz)
+    C = float((f32(cx) * f32(cx) * f32(ivx) + f32(cy) * f32(cy) * f32(ivy)
+               + f32(cz) * f32(cz) * f32(ivz)) - f32(1.0))
+    Sdisc = B * B - 4.0 * A * C
+    hit = Sdisc > 0.0
+    sq = torch.sqrt(torch.where(hit, Sdisc, 0.0))
+    t0 = (-B - sq) / (2.0 * A)
+    t1 = (-B + sq) / (2.0 * A)
+    # behind-camera rules (rasterizer.cpp:396-403)
+    near_t = torch.where(t1 > 0, 0.0, t1)
+    alive = hit & ~((t0 > 0) & (t1 > 0)) & valid
+    idx = alive.nonzero().squeeze(1)
+    if idx.numel() == 0:
+        return
+    dx, dy, dz, t0, near_t = dx[idx], dy[idx], dz[idx], t0[idx], near_t[idx]
+
+    o1x, o1y, o1z = cx + dx * t0, cy + dy * t0, cz + dz * t0
+    fx = o1x - (cx + dx * near_t)
+    fy = o1y - (cy + dy * near_t)
+    fz = o1z - (cz + dz * near_t)
+    length = torch.sqrt(fx * fx + fy * fy + fz * fz)
+    safe = torch.where(length == 0, 1.0, length)
+    mdx, mdy, mdz = fx / safe, fy / safe, fz / safe
+    # camera distance is affine along the march: |p - cam| = -t0 - tacc
+    dist0 = -t0
+    if dither:
+        hsh = hash3_i32(dx.view(torch.int32), dy.view(torch.int32),
+                        dz.view(torch.int32))
+        h01 = torch.remainder(abs_i32(hsh), 8192).to(torch.float32) * (1.0 / 8192.0)
+        delta = torch.minimum(
+            qt_clamp(dist0 * ray_step, min_step, 0.01) * h01, length)
+        px, py, pz = o1x - mdx * delta, o1y - mdy * delta, o1z - mdz * delta
+        tacc = delta
+    else:
+        px, py, pz = o1x, o1y, o1z
+        tacc = torch.zeros_like(o1x)
+    steppr = torch.full_like(o1x, ray_step)
+    I = [I_out[idx, k] for k in range(3)]
+
+    ox, oy, oz = inst["orientation"]
+    axis_x = inst["axis_x"]
+    it = 0
+    while it < MAX_ITERS:
+        # loop exit (rasterizer.cpp:447): path length vs chord
+        stop = tacc >= length + steppr
+        if bool(stop.any()):
+            I_out[idx[stop]] = torch.stack([v[stop] for v in I], dim=1)
+            keep = (~stop).nonzero().squeeze(1)
+            if keep.numel() == 0:
+                return
+            (idx, px, py, pz, tacc, steppr, length, dist0, mdx, mdy, mdz,
+             I0, I1, I2) = (v[keep] for v in (
+                idx, px, py, pz, tacc, steppr, length, dist0, mdx, mdy, mdz,
+                *I))
+            I = [I0, I1, I2]
+        dist = dist0 - tacc
+        step = qt_clamp(dist * ray_step, min_step, 0.01)
+        weight = step * 200.0
+        dott = px * ox + py * oy + pz * oz
+        Px, Py, Pz = px - ox * dott, py - oy * dott, pz - oz * dott
+        radius = torch.sqrt(Px * Px + Py * Py + Pz * Pz) / axis_x
+        # strictly in list order: emission adds, absorption multiplies
+        for st, cp in inst["comps"]:
+            if st["cid"] == CID_BULGE:
+                _bulge(inst, cp, px, py, pz, weight, ray_step, I)
+            else:
+                _component(st, inst, cp, inst["max_arms"], px, py, pz,
+                           Px, Py, Pz, dott, radius, weight, ray_step, I)
+        # advance (rasterizer.cpp:467-470), then floor: negatives/NaN to 0
+        px, py, pz = px - mdx * step, py - mdy * step, pz - mdz * step
+        tacc = tacc + step
+        steppr = step
+        I = [floor0(v) for v in I]
+        it += 1
+    I_out[idx] = torch.stack(I, dim=1)
+
+
+def march_plain(page: torch.Tensor, table: torch.Tensor, size: int):
+    """The march kernel's function in torch ops, on the page's device:
+    (size, size, 3) float32 linear radiance scaled by 0.01/ray_step."""
+    dev = page.device
+    pg = page.detach().to("cpu", torch.float32).numpy()
+    tb = table.detach().to("cpu").numpy()
+    ray_step, min_step = float(pg[G_RAY_STEP]), float(pg[G_MIN_STEP])
+    row0 = float(pg[G_ROW0])
+    dirs = ray_grid(size, pg[G_INV_VP:G_INV_VP + 16], row0,
+                    device=dev).reshape(-1, 3)
+    jrow = row0 + torch.arange(size, dtype=torch.float32, device=dev)
+    valid = (jrow < float(size))[:, None].expand(size, size).reshape(-1)
+    I = torch.zeros((size * size, 3), dtype=torch.float32, device=dev)
+    camera = pg[G_CAMERA:G_CAMERA + 3]
+    for inst in _read_scene(pg, tb):
+        _march_instance_plain(inst, dirs, valid, camera, ray_step, min_step,
+                              bool(tb[T_DITHER]), I)
+    fs = float(f32(0.01) / f32(ray_step))
+    return (I * fs).reshape(size, size, 3)
+
+
+def march(page: torch.Tensor, table: torch.Tensor, size: int) -> torch.Tensor:
+    """Linear radiance (size, size, 3) float32 for a scalar page and its
+    structure table, on their device. CPU tensors run ``march_plain``; CUDA
+    tensors launch the CUDA kernel (counted in ``march.launch_count``) or
+    raise."""
+    if page.device.type == "cpu" and table.device.type == "cpu":
+        return march_plain(page, table, size)
+    if page.device.type != "cuda" or table.device != page.device:
+        raise ValueError(
+            f"page and table must both be on one CUDA device or both on the "
+            f"CPU, got {page.device} and {table.device}")
+    if page.dtype != torch.float32 or table.dtype != torch.int32:
+        raise TypeError(f"page must be float32 and table int32, got "
+                        f"{page.dtype} and {table.dtype}")
+    if page.dim() != 1 or table.dim() != 1 or not (
+            page.is_contiguous() and table.is_contiguous()):
+        raise ValueError("page and table must be contiguous 1-D tensors")
+    if int(size) <= 0:
+        raise ValueError(f"size must be positive, got {size}")
+    from ..kernels import library
+
+    lib = library()
+    out = torch.empty((size, size, 3), dtype=torch.float32, device=page.device)
+    perm = perm_table(page.device, torch.int32)
+    stream = torch.cuda.current_stream(page.device).cuda_stream
+    with torch.cuda.device(page.device):
+        rc = lib.gamer_march(page.data_ptr(), page.numel(), table.data_ptr(),
+                             table.numel(), perm.data_ptr(), out.data_ptr(),
+                             int(size), stream)
+    if rc != 0:
+        raise RuntimeError(f"march kernel launch failed: CUDA error {rc} "
+                           f"({lib.gamer_error_string(rc).decode()})")
+    march.launch_count += 1
+    return out
+
+
+march.launch_count = 0
+
+
+# ---------------------------------------------------------------------------
+# front door
+# ---------------------------------------------------------------------------
+
+
+def _device(device) -> torch.device:
+    dev = torch.device(device)
+    if dev.type == "cuda" and not torch.cuda.is_available():
+        raise RuntimeError(
+            f"device {device!r} requested but torch.cuda.is_available() is "
+            "False; pass device='cpu' to run the plain torch march")
+    return dev
+
+
+def prepare(scene: Scene, device):
+    """(page, table, march size, pool factor) for a scene, with page and
+    table on ``device``."""
+    cfg = scene.config
+    if cfg.noise_kind != "simplex":
+        raise _noise_kind_unsupported(cfg.noise_kind)
+    _check_march_cap(scene)
+    static, params = flatten_scene(scene)
+    camera = np.asarray(scene.camera.camera, np.float32)
+    inv_vp = inv_view_projection(camera, scene.camera.target, scene.camera.up,
+                                 scene.camera.fov)
+    lay = _build_layout(static)
+    page = _pack_scalars(static, lay, params, camera, inv_vp,
+                         f32(cfg.ray_step), f32(cfg.min_ray_step))
+    table = _build_table(static, lay)
+    ss = cfg.supersample
+    return (torch.as_tensor(page, device=device),
+            torch.as_tensor(table, device=device), cfg.size * ss, ss)
+
+
+def render_linear(scene: Scene, device="cuda") -> torch.Tensor:
+    """Linear radiance (size, size, 3) float32 on ``device`` (supersampled
+    frames pooled in linear space)."""
+    dev = _device(device)
+    page, table, size, ss = prepare(scene, dev)
+    return pool_linear(march(page, table, size), ss)
+
+
+def render_scene(scene: Scene, device="cuda", device_out: bool = False):
+    """A full frame -> (size, size, 3) uint8: march, star overlay and post
+    chain, as ``render_scene_pallas``. With ``device_out`` the uint8 tensor
+    stays on ``device``; otherwise a numpy array is returned."""
+    dev = _device(device)
+    cfg = scene.config
+    lin = render_linear(scene, dev)
+    if cfg.no_stars > 0:
+        star_p = pad_star_rows(
+            star_params(cfg.size, cfg.no_stars, cfg.star_size,
+                        cfg.star_size_spread, cfg.star_strength,
+                        cfg.star_seed))
+        lin = lin + star_field_device(star_p, cfg.size, device=dev)
+    img = post_process(lin, f32(cfg.exposure), f32(cfg.gamma),
+                       f32(cfg.saturation))
+    if device_out:
+        return img
+    return img.cpu().numpy()

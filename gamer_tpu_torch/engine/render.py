@@ -1,0 +1,54 @@
+"""The torch pieces of ``gamer_tpu.engine.render`` that the march and its
+epilogue use: the shared integer hash (dither and sparkle), the post chain
+(buffer2d.cpp:106-126) and supersample pooling in linear space."""
+
+from __future__ import annotations
+
+import numpy as np
+import torch
+
+from ..ops.math3d import qt_clamp
+
+_INT32_MIN = -(1 << 31)
+
+
+def _wrap_i32(v):
+    """Two's-complement wrap of an int64 tensor to the int32 range."""
+    return ((v + (1 << 31)) & 0xFFFFFFFF) - (1 << 31)
+
+
+def hash3_i32(bx, by, bz):
+    """``gamer_tpu.engine.render.hash3_i32``: int32 wrapping multiplies,
+    xor, and an arithmetic shift. Inputs are int32 (or int64 holding int32
+    values); the result is an int64 tensor holding the int32 value."""
+    bx, by, bz = bx.long(), by.long(), bz.long()
+    h = _wrap_i32((bx * -1640531527) ^ (by * 97) ^ (bz * 1013904223))
+    return h ^ (h >> 13)
+
+
+def abs_i32(h):
+    """int32 abs: |INT_MIN| stays INT_MIN, as jnp.abs on int32 does."""
+    return torch.where(h == _INT32_MIN, h, torch.abs(h))
+
+
+def post_process(linear, exposure, gamma, saturation):
+    """buffer2d.cpp:106-126 -> uint8 RGB. The scalars are float32 values."""
+    v = linear * float(np.float32(1.0) / np.float32(exposure))
+    v = torch.pow(v, float(gamma))
+    csum = (v[..., 0] + v[..., 1]) + v[..., 2]
+    # a tensor divisor: CUDA turns division by a Python scalar into a
+    # multiply by its rounded reciprocal, which is not the f32 quotient
+    center = csum / torch.full_like(csum, 3.0)
+    tmp = center[..., None] - v
+    v = center[..., None] - float(saturation) * tmp
+    c = qt_clamp(v * 10.0, 0.0, 255.0)
+    return c.to(torch.int32).to(torch.uint8)
+
+
+def pool_linear(lin, pool: int):
+    """Box-average a (S, S, 3) radiance buffer by ``pool`` in linear space
+    (supersampling, pallas_render.py:1116-1118)."""
+    if pool == 1:
+        return lin
+    o = lin.shape[0] // pool
+    return lin.reshape(o, pool, o, pool, 3).mean(dim=(1, 3))

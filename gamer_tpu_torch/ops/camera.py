@@ -1,0 +1,88 @@
+"""Camera — the Qt-convention view/projection chain (gamercamera.cpp:185-217).
+
+  proj = perspective(fov, aspect=1, near=1, far=100)
+  view = lookAt(target, camera, up)        # NOTE reversed eye/center!
+  inv_vp = (proj @ view)^-1
+  ray(i, j) = normalize((inv_vp @ (i/(w/2)-1, -(j/(w/2)-1), 1, 1)).xyz)
+
+Because of the reversed lookAt, rays point AWAY from the scene; visible
+geometry sits at negative ray parameters (rasterizer.cpp:396-403). The
+inverse is the closed form inv(V) @ inv(P) of ``gamer_tpu.ops.camera``,
+evaluated on the host in float32. Rays use the march kernel's expression
+(row sums left-associated, then ``w * (1/sqrt(|w|^2))``), so the plain
+march and the kernel see the same directions.
+"""
+
+from __future__ import annotations
+
+import numpy as np
+import torch
+
+from .math3d import dot3
+
+
+def inv_view_projection(camera, target, up, fov_deg, near=1.0, far=100.0):
+    """Closed-form (perspective(fov,1,near,far) @ lookAt(target, camera, up))^-1
+    as a (4, 4) float32 numpy array, computed on the host in float32."""
+    f = torch.float32
+    camera = torch.as_tensor(np.asarray(camera, np.float32), dtype=f)
+    target = torch.as_tensor(np.asarray(target, np.float32), dtype=f)
+    up = torch.as_tensor(np.asarray(up, np.float32), dtype=f)
+
+    # lookAt(eye=target, center=camera, up) basis (Qt convention, reversed)
+    eye, center = target, camera
+    fwd = center - eye
+    fwd = fwd / torch.sqrt(dot3(fwd, fwd))
+    side = torch.linalg.cross(fwd, up)
+    side = side / torch.sqrt(dot3(side, side))
+    upv = torch.linalg.cross(side, fwd)
+
+    # V^-1 = [[side upv -fwd] (columns), eye; 0 0 0 1]
+    vinv = torch.zeros(4, 4, dtype=f)
+    vinv[:3, 0] = side
+    vinv[:3, 1] = upv
+    vinv[:3, 2] = -fwd
+    vinv[:3, 3] = eye
+    vinv[3, 3] = 1.0
+
+    # P^-1 for perspective(fov, aspect=1, near, far):
+    #   P^-1 = [[1/c,0,0,0],[0,1/c,0,0],[0,0,0,-1],[0,0,1/m23,m22/m23]]
+    radians = torch.tensor(np.float32(fov_deg) / np.float32(2.0), dtype=f) \
+        * (np.pi / 180.0)
+    cotan = torch.cos(radians) / torch.sin(radians)
+    clip = far - near
+    m22 = -(near + far) / clip
+    m23 = -(2.0 * near * far) / clip
+    pinv = torch.zeros(4, 4, dtype=f)
+    pinv[0, 0] = 1.0 / cotan
+    pinv[1, 1] = 1.0 / cotan
+    pinv[2, 3] = -1.0
+    pinv[3, 2] = 1.0 / m23
+    pinv[3, 3] = m22 / m23
+    return (vinv @ pinv).numpy()
+
+
+def coord2ray(i, j, width: int, inv_vp):
+    """Pixel (i, j) -> normalized world ray (gamercamera.cpp:210-217).
+
+    i, j: float32 tensors of pixel coordinates; inv_vp: (4, 4) float32
+    tensor or array. Returns (..., 3) float32. The w component of the
+    transformed NDC point is dropped before normalization (toVector3D)."""
+    m = [float(v) for v in np.asarray(inv_vp, np.float32).reshape(-1)]
+    half = float(width) * 0.5
+    xx = i / half - 1.0
+    yy = j / half - 1.0
+    w = [m[4 * r] * xx - m[4 * r + 1] * yy + m[4 * r + 2] + m[4 * r + 3]
+         for r in range(3)]
+    inv_n = 1.0 / torch.sqrt(w[0] * w[0] + w[1] * w[1] + w[2] * w[2])
+    return torch.stack([w[0] * inv_n, w[1] * inv_n, w[2] * inv_n], dim=-1)
+
+
+def ray_grid(size: int, inv_vp, row0: float = 0.0, device="cpu"):
+    """All rays of a size x size frame as (size, size, 3), indexed [row j,
+    col i] (the reference's idx = j*size + i layout). ``row0`` shifts the
+    global row index, as the kernel's page slot does for row bands."""
+    ii = torch.arange(size, dtype=torch.float32, device=device)
+    jj = row0 + torch.arange(size, dtype=torch.float32, device=device)
+    j_g, i_g = torch.meshgrid(jj, ii, indexing="ij")
+    return coord2ray(i_g, j_g, size, inv_vp)

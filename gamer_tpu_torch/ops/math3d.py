@@ -1,0 +1,74 @@
+"""3-D math primitives with the reference's numeric conventions, as torch
+ops — the subset of ``gamer_tpu.ops.math3d`` the still-frame path uses,
+plus the minimax atan/atan2 the march kernel evaluates
+(``gamer_tpu.ops.pallas_noise.atan_f32/atan2_f32``).
+
+Python scalars mixed into these ops are cast to the tensor's float32, so
+``x * 0.5`` rounds the constant to f32 first — JAX's weak-type rule, which
+the kernel's ``0.5f`` literals mirror.
+"""
+
+from __future__ import annotations
+
+import torch
+
+PI = 3.141592653589793
+
+
+def qt_clamp(val, lo, hi):
+    """max(lo, min(hi, val)) with std::min/max ordering: clamp(NaN) == hi."""
+    r = torch.where(val < hi, val, hi)
+    return torch.where(lo < r, r, lo)
+
+
+def floor0(v):
+    """RasterPixel::Floor — negatives and NaN to 0 (rasterpixel.cpp:34-38)."""
+    return torch.where(v >= 0, v, 0.0)
+
+
+def dot3(a, b):
+    """Dot product over the trailing axis of size 3."""
+    return (a[..., 0] * b[..., 0] + a[..., 1] * b[..., 1]) + a[..., 2] * b[..., 2]
+
+
+def quat_rotate(q, vx, vy, vz):
+    """Rotate vectors (vx, vy, vz) by the quaternion q = (w, x, y, z): the
+    expanded sandwich product v + 2 (w uv + u x uv), u = (x, y, z). The
+    components of q may be floats or tensors broadcasting with v."""
+    qw, qx, qy, qz = q
+    uvx = qy * vz - qz * vy
+    uvy = qz * vx - qx * vz
+    uvz = qx * vy - qy * vx
+    uuvx = qy * uvz - qz * uvy
+    uuvy = qz * uvx - qx * uvz
+    uuvz = qx * uvy - qy * uvx
+    return (vx + 2.0 * (qw * uvx + uuvx),
+            vy + 2.0 * (qw * uvy + uuvy),
+            vz + 2.0 * (qw * uvz + uuvz))
+
+
+def atan_f32(x):
+    """Minimax float32 arctangent, range-reduced, max error ~2 ulp."""
+    ax = torch.abs(x)
+    big = ax > 2.414213562373095   # tan(3*pi/8)
+    mid = ax > 0.4142135623730950  # tan(pi/8)
+    safe = torch.where(ax == 0, 1.0, ax)
+    z = torch.where(big, -1.0 / safe, torch.where(mid, (ax - 1.0) / (ax + 1.0), ax))
+    base = torch.where(big, PI / 2, torch.where(mid, PI / 4, 0.0)).to(x.dtype)
+    z2 = z * z
+    p = ((8.05374449538e-2 * z2 - 1.38776856032e-1) * z2
+         + 1.99777106478e-1) * z2 - 3.33329491539e-1
+    r = base + (z + z * z2 * p)
+    return torch.where(x < 0, -r, r)
+
+
+def atan2_f32(y, x):
+    """float32 atan2 built on atan_f32 with full quadrant handling."""
+    safe_x = torch.where(x == 0, 1.0, x)
+    r = atan_f32(y / safe_x)
+    # x < 0: shift by +-pi toward y's sign (atan2 convention, y==0 -> +pi)
+    shift = torch.where(y < 0, -PI, PI).to(y.dtype)
+    r = torch.where(x < 0, r + shift, r)
+    # x == 0: +-pi/2 by y's sign; (0, 0) -> 0
+    vert = torch.where(y > 0, PI / 2, torch.where(y < 0, -PI / 2, 0.0)).to(y.dtype)
+    return torch.where(x == 0, vert, r)
