@@ -1,16 +1,30 @@
 """gamer_tpu_torch — the galaxy renderer in PyTorch, with a hand-written
 CUDA march kernel for NVIDIA Hopper (sm_90a).
 
-The port of ``gamer_tpu``'s still-frame path: ``render_scene(scene,
-device=...)`` returns the same uint8 frame as
-``gamer_tpu.engine.pallas_render.render_scene_pallas``. On a CUDA device the
-march runs in csrc/march.cu (built with nvcc at first use); on the CPU it
-runs the kernel's plain torch version. The package stands alone: it has its
-own copy of the scene model, the presets and the star draws, and imports
-neither jax nor ``gamer_tpu``.
+The port of ``gamer_tpu``'s still-frame, band and batch paths:
+``render_scene(scene, device=...)`` returns the same uint8 frame as
+``gamer_tpu.engine.pallas_render.render_scene_pallas``;
+``render_progressive`` renders it in row bands with progress and abort;
+``render_batch`` / ``render_flythrough`` render many frames in one launch
+per scene structure, and ``DatasetJob`` renders resumable dataset chunks.
+On a CUDA device the march runs in csrc/march.cu (built with nvcc at first
+use); on the CPU it runs the kernel's plain torch version. The package
+stands alone: it has its own copy of the scene model, the presets, the star
+draws and the other JAX-free modules it needs, and imports neither jax nor
+``gamer_tpu``.
 """
 
-from .engine.cuda_render import render_linear, render_scene  # noqa: F401
+from .engine.batch import (  # noqa: F401
+    render_batch,
+    render_batch_linear,
+    render_flythrough,
+)
+from .engine.cuda_render import (  # noqa: F401
+    render_linear,
+    render_progressive,
+    render_scene,
+)
+from .engine.jobs import DatasetJob  # noqa: F401
 from .scene import (  # noqa: F401
     CameraParams,
     ComponentParams,

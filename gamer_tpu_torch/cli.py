@@ -1,78 +1,341 @@
-"""Headless CLI for the port: render a JSON scene dict.
+"""Headless CLI for the port: the reference's positional commands
+(ConsoleRenderer parity, consolerenderer.cpp) and the JAX package's batch
+commands, as ``gamer_tpu.cli`` has them.
 
-  python -m gamer_tpu_torch.cli render <scene.json> <outfile> [--device cuda|cpu]
+  python -m gamer_tpu_torch.cli <command> <parameters> [--device cuda|cpu]
 
-An outfile ending in .fits writes one FITS image per channel of the linear
-radiance buffer (io/fits.py); anything else writes
-an 8-bit RGB PNG with a standard-library encoder.
+Every command renders on the card unless a trailing ``--device cpu`` asks
+for the plain torch march. ``render`` with an outfile ending in .fits writes
+one FITS image per channel of the linear radiance buffer (io/fits.py);
+images are 8-bit RGB PNGs from a standard-library encoder (io/png.py).
 """
 
 from __future__ import annotations
 
-import argparse
+import dataclasses
 import json
-import struct
 import sys
 import time
-import zlib
 from pathlib import Path
 
-import numpy as np
+from .io.png import write_png
+from .scene import gax
+from .scene.schema import (
+    CameraParams,
+    GalaxyInstance,
+    RenderConfig,
+    Scene,
+    _to_dict,
+    scene_from_dict,
+)
+from .utils.timers import ScopedTimer, format_ms
+
+USAGE = """Usage: python -m gamer_tpu_torch.cli [ command ] [ parameters ] [--device cuda|cpu]
+Commands:
+   galaxy <method> <camera x y z> <target x y z> <up x y z> <fov> <exposure>
+          <gamma> <saturation> <ray step> <gax file> <size> <outfile>
+   skybox <method> <RenderParams.dat> <gax file> <size>
+   render <scene.json> <outfile>
+   info <gax file>
+   flythrough <gax file> <frames> <size> <outprefix>
+   morph <gax A> <gax B> <frames> <size> <outprefix>
+   scene <gax[,gax...]> <n> <box> <seed> <size> <outfile>
+   dataset <gax[,gax...]> <n per gax> <seed> <size> <chunk> <out dir>
+<method>: omp | thread | pallas (all three: the CUDA march kernel)
+"""
+
+# the JAX package's other backends, which the port does not have
+UNPORTED_METHODS = ("xla", "oracle", "sharded")
+CARD_METHODS = ("omp", "thread", "pallas")
 
 
-def write_png(path, img: np.ndarray) -> None:
-    """Write an (H, W, 3) uint8 image as an 8-bit RGB PNG (zlib + struct)."""
-    img = np.ascontiguousarray(img, dtype=np.uint8)
-    h, w, c = img.shape
-    if c != 3:
-        raise ValueError(f"expected an (H, W, 3) image, got {img.shape}")
+def _progress_printer(t0: float):
+    state = {"prev": -1}
 
-    def chunk(tag: bytes, data: bytes) -> bytes:
-        body = tag + data
-        return (struct.pack(">I", len(data)) + body
-                + struct.pack(">I", zlib.crc32(body) & 0xFFFFFFFF))
-
-    # filter type 0 (None) before every scanline
-    raw = np.concatenate([np.zeros((h, 1), np.uint8), img.reshape(h, w * 3)],
-                         axis=1).tobytes()
-    png = (b"\x89PNG\r\n\x1a\n"
-           + chunk(b"IHDR", struct.pack(">IIBBBBB", w, h, 8, 2, 0, 0, 0))
-           + chunk(b"IDAT", zlib.compress(raw, 6))
-           + chunk(b"IEND", b""))
-    Path(path).write_bytes(png)
+    def cb(frac: float, _img=None) -> None:
+        cur = int(frac * 1000)
+        if cur != state["prev"]:
+            elapsed = (time.perf_counter() - t0) * 1000.0
+            eta = elapsed / frac - elapsed if frac > 0 else 0.0
+            print(f"\r[ {cur / 10:.1f}% ]  with ETA in {format_ms(eta)} ",
+                  end="", flush=True)
+            state["prev"] = cur
+    return cb
 
 
-def cmd_render(args) -> int:
+def _save_png(img, outfile: str) -> str:
+    out = outfile if outfile.endswith(".png") else outfile + ".png"
+    write_png(out, img)
+    return out
+
+
+def _method(name: str, command: str):
+    """The lower-cased method, or None after printing why it is refused."""
+    method = name.lower()
+    if method in UNPORTED_METHODS:
+        print(f"ERROR! method {name!r} is not ported to gamer_tpu_torch "
+              f"(use {', '.join(CARD_METHODS)}: the CUDA march kernel)")
+        return None
+    if method not in CARD_METHODS:
+        print(f"ERROR! Cannot recognize {name} for {command}")
+        print(f"Must be one of {', '.join(CARD_METHODS)}")
+        return None
+    return method
+
+
+def _orbit_scene(gax_file: str, size: int) -> Scene:
+    """The reference's canonical view of one galaxy (singleGalaxy.sh)."""
+    return Scene(
+        camera=CameraParams(camera=(0.5, 0, 0), target=(0, 0, 0), up=(0, 1, 0),
+                            fov=90.0),
+        instances=[GalaxyInstance(galaxy=gax.load(gax_file))],
+        config=RenderConfig(size=size, ray_step=0.025),
+    )
+
+
+def cmd_galaxy(argv, device) -> int:
+    """The reference's 19-token still through the band path (K5), with its
+    percent-done and ETA ticker (consolerenderer.cpp:80-93)."""
+    if len(argv) != 19:
+        print(f"{len(argv)}\nIncorrect usage/parameters for galaxy. Usage:")
+        print(USAGE)
+        return 1
+    if _method(argv[1], "galaxy") is None:
+        return 1
+    from .engine.cuda_render import render_progressive
+
+    fl = [float(x) for x in argv[2:16]]
+    scene = Scene(
+        camera=CameraParams(camera=tuple(fl[0:3]), target=tuple(fl[3:6]),
+                            up=tuple(fl[6:9]), fov=fl[9]),
+        instances=[GalaxyInstance(galaxy=gax.load(argv[16]))],
+        config=RenderConfig(size=int(float(argv[17])), ray_step=fl[13],
+                            exposure=fl[10], gamma=fl[11],
+                            saturation=fl[12]),
+    )
+    print(f"Starting rendering on {_device_desc(device)}.")
+    t0 = time.perf_counter()
+    with ScopedTimer("Rendering"):
+        img = render_progressive(scene, bands=16,
+                                 on_progress=_progress_printer(t0),
+                                 device=device)
+        print()
+    out = _save_png(img, argv[18])
+    print(f"Image saved to file {out}")
+    return 0
+
+
+def cmd_skybox(argv, device) -> int:
+    """Six cube faces around the RenderParams camera in one batched launch
+    (K4); PNGs Skybox<face>.png in the working directory."""
+    if len(argv) != 5:
+        print(f"{len(argv)}\nIncorrect usage/parameters for skybox. Usage:")
+        print(USAGE)
+        return 1
+    if _method(argv[1], "skybox") is None:
+        return 1
+    from .engine.batch import render_batch
+    from .engine.queue import skybox_jobs
+    from .io.renderparams import RenderParamsFile
+
+    rp = RenderParamsFile.load(argv[2])
+    scene = Scene(
+        camera=rp.camera,
+        instances=[GalaxyInstance(galaxy=gax.load(argv[3]))],
+        config=rp.to_render_config(size=int(float(argv[4]))),
+        spectra=rp.spectra or None,
+    )
+    print(f"Starting rendering on {_device_desc(device)}.")
+    jobs = skybox_jobs(scene)
+    with ScopedTimer("Rendering"):
+        frames = render_batch([j.scene for j in jobs], device=device)
+    for job, img in zip(jobs, frames):
+        print(f"Image saved to file {_save_png(img, job.filename)}")
+    return 0
+
+
+def cmd_render(argv, device) -> int:
+    if len(argv) != 3:
+        print(USAGE)
+        return 1
     from .engine.cuda_render import render_linear, render_scene
-    from .scene.schema import scene_from_dict
 
-    scene = scene_from_dict(json.loads(Path(args.scene).read_text()))
-    outfile = args.outfile
+    scene = scene_from_dict(json.loads(Path(argv[1]).read_text()))
+    outfile = argv[2]
     t0 = time.perf_counter()
     if outfile.endswith(".fits"):
         from .io.fits import write_fits_channels
 
-        linear = render_linear(scene, device=args.device).cpu().numpy()
+        linear = render_linear(scene, device=device).cpu().numpy()
         paths = write_fits_channels(outfile[:-5], linear)
     else:
-        out = outfile if outfile.endswith(".png") else outfile + ".png"
-        write_png(out, render_scene(scene, device=args.device))
-        paths = [out]
+        paths = [_save_png(render_scene(scene, device=device), outfile)]
     print(f"Rendering: {(time.perf_counter() - t0) * 1e3:.1f} ms")
     for p in paths:
         print(f"Image saved to file {p}")
     return 0
 
 
+def cmd_info(argv, device) -> int:
+    if len(argv) != 2:
+        print(USAGE)
+        return 1
+    print(json.dumps(_to_dict(gax.load(argv[1])), indent=2))
+    return 0
+
+
+def _save_frames(imgs, prefix: str) -> None:
+    for i, frame in enumerate(imgs):
+        write_png(f"{prefix}_{i:03d}.png", frame)
+    print(f"Saved {len(imgs)} frames to {prefix}_NNN.png (no animated GIF: "
+          "it needs PIL, which gamer_tpu_torch does not use)")
+
+
+def cmd_flythrough(argv, device) -> int:
+    """An orbit of <frames> cameras rendered as one batched launch (K4);
+    writes <outprefix>_NNN.png per frame."""
+    if len(argv) != 5:
+        print(USAGE)
+        return 1
+    from .engine.batch import render_flythrough
+    from .scene.cameracontrols import orbit_path
+
+    frames = int(argv[2])
+    scene = _orbit_scene(argv[1], int(argv[3]))
+    cams = orbit_path(scene.camera, frames)
+    with ScopedTimer(f"{frames}-frame fly-through"):
+        imgs = render_flythrough(scene, cams, device=device)
+    _save_frames(imgs, argv[4])
+    return 0
+
+
+def cmd_morph(argv, device) -> int:
+    """Morph one galaxy into another: each frame a parameter interpolation,
+    all in one batched launch; writes <outprefix>_NNN.png per frame."""
+    if len(argv) != 6:
+        print(USAGE)
+        return 1
+    from .engine.batch import render_batch
+    from .scene.morph import morph_scenes
+
+    frames = int(argv[3])
+    scene = _orbit_scene(argv[1], int(argv[4]))
+    try:
+        scenes = morph_scenes(scene, gax.load(argv[2]), frames)
+        with ScopedTimer(f"{frames}-frame morph"):
+            imgs = render_batch(scenes, device=device)
+    except ValueError as e:
+        print(f"morph: {e}")
+        return 1
+    _save_frames(imgs, argv[5])
+    return 0
+
+
+def cmd_scene(argv, device) -> int:
+    """Scene mode (mainwindow.cpp:1137-1170): N random instances of the
+    given galaxies in a box, one frame."""
+    if len(argv) != 7:
+        print(USAGE)
+        return 1
+    from .engine.cuda_render import render_scene
+    from .scene.generate import generate_scene
+
+    pool = [gax.load(p) for p in argv[1].split(",")]
+    n, box = int(argv[2]), float(argv[3])
+    seed, size = int(argv[4]), int(argv[5])
+    base = Scene(
+        camera=CameraParams(camera=(2.5, 0.4, 0), target=(0, 0, 0),
+                            up=(0, 1, 0), fov=70.0),
+        config=RenderConfig(size=size, ray_step=0.025),
+    )
+    scene = generate_scene(pool, n, box, seed=seed, base_scene=base)
+    with ScopedTimer(f"{n}-instance scene"):
+        img = render_scene(scene, device=device)
+    print(f"Image saved to file {_save_png(img, argv[6])}")
+    return 0
+
+
+def dataset_scenes(gax_files, n: int, seed: int, size: int):
+    """The dataset command's corpus: n structure-preserving variations of
+    each galaxy, template-major, at the canonical camera."""
+    from .scene.generate import generate_galaxy_variations
+
+    base = Scene(
+        camera=CameraParams(camera=(0.5, 0, 0), target=(0, 0, 0), up=(0, 1, 0),
+                            fov=90.0),
+        config=RenderConfig(size=size, ray_step=0.025),
+    )
+    return [
+        dataclasses.replace(base, instances=[GalaxyInstance(galaxy=g)])
+        for t, path in enumerate(gax_files)
+        for g in generate_galaxy_variations(gax.load(path), n, seed=seed + t)
+    ]
+
+
+def cmd_dataset(argv, device) -> int:
+    """Resumable dataset generation: variations rendered to .npy chunks with
+    a manifest; re-running into the same out dir resumes."""
+    if len(argv) != 7:
+        print(USAGE)
+        return 1
+    from .engine.jobs import DatasetJob
+
+    n, seed, size = int(argv[2]), int(argv[3]), int(argv[4])
+    chunk = int(argv[5])
+    scenes = dataset_scenes(argv[1].split(","), n, seed, size)
+    job = DatasetJob(scenes, argv[6], chunk_size=chunk, device=device)
+    done = {"frames": 0}
+
+    def on_chunk(c, cdt):
+        done["frames"] += min(chunk, len(scenes) - c * chunk)
+        print(f"chunk {c + 1}/{job.n_chunks} in {format_ms(cdt * 1000.0)}")
+
+    t0 = time.perf_counter()
+    rendered = job.run(on_chunk=on_chunk)
+    dt = time.perf_counter() - t0
+    rate = done["frames"] / dt if dt > 0 and done["frames"] else 0.0
+    print(f"{rendered}/{job.n_chunks} chunks this run "
+          f"({done['frames']} scenes, {rate:.1f} scenes/s) -> {argv[6]}")
+    return 0
+
+
+def _device_desc(device: str) -> str:
+    import torch
+
+    if device == "cpu" or not torch.cuda.is_available():
+        return f"device {device!r}"
+    return f"{torch.cuda.get_device_name(0)} (CUDA march kernel)"
+
+
+COMMANDS = {
+    "galaxy": cmd_galaxy,
+    "skybox": cmd_skybox,
+    "render": cmd_render,
+    "info": cmd_info,
+    "flythrough": cmd_flythrough,
+    "morph": cmd_morph,
+    "scene": cmd_scene,
+    "dataset": cmd_dataset,
+}
+
+
 def main(argv=None) -> int:
-    ap = argparse.ArgumentParser(prog="python -m gamer_tpu_torch.cli")
-    sub = ap.add_subparsers(dest="command", required=True)
-    r = sub.add_parser("render", help="render a JSON scene dict")
-    r.add_argument("scene")
-    r.add_argument("outfile")
-    r.add_argument("--device", default="cuda", choices=("cuda", "cpu"))
-    args = ap.parse_args(argv)
-    return cmd_render(args)
+    argv = list(sys.argv[1:] if argv is None else argv)
+    device = "cuda"
+    if len(argv) >= 2 and argv[-2] == "--device":
+        device = argv[-1]
+        argv = argv[:-2]
+        if device not in ("cuda", "cpu"):
+            print(f"--device must be cuda or cpu, got {device!r}")
+            return 1
+    if not argv:
+        print(USAGE)
+        return 0
+    handler = COMMANDS.get(argv[0].lower())
+    if handler is None:
+        print(USAGE)
+        return 1
+    return handler(argv, device)
 
 
 if __name__ == "__main__":

@@ -1,21 +1,26 @@
-"""The still-frame path: scene -> scalar page + structure table -> march
-kernel (csrc/march.cu) -> torch epilogue (pooling, stars, post) -> uint8.
+"""The still-frame and row-band paths: scene -> scalar page + structure
+table -> march kernel (csrc/march.cu) -> torch epilogue (pooling, stars,
+post) -> uint8.
 
-The counterpart of ``gamer_tpu.engine.pallas_render.render_scene_pallas``.
-The host side packs the scene's numbers into one float32 page
-(``_build_layout`` / ``_pack_scalars``, as the TPU kernel's SMEM row) and
-its structure into a small int32 table (``_build_table``) that the one
-precompiled CUDA kernel walks at run time.
+The counterpart of ``gamer_tpu.engine.pallas_render``'s
+``render_scene_pallas`` (one fused frame) and ``render_progressive_pallas``
+(row bands with progress and abort). The host side packs the scene's
+numbers into one float32 page (``_build_layout`` / ``_pack_scalars``, as
+the TPU kernel's SMEM row) and its structure into a small int32 table
+(``_build_table``) that the one precompiled CUDA kernel walks at run time.
 
-``march`` is the kernel's wrapper: a tensor on the CPU runs ``march_plain``,
-the lockstep torch version with the kernel's arithmetic (the ``tacc`` /
-``dist0 - tacc`` recurrence and ``tacc >= length + step_prev`` exit of
-pallas_render.py:428-434,578, the minimax atan); a CUDA tensor launches the
-kernel or raises.
+The kernel's wrappers are ``march`` (K1, a whole frame), ``march_band``
+(K5, a row band) and ``march_batch`` (K4, a stack of frames; used by
+engine/batch.py). A tensor on the CPU runs the plain version,
+``march_plain`` and its band and batch forms: the lockstep torch version
+with the kernel's arithmetic (the ``tacc`` / ``dist0 - tacc`` recurrence
+and ``tacc >= length + step_prev`` exit of pallas_render.py:428-434,578,
+the minimax atan); a CUDA tensor launches the kernel or raises.
 """
 
 from __future__ import annotations
 
+import math
 import warnings
 
 import numpy as np
@@ -40,6 +45,10 @@ from .scene_prep import COMP_FIELDS, SceneStatic, flatten_scene
 
 f32 = np.float32
 
+# Band height quantum by frame size (pallas_render.py:59-64): progressive
+# bands, progress ticks and abort rows follow the JAX package's geometry.
+TILE_R, TILE_R_LARGE = 32, 64
+
 # Hard safety cap on march substeps per instance (pallas_render.py:67-73):
 # guards against a non-terminating loop if the exit test goes NaN.
 MAX_ITERS = 131072
@@ -58,6 +67,24 @@ T_N_INST, T_DITHER, T_HDR = 0, 1, 2
 T_INST = 4   # n_comps, max_arms, page_off, comp_row
 T_COMP = 9   # cid, arm_en, wind_en, star_extra, oct10, oct9, oct4, n_ridged,
              # page_off
+
+
+def _tile_rows(size: int) -> int:
+    return TILE_R_LARGE if size >= 1024 else TILE_R
+
+
+def band_geometry(size: int, supersample: int, bands: int):
+    """(band_rows, n_bands) of a progressive render, as
+    ``render_progressive_pallas`` cuts it (pallas_render.py:1552-1558):
+    bands are whole multiples of the tile height and the pool factor, in
+    march rows, and the last band may reach past the frame."""
+    S = size * supersample
+    tr = _tile_rows(S)
+    granule = tr * supersample // math.gcd(tr, supersample)
+    rows = -(-S // granule) * granule
+    n_bands = max(1, min(bands, rows // granule))
+    band_rows = -(-(rows // granule) // n_bands) * granule
+    return band_rows, -(-S // band_rows)
 
 
 def _noise_kind_unsupported(kind: str) -> NotImplementedError:
@@ -269,14 +296,20 @@ def _cloud(inst, octaves, t, ks_, pers_, px, py, pz):
     return octave_noise_3d(octaves, pers_, f32(ks_) * f32(0.1), tx, ty, tz)
 
 
+def _count(stats, key: str, n) -> None:
+    if stats is not None:
+        stats[key] = stats.get(key, 0) + int(n)
+
+
 def _component(st, inst, cp, max_arms, px, py, pz, Px, Py, Pz, dott, radius,
-               weight, ray_step, I):
+               weight, ray_step, I, stats=None):
     """One non-bulge component on the current active rays (all tensors are
     per active ray); I is the list [I0, I1, I2], updated in place."""
     z0, r0 = cp["z0"], cp["r0"]
     h = torch.abs(dott / z0)
     r_thr = float(f32(r0) * f32(2.2552)) if r0 > 0 else float(f32(3.4e38))
     trig = (h <= 2.0) & (radius < r_thr)
+    _count(stats, "triggers", trig.numel())
     if not bool(trig.any()):
         return
     s = trig.nonzero().squeeze(1)
@@ -289,6 +322,11 @@ def _component(st, inst, cp, max_arms, px, py, pz, Px, Py, Pz, dott, radius,
     intensity = qt_clamp(ri - 0.01, 0.0, 1.0)
     intensity = torch.where(intensity > 0.1, 0.1, intensity)
     gates = (z > 0.01) & (intensity > 0.001)
+    if stats is not None:
+        n_gated = int(gates.sum())
+        _count(stats, "triggered", s.numel())
+        _count(stats, "gated", n_gated)
+        _count(stats, "arm_gated", n_gated if st["arm_en"] else 0)
 
     t_s = qt_clamp(radius / cp["inner"], 0.0, 1.0)
     sib = t_s * t_s * (3.0 - 2.0 * t_s)
@@ -309,6 +347,14 @@ def _component(st, inst, cp, max_arms, px, py, pz, Px, Py, Pz, dott, radius,
     if not bool(emit.any()):
         return
     e = emit.nonzero().squeeze(1)
+    if stats is not None:
+        # the kernel's noise work on the emitting samples (raw simplex calls)
+        n_raw = {CID_DUST: st["oct9"], CID_DUST2: st["n_ridged"],
+                 CID_DUST_POSITIVE: st["n_ridged"], CID_DISK: st["oct10"],
+                 CID_STARS: st["oct10"] + (2 * st["oct4"] if st["star_extra"]
+                                           else 0)}.get(st["cid"], 0)
+        _count(stats, "emitting", e.numel())
+        _count(stats, "raw_noise", e.numel() * n_raw)
     se = s[e]
     ival, winding = ival[e], winding[e]
     ex, ey, ez = px[se], py[se], pz[se]
@@ -405,7 +451,8 @@ def _read_scene(pg: np.ndarray, tb: np.ndarray):
         for ci in range(n_comps):
             r = [int(x) for x in tb[crow + ci * T_COMP:][:T_COMP]]
             st = dict(cid=r[0], arm_en=bool(r[1]), wind_en=bool(r[2]),
-                      star_extra=bool(r[3]), oct10=r[4], oct9=r[5], oct4=r[6])
+                      star_extra=bool(r[3]), oct10=r[4], oct9=r[5], oct4=r[6],
+                      n_ridged=r[7])
             off = r[8]
             cp = {f: float(pg[off + C_FIELD[f]]) for f in COMP_FIELDS}
             cp["spec"] = [float(x) for x in pg[off + C_SPEC:off + C_SPEC + 3]]
@@ -416,10 +463,11 @@ def _read_scene(pg: np.ndarray, tb: np.ndarray):
 
 
 def _march_instance_plain(inst, dirs, valid, camera, ray_step, min_step,
-                          dither, I_out):
+                          dither, I_out, stats=None):
     """Intersect and march one instance for all rays in lockstep; rays are
     dropped from the working set as they finish, so every op runs only on
-    rays that are still marching."""
+    rays that are still marching. ``stats`` (a dict) counts the samples
+    and the component work the data needs."""
     cx = float(f32(camera[0]) - f32(inst["pos"][0]))
     cy = float(f32(camera[1]) - f32(inst["pos"][1]))
     cz = float(f32(camera[2]) - f32(inst["pos"][2]))
@@ -481,6 +529,7 @@ def _march_instance_plain(inst, dirs, valid, camera, ray_step, min_step,
                 idx, px, py, pz, tacc, steppr, length, dist0, mdx, mdy, mdz,
                 *I))
             I = [I0, I1, I2]
+        _count(stats, "samples", idx.numel())
         dist = dist0 - tacc
         step = qt_clamp(dist * ray_step, min_step, 0.01)
         weight = step * 200.0
@@ -490,10 +539,12 @@ def _march_instance_plain(inst, dirs, valid, camera, ray_step, min_step,
         # strictly in list order: emission adds, absorption multiplies
         for st, cp in inst["comps"]:
             if st["cid"] == CID_BULGE:
+                _count(stats, "bulge", idx.numel())
                 _bulge(inst, cp, px, py, pz, weight, ray_step, I)
             else:
                 _component(st, inst, cp, inst["max_arms"], px, py, pz,
-                           Px, Py, Pz, dott, radius, weight, ray_step, I)
+                           Px, Py, Pz, dott, radius, weight, ray_step, I,
+                           stats)
         # advance (rasterizer.cpp:467-470), then floor: negatives/NaN to 0
         px, py, pz = px - mdx * step, py - mdy * step, pz - mdz * step
         tacc = tacc + step
@@ -503,64 +554,158 @@ def _march_instance_plain(inst, dirs, valid, camera, ray_step, min_step,
     I_out[idx] = torch.stack(I, dim=1)
 
 
-def march_plain(page: torch.Tensor, table: torch.Tensor, size: int):
+def march_plain(page: torch.Tensor, table: torch.Tensor, frame_size: int,
+                rows: int | None = None, stats: dict | None = None):
     """The march kernel's function in torch ops, on the page's device:
-    (size, size, 3) float32 linear radiance scaled by 0.01/ray_step."""
+    (rows, frame_size, 3) float32 linear radiance scaled by 0.01/ray_step
+    for the rays of rows row0 + [0, rows) of a frame_size x frame_size
+    frame (row0 from the page; ``rows`` defaults to the whole frame). Rows
+    past the frame's last row are 0. A ``stats`` dict gets the counts of
+    the work these inputs need (march samples, bulge samples, component
+    trigger tests, triggered, gated and emitting samples, raw noise calls),
+    from which a lower bound of the kernel's time follows."""
+    rows = frame_size if rows is None else int(rows)
     dev = page.device
     pg = page.detach().to("cpu", torch.float32).numpy()
     tb = table.detach().to("cpu").numpy()
     ray_step, min_step = float(pg[G_RAY_STEP]), float(pg[G_MIN_STEP])
     row0 = float(pg[G_ROW0])
-    dirs = ray_grid(size, pg[G_INV_VP:G_INV_VP + 16], row0,
-                    device=dev).reshape(-1, 3)
-    jrow = row0 + torch.arange(size, dtype=torch.float32, device=dev)
-    valid = (jrow < float(size))[:, None].expand(size, size).reshape(-1)
-    I = torch.zeros((size * size, 3), dtype=torch.float32, device=dev)
+    dirs = ray_grid(frame_size, pg[G_INV_VP:G_INV_VP + 16], row0,
+                    device=dev, rows=rows).reshape(-1, 3)
+    jrow = row0 + torch.arange(rows, dtype=torch.float32, device=dev)
+    valid = (jrow < float(frame_size))[:, None].expand(
+        rows, frame_size).reshape(-1)
+    I = torch.zeros((rows * frame_size, 3), dtype=torch.float32, device=dev)
     camera = pg[G_CAMERA:G_CAMERA + 3]
     for inst in _read_scene(pg, tb):
         _march_instance_plain(inst, dirs, valid, camera, ray_step, min_step,
-                              bool(tb[T_DITHER]), I)
+                              bool(tb[T_DITHER]), I, stats)
     fs = float(f32(0.01) / f32(ray_step))
-    return (I * fs).reshape(size, size, 3)
+    return (I * fs).reshape(rows, frame_size, 3)
 
 
-def march(page: torch.Tensor, table: torch.Tensor, size: int) -> torch.Tensor:
-    """Linear radiance (size, size, 3) float32 for a scalar page and its
-    structure table, on their device. CPU tensors run ``march_plain``; CUDA
-    tensors launch the CUDA kernel (counted in ``march.launch_count``) or
-    raise."""
-    if page.device.type == "cpu" and table.device.type == "cpu":
-        return march_plain(page, table, size)
-    if page.device.type != "cuda" or table.device != page.device:
+def _with_row0(page: torch.Tensor, row0: int) -> torch.Tensor:
+    """A copy of the page with its row0 slot set to ``row0``, the band's
+    global row offset (``_set_row0``, pallas_render.py:996-1000). An integer
+    below 2^24 is exact in f32, so the band's rays are the whole frame's."""
+    if int(row0) != row0 or not 0 <= int(row0) < (1 << 24):
+        raise ValueError(f"row0 must be an integer in [0, 2^24), got {row0}")
+    out = page.clone()
+    out[G_ROW0] = float(row0)
+    return out
+
+
+def march_band_plain(page: torch.Tensor, table: torch.Tensor,
+                     frame_size: int, band_rows: int, row0: int,
+                     stats: dict | None = None):
+    """K5's function: (band_rows, frame_size, 3) radiance of the band of
+    rows row0 + [0, band_rows) of the frame."""
+    return march_plain(_with_row0(page, row0), table, frame_size, band_rows,
+                       stats)
+
+
+def march_batch_plain(pages: torch.Tensor, table: torch.Tensor,
+                      frame_size: int, stats: dict | None = None):
+    """K4's function: (B, frame_size, frame_size, 3) radiance, one whole
+    frame per page of the (B, n) stack, all of one structure table."""
+    return torch.stack([march_plain(p, table, frame_size, stats=stats)
+                        for p in pages])
+
+
+def _on_cpu(pages: torch.Tensor, table: torch.Tensor, page_dim: int) -> bool:
+    """Check a wrapper's inputs; True when both lie on the CPU (the plain
+    version runs), False when both lie on one CUDA device (the kernel
+    launches). Anything else raises."""
+    if pages.dtype != torch.float32 or table.dtype != torch.int32:
+        raise TypeError(f"pages must be float32 and the table int32, got "
+                        f"{pages.dtype} and {table.dtype}")
+    if pages.dim() != page_dim or table.dim() != 1:
+        raise ValueError(f"pages must be {page_dim}-D and the table 1-D, got "
+                         f"{pages.dim()}-D and {table.dim()}-D")
+    if pages.device.type == "cpu" and table.device.type == "cpu":
+        return True
+    if pages.device.type != "cuda" or table.device != pages.device:
         raise ValueError(
-            f"page and table must both be on one CUDA device or both on the "
-            f"CPU, got {page.device} and {table.device}")
-    if page.dtype != torch.float32 or table.dtype != torch.int32:
-        raise TypeError(f"page must be float32 and table int32, got "
-                        f"{page.dtype} and {table.dtype}")
-    if page.dim() != 1 or table.dim() != 1 or not (
-            page.is_contiguous() and table.is_contiguous()):
-        raise ValueError("page and table must be contiguous 1-D tensors")
-    if int(size) <= 0:
-        raise ValueError(f"size must be positive, got {size}")
+            f"pages and table must both be on one CUDA device or both on the "
+            f"CPU, got {pages.device} and {table.device}")
+    if not (pages.is_contiguous() and table.is_contiguous()):
+        raise ValueError("pages and table must be contiguous")
+    return False
+
+
+def _launch(pages: torch.Tensor, table: torch.Tensor, frame_size: int,
+            rows: int) -> torch.Tensor:
+    """One launch of csrc/march.cu over a (B, n) page stack:
+    (B, rows, frame_size, 3) radiance on the pages' device."""
     from ..kernels import library
 
+    if int(frame_size) <= 0 or int(rows) <= 0:
+        raise ValueError(f"frame_size and rows must be positive, got "
+                         f"{frame_size} and {rows}")
+    n_frames, n_page = pages.shape
     lib = library()
-    out = torch.empty((size, size, 3), dtype=torch.float32, device=page.device)
-    perm = perm_table(page.device, torch.int32)
-    stream = torch.cuda.current_stream(page.device).cuda_stream
-    with torch.cuda.device(page.device):
-        rc = lib.gamer_march(page.data_ptr(), page.numel(), table.data_ptr(),
-                             table.numel(), perm.data_ptr(), out.data_ptr(),
-                             int(size), stream)
+    out = torch.empty((n_frames, rows, frame_size, 3), dtype=torch.float32,
+                      device=pages.device)
+    perm = perm_table(pages.device, torch.int32)
+    stream = torch.cuda.current_stream(pages.device).cuda_stream
+    with torch.cuda.device(pages.device):
+        rc = lib.gamer_march_batch(pages.data_ptr(), n_page, n_page, n_frames,
+                                   table.data_ptr(), table.numel(),
+                                   perm.data_ptr(), out.data_ptr(),
+                                   int(frame_size), int(rows), stream)
     if rc != 0:
         raise RuntimeError(f"march kernel launch failed: CUDA error {rc} "
                            f"({lib.gamer_error_string(rc).decode()})")
+    return out
+
+
+def march(page: torch.Tensor, table: torch.Tensor, size: int) -> torch.Tensor:
+    """K1: linear radiance (size, size, 3) float32 of one whole frame for a
+    scalar page and its structure table, on their device. CPU tensors run
+    ``march_plain``; CUDA tensors launch the kernel (counted in
+    ``march.launch_count``) or raise."""
+    if _on_cpu(page, table, 1):
+        return march_plain(page, table, size)
+    out = _launch(page[None], table, size, size)[0]
     march.launch_count += 1
     return out
 
 
+def march_band(page: torch.Tensor, table: torch.Tensor, frame_size: int,
+               band_rows: int, row0: int) -> torch.Tensor:
+    """K5: linear radiance (band_rows, frame_size, 3) of the row band
+    row0 + [0, band_rows) of a frame_size frame; rows past the frame are 0.
+    Bit-equal on the card to those rows of ``march``'s whole frame. CPU
+    tensors run ``march_band_plain``; CUDA tensors launch the kernel
+    (counted in ``march_band.launch_count``) or raise."""
+    if _on_cpu(page, table, 1):
+        return march_band_plain(page, table, frame_size, band_rows, row0)
+    out = _launch(_with_row0(page, row0)[None], table, frame_size,
+                  band_rows)[0]
+    march_band.launch_count += 1
+    return out
+
+
+def march_batch(pages: torch.Tensor, table: torch.Tensor,
+                frame_size: int) -> torch.Tensor:
+    """K4: linear radiance (B, frame_size, frame_size, 3) of B frames of
+    one structure, one page each ((B, n) float32), in one launch. Each
+    frame is bit-equal on the card to ``march`` of its page. CPU tensors
+    run ``march_batch_plain``; CUDA tensors launch the kernel (counted in
+    ``march_batch.launch_count``) or raise."""
+    if _on_cpu(pages, table, 2):
+        return march_batch_plain(pages, table, frame_size)
+    if not 1 <= pages.shape[0] <= 65535:
+        raise ValueError(f"a launch takes 1 to 65535 frames, got "
+                         f"{pages.shape[0]}")
+    out = _launch(pages, table, frame_size, frame_size)
+    march_batch.launch_count += 1
+    return out
+
+
 march.launch_count = 0
+march_band.launch_count = 0
+march_batch.launch_count = 0
 
 
 # ---------------------------------------------------------------------------
@@ -613,13 +758,102 @@ def render_scene(scene: Scene, device="cuda", device_out: bool = False):
     cfg = scene.config
     lin = render_linear(scene, dev)
     if cfg.no_stars > 0:
-        star_p = pad_star_rows(
-            star_params(cfg.size, cfg.no_stars, cfg.star_size,
-                        cfg.star_size_spread, cfg.star_strength,
-                        cfg.star_seed))
-        lin = lin + star_field_device(star_p, cfg.size, device=dev)
+        lin = lin + _star_overlay(cfg, dev)
     img = post_process(lin, f32(cfg.exposure), f32(cfg.gamma),
                        f32(cfg.saturation))
     if device_out:
         return img
     return img.cpu().numpy()
+
+
+def _star_overlay(cfg, device):
+    """The (size, size, 3) star field of a config on ``device``."""
+    star_p = pad_star_rows(
+        star_params(cfg.size, cfg.no_stars, cfg.star_size,
+                    cfg.star_size_spread, cfg.star_strength, cfg.star_seed))
+    return star_field_device(star_p, cfg.size, device=device)
+
+
+class _BandDownload:
+    """Brings finished uint8 bands to the host. On a CUDA device each copy
+    runs on a side stream into pinned memory, after an event on the band:
+    on the render stream, ``.cpu()`` of band b would also wait for band
+    b+1's march, which is already queued behind it."""
+
+    def __init__(self, device: torch.device):
+        self.stream = (torch.cuda.Stream(device) if device.type == "cuda"
+                       else None)
+
+    def start(self, band: torch.Tensor):
+        if self.stream is None:
+            return band, None
+        host = torch.empty(band.shape, dtype=band.dtype, pin_memory=True)
+        self.stream.wait_stream(torch.cuda.current_stream(band.device))
+        with torch.cuda.stream(self.stream):
+            host.copy_(band, non_blocking=True)
+            done = torch.cuda.Event()
+            done.record(self.stream)
+        band.record_stream(self.stream)
+        return host, done
+
+    @staticmethod
+    def finish(pending) -> np.ndarray:
+        host, done = pending
+        if done is not None:
+            done.synchronize()
+        return host.numpy()
+
+
+def render_progressive(scene: Scene, bands: int = 16, on_progress=None,
+                       device="cuda") -> np.ndarray:
+    """The frame in row bands, one march launch each (K5), with
+    percent-done callbacks and cooperative abort between bands: the
+    counterpart of ``render_progressive_pallas`` (the reference's progress
+    and abort, rasterizer.cpp:283-313, rasterizer.h:91-98).
+
+    ``on_progress(frac, partial_uint8) -> False`` aborts; the partially
+    filled frame (rows not yet rendered are black) is returned. Each band is
+    pooled, gets its slice of the star overlay and runs the post chain on
+    the device, so only uint8 rows come down. Band b+1 is dispatched before
+    band b is downloaded, so progress and abort trail the dispatch by one
+    band (pallas_render.py:1591-1618). On the card the frame is bit-equal to
+    ``render_scene``'s."""
+    dev = _device(device)
+    cfg = scene.config
+    page, table, S, ss = prepare(scene, dev)
+    band_rows, n_bands = band_geometry(cfg.size, ss, bands)
+    band_out = band_rows // ss
+    overlay = None
+    if cfg.no_stars > 0:
+        overlay = torch.zeros((n_bands * band_out, cfg.size, 3),
+                              dtype=torch.float32, device=dev)
+        overlay[:cfg.size] = _star_overlay(cfg, dev)
+    post = (f32(cfg.exposure), f32(cfg.gamma), f32(cfg.saturation))
+    out = np.zeros((n_bands * band_out, cfg.size, 3), np.uint8)
+    download = _BandDownload(dev)
+
+    def dispatch(b: int):
+        lin = pool_linear(march_band(page, table, S, band_rows, b * band_rows),
+                          ss)
+        if overlay is not None:
+            lin = lin + overlay[b * band_out:(b + 1) * band_out]
+        return download.start(post_process(lin, *post))
+
+    pending_b, pending = None, None
+    for b in range(n_bands):
+        band = dispatch(b)
+        if pending is not None:
+            out[pending_b * band_out:(pending_b + 1) * band_out] = (
+                download.finish(pending))
+            if on_progress is not None:
+                partial = out[:cfg.size].copy()
+                if on_progress((pending_b + 1) / n_bands, partial) is False:
+                    return partial
+        pending_b, pending = b, band
+    out[pending_b * band_out:(pending_b + 1) * band_out] = (
+        download.finish(pending))
+    if on_progress is not None:
+        partial = out[:cfg.size].copy()
+        if on_progress(1.0, partial) is False:
+            return partial
+    return out[:cfg.size]

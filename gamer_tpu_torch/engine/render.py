@@ -46,9 +46,19 @@ def post_process(linear, exposure, gamma, saturation):
 
 
 def pool_linear(lin, pool: int):
-    """Box-average a (S, S, 3) radiance buffer by ``pool`` in linear space
-    (supersampling, pallas_render.py:1116-1118)."""
+    """Box-average (..., H, W, 3) radiance by ``pool`` in linear space
+    (supersampling, pallas_render.py:1116-1118). The pool x pool samples
+    are summed in one fixed order and divided by their count, element by
+    element, so a row band or a batch frame pools bit-equal to the same
+    rows of a single whole frame."""
     if pool == 1:
         return lin
-    o = lin.shape[0] // pool
-    return lin.reshape(o, pool, o, pool, 3).mean(dim=(1, 3))
+    *lead, h, w, c = lin.shape
+    v = lin.reshape(*lead, h // pool, pool, w // pool, pool, c)
+    acc = None
+    for i in range(pool):
+        for j in range(pool):
+            x = v[..., i, :, j, :]
+            acc = x if acc is None else acc + x
+    # a tensor divisor, as in post_process: the f32 quotient on every device
+    return acc / torch.full_like(acc, float(pool * pool))

@@ -210,3 +210,12 @@ def from_jax_flat(static, params):
          for k, v in inst.items()}
         for inst in params)
     return st, pr
+
+
+def from_jax_pages(rows, n: int) -> np.ndarray:
+    """Carry JAX scalar pages across: ``gamer_tpu``'s ``_pack_scalars`` rows
+    ((B, smem_rows, 128) float32, as ``engine.batch._scene_groups`` stacks
+    them) become this package's (B, n) pages, the first ``n`` entries of
+    each (the layout contract of ``cuda_render._build_layout``)."""
+    a = np.asarray(rows, np.float32)
+    return np.ascontiguousarray(a.reshape(a.shape[0], -1)[:, :n])

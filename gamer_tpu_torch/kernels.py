@@ -22,8 +22,9 @@ CSRC = Path(__file__).resolve().parent / "csrc"
 BUILD_DIR = Path(__file__).resolve().parent.parent / "build" / "gamer_tpu_torch"
 SOURCES = ("march.cu", "noise_probe.cu")
 HEADERS = ("noise.cuh",)
-NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-O3", "-std=c++17",
-              "-fmad=false", "-Xptxas", "-v", "-shared", "-Xcompiler", "-fPIC")
+ARCH = ("-gencode", "arch=compute_90a,code=sm_90a")
+NVCC_FLAGS = (*ARCH, "-O3", "-std=c++17", "-fmad=false", "-Xptxas", "-v",
+              "-Xcompiler", "-fPIC")
 
 _LIB = None
 BUILD_INFO: dict = {}
@@ -42,7 +43,7 @@ def nvcc_path() -> str:
 
 
 def _source_hash() -> str:
-    h = hashlib.sha256(" ".join(NVCC_FLAGS).encode())
+    h = hashlib.sha256(" ".join(NVCC_FLAGS + ARCH).encode())
     for name in SOURCES + HEADERS:
         h.update(name.encode())
         h.update((CSRC / name).read_bytes())
@@ -63,20 +64,40 @@ def build() -> Path:
     BUILD_DIR.mkdir(parents=True, exist_ok=True)
     version = subprocess.run([nvcc, "--version"], capture_output=True,
                              text=True, check=True).stdout.strip()
-    fd, tmp = tempfile.mkstemp(suffix=".so", dir=BUILD_DIR)
-    os.close(fd)
-    cmd = [nvcc, *NVCC_FLAGS, "-o", tmp, *(str(CSRC / s) for s in SOURCES)]
+    work = Path(tempfile.mkdtemp(dir=BUILD_DIR))
     t0 = time.perf_counter()
+    # one nvcc per source, all started together, then one link
+    procs = []
+    for src in SOURCES:
+        cmd = [nvcc, *NVCC_FLAGS, "-c", "-o", str(work / f"{src}.o"),
+               str(CSRC / src)]
+        procs.append((cmd, subprocess.Popen(cmd, stdout=subprocess.PIPE,
+                                            stderr=subprocess.STDOUT,
+                                            text=True)))
+    out = []
+    for cmd, proc in procs:
+        text = proc.communicate()[0]
+        out.append(text)
+        if proc.returncode != 0:
+            for _, other in procs:
+                other.wait()
+            shutil.rmtree(work, ignore_errors=True)
+            raise RuntimeError(f"nvcc failed ({' '.join(cmd)}):\n{text}")
+    tmp = work / "lib.so"
+    cmd = [nvcc, *ARCH, "-shared", "-o", str(tmp),
+           *(str(work / f"{src}.o") for src in SOURCES)]
     proc = subprocess.run(cmd, capture_output=True, text=True)
     seconds = time.perf_counter() - t0
     if proc.returncode != 0:
-        os.unlink(tmp)
-        raise RuntimeError(f"nvcc failed ({' '.join(cmd)}):\n"
+        shutil.rmtree(work, ignore_errors=True)
+        raise RuntimeError(f"nvcc link failed ({' '.join(cmd)}):\n"
                            f"{proc.stdout}\n{proc.stderr}")
     os.replace(tmp, lib)
-    log.write_text(proc.stdout + proc.stderr)
+    shutil.rmtree(work, ignore_errors=True)
+    text = "".join(out) + proc.stdout + proc.stderr
+    log.write_text(text)
     BUILD_INFO.update(path=str(lib), seconds=seconds, cached=False,
-                      nvcc=version, log=proc.stdout + proc.stderr)
+                      nvcc=version, log=text)
     return lib
 
 
@@ -86,8 +107,10 @@ def library() -> ctypes.CDLL:
     if _LIB is None:
         lib = ctypes.CDLL(str(build()))
         p, i, f = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
-        lib.gamer_march.argtypes = [p, i, p, i, p, p, i, p]
-        lib.gamer_march.restype = i
+        # pages, n_page, page_stride, n_frames, table, n_table, perm, out,
+        # frame_size, rows, stream
+        lib.gamer_march_batch.argtypes = [p, i, i, i, p, i, p, p, i, i, p]
+        lib.gamer_march_batch.restype = i
         lib.gamer_noise_probe.argtypes = [p, i, p, i, f, f, p, i, f, f, f, p, p]
         lib.gamer_noise_probe.restype = i
         lib.gamer_error_string.argtypes = [i]

@@ -62,6 +62,17 @@ def inv_view_projection(camera, target, up, fov_deg, near=1.0, far=100.0):
     return (vinv @ pinv).numpy()
 
 
+def inv_view_projection_batch(cameras, targets, ups, fov_degs) -> np.ndarray:
+    """(B, 4, 4) float32 ``inv_view_projection`` for B poses, the
+    counterpart of ``gamer_tpu.ops.camera.inv_view_projection_host_batch``
+    without its pose cache. It is a loop over the scalar function, so each
+    frame of a batch gets the matrix bit-equal to its single frame's (a
+    vectorized form may differ in the last ulp, as the JAX note on the CPU
+    backend records)."""
+    return np.stack([inv_view_projection(c, t, u, f)
+                     for c, t, u, f in zip(cameras, targets, ups, fov_degs)])
+
+
 def coord2ray(i, j, width: int, inv_vp):
     """Pixel (i, j) -> normalized world ray (gamercamera.cpp:210-217).
 
@@ -78,11 +89,14 @@ def coord2ray(i, j, width: int, inv_vp):
     return torch.stack([w[0] * inv_n, w[1] * inv_n, w[2] * inv_n], dim=-1)
 
 
-def ray_grid(size: int, inv_vp, row0: float = 0.0, device="cpu"):
-    """All rays of a size x size frame as (size, size, 3), indexed [row j,
-    col i] (the reference's idx = j*size + i layout). ``row0`` shifts the
-    global row index, as the kernel's page slot does for row bands."""
+def ray_grid(size: int, inv_vp, row0: float = 0.0, device="cpu",
+             rows: int | None = None):
+    """The rays of ``rows`` rows (default ``size``) of a size x size frame
+    as (rows, size, 3), indexed [row j, col i] (the reference's
+    idx = j*size + i layout). ``row0`` is the global index of the first
+    row, as the kernel's page slot gives it for row bands."""
+    rows = size if rows is None else rows
     ii = torch.arange(size, dtype=torch.float32, device=device)
-    jj = row0 + torch.arange(size, dtype=torch.float32, device=device)
+    jj = row0 + torch.arange(rows, dtype=torch.float32, device=device)
     j_g, i_g = torch.meshgrid(jj, ii, indexing="ij")
     return coord2ray(i_g, j_g, size, inv_vp)

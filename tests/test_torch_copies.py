@@ -1,0 +1,171 @@
+"""The JAX-free modules that gamer_tpu_torch copies for its band and batch
+paths, held equal to the originals: the .gax codec, RenderParams.dat, the
+seeded RNG, scene and dataset generation, morphing, camera controls, and
+the log and timers. The port never imports ``gamer_tpu``, so each copy is
+checked here on presets and seeds."""
+
+from __future__ import annotations
+
+import pytest
+
+torch = pytest.importorskip("torch")
+
+import gamer_tpu.scene.schema as jschema  # noqa: E402
+from gamer_tpu.io import renderparams as jrp  # noqa: E402
+from gamer_tpu.models import presets as jpresets  # noqa: E402
+from gamer_tpu.scene import cameracontrols as jcc  # noqa: E402
+from gamer_tpu.scene import gax as jgax  # noqa: E402
+from gamer_tpu.scene import generate as jgen  # noqa: E402
+from gamer_tpu.scene import morph as jmorph  # noqa: E402
+from gamer_tpu.utils import log as jlog  # noqa: E402
+from gamer_tpu.utils import rng as jrng  # noqa: E402
+from gamer_tpu.utils import timers as jtimers  # noqa: E402
+
+from gamer_tpu_torch.io import renderparams as trp  # noqa: E402
+from gamer_tpu_torch.models import presets as tpresets  # noqa: E402
+from gamer_tpu_torch.scene import cameracontrols as tcc  # noqa: E402
+from gamer_tpu_torch.scene import gax as tgax  # noqa: E402
+from gamer_tpu_torch.scene import generate as tgen  # noqa: E402
+from gamer_tpu_torch.scene import morph as tmorph  # noqa: E402
+from gamer_tpu_torch.scene import schema as tschema  # noqa: E402
+from gamer_tpu_torch.utils import log as tlog  # noqa: E402
+from gamer_tpu_torch.utils import rng as trng  # noqa: E402
+from gamer_tpu_torch.utils import timers as ttimers  # noqa: E402
+
+PRESETS = sorted(jpresets.GALLERY)
+
+
+@pytest.mark.parametrize("name", PRESETS)
+def test_gax_dumps_and_loads_match_jax(name):
+    ours = tpresets.GALLERY[name]()
+    data = tgax.dumps(ours)
+    assert data == jgax.dumps(jpresets.GALLERY[name]())
+    back = tgax.loads(data)
+    assert back == ours
+    assert tschema._to_dict(back) == jschema._to_dict(jgax.loads(data))
+
+
+def test_gax_file_roundtrip_and_truncation(tmp_path):
+    g = tpresets.spiral()
+    tgax.save(g, tmp_path / "s.gax")
+    assert (tmp_path / "s.gax").read_bytes() == jgax.dumps(jpresets.spiral())
+    assert tgax.load(tmp_path / "s.gax") == g
+    data = tgax.dumps(g)
+    for cut in (3, len(data) // 2, len(data) - 1):
+        with pytest.raises(ValueError):
+            jgax.loads(data[:cut])
+        with pytest.raises(ValueError):
+            tgax.loads(data[:cut])
+
+
+def _params_file(mod, schema):
+    return mod.RenderParamsFile(
+        camera=schema.CameraParams(camera=(0.5, 0.25, -1.0),
+                                   target=(0.1, 0.0, 0.2), up=(0, 0, 1),
+                                   fov=75.0),
+        size=96, preview_size=48, exposure=1.3, gamma=0.9, saturation=1.2,
+        no_stars=17, star_size=2.5, star_size_spread=0.7, star_strength=1.1,
+        ray_step=0.02, current_galaxy="Spiral.gax", scene_mode="scene",
+        spectra={"Custom": (0.1, 0.2, 0.3), "Warm": (1.0, 0.8, 0.5)},
+        nside=16, render_type="hpx")
+
+
+def test_renderparams_match_jax():
+    ours = _params_file(trp, tschema)
+    data = ours.dumps()
+    assert data == _params_file(jrp, jschema).dumps()
+    back = trp.RenderParamsFile.loads(data)
+    assert back == ours
+    assert (tschema._to_dict(back.to_render_config(size=40))
+            == jschema._to_dict(jrp.RenderParamsFile.loads(data)
+                                .to_render_config(size=40)))
+    # a file from before nside/renderType ends at the spectra
+    short = data[:-(4 + 4 + 2 * len("hpx"))]
+    old_t, old_j = trp.RenderParamsFile.loads(short), jrp.RenderParamsFile.loads(short)
+    assert (old_t.nside, old_t.render_type) == (old_j.nside, old_j.render_type)
+
+
+@pytest.mark.parametrize("seed", [0, 1, 5489, 123456])
+def test_rng_streams_match_jax(seed):
+    a, b = trng.Rng(seed), jrng.Rng(seed)
+    for _ in range(20):
+        assert a.next_double(-2.0, 3.0) == b.next_double(-2.0, 3.0)
+        assert a.next_gaussian(1.0, 0.5) == b.next_gaussian(1.0, 0.5)
+        assert a.next_int(0, 9) == b.next_int(0, 9)
+        assert a.next_bool() == b.next_bool()
+        assert a.next_vec3(-1, 1) == b.next_vec3(-1, 1)
+
+
+@pytest.mark.parametrize("seed", [3, 11])
+def test_generate_scene_matches_jax(seed):
+    names = ["spiral", "ring", "dusty_disk"]
+    ours = tgen.generate_scene([tpresets.GALLERY[n]() for n in names], 5, 3.0,
+                               seed=seed)
+    ref = jgen.generate_scene([jpresets.GALLERY[n]() for n in names], 5, 3.0,
+                              seed=seed)
+    assert tschema.scene_to_dict(ours) == jschema.scene_to_dict(ref)
+
+
+@pytest.mark.parametrize("name,seed", [("spiral", 0), ("flocculent", 5),
+                                       ("irregular", 9)])
+def test_generate_variations_match_jax(name, seed):
+    ours = tgen.generate_galaxy_variations(tpresets.GALLERY[name](), 4,
+                                           seed=seed, jitter=0.3)
+    ref = jgen.generate_galaxy_variations(jpresets.GALLERY[name](), 4,
+                                          seed=seed, jitter=0.3)
+    assert [tschema._to_dict(g) for g in ours] == [jschema._to_dict(g)
+                                                   for g in ref]
+
+
+def test_morph_matches_jax():
+    a_t, a_j = tpresets.spiral(), jpresets.spiral()
+    b_t = tpresets.spiral(winding_n=6.0, winding_b=0.8)
+    b_j = jpresets.spiral(winding_n=6.0, winding_b=0.8)
+    for t in (0.0, 0.3, 1.0):
+        assert (tschema._to_dict(tmorph.lerp_galaxy(a_t, b_t, t))
+                == jschema._to_dict(jmorph.lerp_galaxy(a_j, b_j, t)))
+    base_t = tschema.Scene(instances=[tschema.GalaxyInstance(galaxy=a_t)])
+    base_j = jschema.Scene(instances=[jschema.GalaxyInstance(galaxy=a_j)])
+    for ease in ("smoothstep", "linear"):
+        ours = tmorph.morph_scenes(base_t, b_t, 4, ease=ease)
+        ref = jmorph.morph_scenes(base_j, b_j, 4, ease=ease)
+        assert ([tschema.scene_to_dict(s) for s in ours]
+                == [jschema.scene_to_dict(s) for s in ref])
+    for mod, a, b in ((tmorph, a_t, tpresets.ring()),
+                      (jmorph, a_j, jpresets.ring())):
+        with pytest.raises(ValueError, match="morph-compatible"):
+            mod.lerp_galaxy(a, b, 0.5)
+
+
+def test_camera_controls_match_jax():
+    cams = [(tschema.CameraParams(camera=c, target=t, up=u),
+             jschema.CameraParams(camera=c, target=t, up=u))
+            for c, t, u in (((0.5, 0, 0), (0, 0, 0), (0, 1, 0)),
+                            ((1.2, 0.3, -0.4), (0.1, 0, 0.2), (0, 0, 1)))]
+    for ct, cj in cams:
+        for fn, args in (("rotate_horizontal", (37.0,)),
+                         ("rotate_vertical", (-15.0,)), ("zoom", (0.2,)),
+                         ("translate", (0.1, -0.3)), ("rotate_up", (20.0,))):
+            ours = getattr(tcc, fn)(ct, *args)
+            ref = getattr(jcc, fn)(cj, *args)
+            assert tschema._to_dict(ours) == jschema._to_dict(ref), fn
+        ours = tcc.orbit_path(ct, 5, horizontal_deg=270.0, vertical_deg=30.0,
+                              zoom_total=0.1)
+        ref = jcc.orbit_path(cj, 5, horizontal_deg=270.0, vertical_deg=30.0,
+                             zoom_total=0.1)
+        assert ([tschema._to_dict(c) for c in ours]
+                == [jschema._to_dict(c) for c in ref])
+
+
+def test_log_and_timers_match_jax():
+    for ms in (0.0, -5.0, 12.3, 999.9, 61_234.5, 3_725_000.0, 7.2e6):
+        assert ttimers.format_ms(ms) == jtimers.format_ms(ms)
+    tlog.Messages.clear()
+    for k in range(9):
+        tlog.Messages.message(f"m{k}")
+    assert [m.split("] ", 1)[1] for m in tlog.Messages.last()] == [
+        f"m{k}" for k in range(2, 9)]
+    assert len(tlog.Messages.last()) == jlog._RING_CAPACITY
+    with ttimers.ScopedTimer("t", quiet=True) as t:
+        pass
+    assert t.elapsed_ms is not None and t.elapsed_ms >= 0.0

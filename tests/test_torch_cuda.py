@@ -72,3 +72,73 @@ def test_noise_probe_matches_plain(cuda):
     assert tnoise.noise_probe.launch_count == before + 1
     want = tnoise.noise_probe(torch.as_tensor(pts), *args)
     assert float((got - want).abs().max()) <= 1e-6
+
+
+def test_band_frame_equals_fused_frame(cuda):
+    """render_progressive's bands (K5) reassemble the fused frame bit for
+    bit, supersampled and starred too; one march_band launch per band."""
+    for scene, bands in ((_scene(presets.spiral(), 80), 3),
+                         (_scene(presets.spiral(), 40, supersample=2,
+                                 no_stars=40, star_size=40.0), 2)):
+        before = cr.march_band.launch_count
+        prog = gt.render_progressive(scene, bands=bands, device="cuda")
+        n_bands = cr.band_geometry(scene.config.size,
+                                   scene.config.supersample, bands)[1]
+        assert cr.march_band.launch_count == before + n_bands
+        np.testing.assert_array_equal(prog, gt.render_scene(scene,
+                                                            device="cuda"))
+
+
+def test_batch_frame_equals_single_frame(cuda):
+    """render_flythrough (K4): one launch, each frame bit-equal to its
+    single render_scene."""
+    import dataclasses
+
+    from gamer_tpu_torch.scene.cameracontrols import orbit_path
+
+    scene = _scene(presets.spiral(), 48)
+    cams = orbit_path(scene.camera, 3, horizontal_deg=90.0)
+    before = cr.march_batch.launch_count
+    frames = gt.render_flythrough(scene, cams, device="cuda")
+    assert cr.march_batch.launch_count == before + 1
+    for frame, cam in zip(frames, cams):
+        np.testing.assert_array_equal(
+            frame, gt.render_scene(dataclasses.replace(scene, camera=cam),
+                                   device="cuda"))
+
+
+def test_band_and_batch_kernels_match_plain(cuda):
+    """<= 2 uint8 LSB between each new launch and its plain version."""
+    import dataclasses
+
+    from gamer_tpu_torch.engine.batch import _scene_groups
+    from gamer_tpu_torch.scene.cameracontrols import orbit_path
+
+    post = (np.float32(1.0),) * 3
+    scene = _scene(presets.dusty_disk(), 40)
+    page, table, size, _ = cr.prepare(scene, "cpu")
+    got = cr.march_band(page.to(cuda), table.to(cuda), size, 32, 32)
+    want = cr.march_band_plain(page, table, size, 32, 32)
+    a = post_process(got.cpu(), *post).numpy().astype(np.int16)
+    b = post_process(want, *post).numpy().astype(np.int16)
+    assert int(np.abs(a - b).max()) <= 2
+    assert float(got[8:].abs().max()) == 0.0  # rows past the frame
+
+    cams = orbit_path(scene.camera, 2, horizontal_deg=45.0)
+    st, pages, _ = _scene_groups(
+        [dataclasses.replace(scene, camera=c) for c in cams])[0]
+    tab = torch.as_tensor(cr._build_table(st, cr._build_layout(st)))
+    got = cr.march_batch(torch.as_tensor(pages, device=cuda), tab.to(cuda),
+                         size)
+    want = cr.march_batch_plain(torch.as_tensor(pages), tab, size)
+    a = post_process(got.cpu(), *post).numpy().astype(np.int16)
+    b = post_process(want, *post).numpy().astype(np.int16)
+    assert got.shape == (2, size, size, 3) and int(np.abs(a - b).max()) <= 2
+
+
+def test_batch_device_out_stays_on_card(cuda):
+    scenes = [_scene(presets.spiral(), 24), _scene(presets.ring(), 24)]
+    img = gt.render_batch(scenes, device="cuda", device_out=True)
+    assert img.device.type == "cuda" and img.shape == (2, 24, 24, 3)
+    np.testing.assert_array_equal(img.cpu().numpy(),
+                                  gt.render_batch(scenes, device="cuda"))

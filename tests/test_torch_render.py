@@ -21,6 +21,18 @@ from gamer_tpu.models import presets  # noqa: E402
 import gamer_tpu_torch as gt  # noqa: E402
 
 
+@pytest.fixture(autouse=True, scope="module")
+def _one_torch_thread():
+    """The plain march runs thousands of small torch ops. Under the
+    parallel test run, each op's thread-pool region waits on threads that
+    the other workers' load has descheduled: a 40^2 frame took ~40x as
+    long. One intra-op thread keeps each worker at its own pace."""
+    n = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(n)
+
+
 def _scene(galaxy, size=16, **cfg):
     return gamer_tpu.Scene(
         camera=gamer_tpu.CameraParams(camera=(0.5, 0, 0), target=(0, 0, 0),
