@@ -1,11 +1,15 @@
 """Card smoke run for gamer_tpu_torch: builds the CUDA march kernel from
-csrc/ and drives the port's three main paths at 512x512 on the spiral
-preset: one still frame (``render_scene``, K1), the same frame in 16 row
-bands (``render_progressive``, K5) and an 8-frame orbit fly-through in one
-batched launch (``render_flythrough``, K4). Each launch form is checked
-against its plain torch version; the frames against each other (bands and
-batch frames are bit-equal to the still frame), the spec oracle and the
-CLI commands (``render``, ``galaxy``, ``skybox``, ``dataset``).
+csrc/ and drives the port's main paths on the spiral preset: one still
+frame at 512x512 (``render_scene``, K1), the same frame in 16 row bands
+(``render_progressive``, K5), an 8-frame orbit fly-through in one batched
+launch (``render_flythrough``, K4), the all-sky image at nside 512
+(``render_allsky_image``, K6: 3,145,728 rays in one ray-list launch) and
+the still with the perlin and the iq noise backends (K1-perlin, K1-iq).
+Each launch form and each noise kind is checked against its plain torch
+version; the frames against each other (bands, batch frames and the ray
+list are bit-equal to the still frame), the spec oracle and the CLI
+commands (``render``, ``galaxy``, ``skybox``, ``dataset``, ``allsky``,
+``renderhpx``).
 
     python3 chip_smoke.py
 
@@ -55,8 +59,21 @@ WORK = {
     "gated": (18, 1),        # smoothstep, val, ival
     "arm_gated": (130, 13),  # two-arm pow ladder, atan2, winding
     "emitting": (40, 3),     # twirl (sin, cos, quat rotate), accumulate
-    "raw_noise": (100, 0),   # one raw 3-D simplex: skew, 4 corners, gradients
 }
+# One raw 3-D noise evaluation per kind, from csrc/noise.cuh. simplex: skew,
+# 4 corners, gradients. perlin: 3 cell setups, 8 hashed gradient dots of
+# ~26 integer and f32 ops, 3 s-curves, 7 lerps; no SFU. iq: 8 sin-hashes of
+# ~15 ops (the build has no fast math, so sinf is a polynomial on the f32
+# pipes and no MUFU.SIN: at least 10 ops, counted as f32), 3 floors, 3
+# s-curves, 7 lerps.
+RAW_NOISE_WORK = {"simplex": (100, 0), "perlin": (260, 0), "iq": (170, 0)}
+# The iq gate, kernel against plain: the hash frac(sin(n) * 753.5453123)
+# amplifies the last ulps of two sine implementations, so single lattice
+# corners may hash differently.
+IQ_SHARE_WITHIN_2LSB = 0.98
+IQ_MEAN_LSB = 0.25
+ALLSKY_NSIDE = 512
+ALLSKY_SIZE = 1024
 
 
 def log(msg: str) -> None:
@@ -112,13 +129,37 @@ def check(cond: bool, msg: str) -> None:
         raise AssertionError(msg)
 
 
-def march_bound(stats: dict, in_bytes: int, out_bytes: int):
+def allsky_scene(size=16, **cfg):
+    """The all-sky geometry of scripts/allsky_bench.py: the camera inside
+    the ellipsoid, so every ray hits."""
+    import gamer_tpu_torch as gt
+    from gamer_tpu_torch.models import presets
+
+    return gt.Scene(
+        camera=gt.CameraParams(camera=(0.3, 0.05, 0), target=(0, 0, 0),
+                               up=(0, 1, 0), fov=90.0),
+        instances=[gt.GalaxyInstance(galaxy=presets.spiral())],
+        config=gt.RenderConfig(size=size, ray_step=0.025, **cfg),
+    )
+
+
+def iq_gate(a: np.ndarray, b: np.ndarray):
+    """(passes, share of pixels within 2 LSB, mean |d| in LSB)."""
+    d = np.abs(a.astype(np.int16) - b.astype(np.int16))
+    within, mean_d = float((d.max(-1) <= 2).mean()), float(d.mean())
+    return (within >= IQ_SHARE_WITHIN_2LSB and mean_d <= IQ_MEAN_LSB,
+            within, mean_d)
+
+
+def march_bound(stats: dict, in_bytes: int, out_bytes: int,
+                kind: str = "simplex"):
     """(bound ms, "bytes" or "operations", detail): the least time the card
     could take for the counted work, the larger of the operation bound (f32
     ops at the f32 peak, SFU ops at the SFU peak) and the byte bound (each
     input read once, each output written once, at the HBM rate)."""
-    ops = sum(stats.get(k, 0) * w[0] for k, w in WORK.items())
-    sfu = sum(stats.get(k, 0) * w[1] for k, w in WORK.items())
+    work = dict(WORK, raw_noise=RAW_NOISE_WORK[kind])
+    ops = sum(stats.get(k, 0) * w[0] for k, w in work.items())
+    sfu = sum(stats.get(k, 0) * w[1] for k, w in work.items())
     t_ops, t_sfu = ops / F32_PEAK, sfu / SFU_PEAK
     t_bytes = (in_bytes + out_bytes) / HBM_PEAK
     t = max(t_ops, t_sfu, t_bytes)
@@ -181,15 +222,18 @@ def main() -> int:
     from gamer_tpu_torch.scene.cameracontrols import orbit_path
     from gamer_tpu_torch.scene.schema import ComponentParams, scene_to_dict
 
-    wrappers = (cr.march, cr.march_band, cr.march_batch)
+    wrappers = (cr.march, cr.march_band, cr.march_batch, cr.march_rays)
 
     def reset_counts():
         for fn in wrappers:
             fn.launch_count = 0
+        for kind in cr.KIND_LAUNCHES:
+            cr.KIND_LAUNCHES[kind] = 0
 
     def read_counts():
         torch.cuda.synchronize()
-        return {fn.__name__: fn.launch_count for fn in wrappers}
+        return {**{fn.__name__: fn.launch_count for fn in wrappers},
+                **cr.KIND_LAUNCHES}
 
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
@@ -233,6 +277,33 @@ def main() -> int:
             f"max |d| raw/octave/ridged {err.tolist()}, bit-equal share "
             f"{exact.tolist()} over {len(pts)} points")
         check(float(err.max()) <= 1e-6, f"noise probe disagrees: {err.tolist()}")
+    # the other raw backends on the same points: perlin is integer lattice
+    # work and lerps in one order, so bit-equal; iq's hash amplifies the
+    # last ulps of the sine (the card's sinf against torch's CPU sine), so
+    # its raw values are held to >= 99 % within 2e-3 and a mean below 1e-3
+    args = (10, 0.6, 0.1, tnoise.ridged_weights(1.5, 9), 2.5, 1.0, 1.2)
+    for kind in ("perlin", "iq"):
+        got = tnoise.noise_probe(torch.as_tensor(pts, device=dev), *args,
+                                 kind).cpu()
+        want = tnoise.noise_probe(torch.as_tensor(pts), *args, kind)
+        d = (got - want).abs()
+        exact = (got == want).float().mean(dim=0)
+        log(f"noise probe vs plain [{kind}]: max |d| raw/octave/ridged "
+            f"{d.amax(dim=0).tolist()}, mean |d| {d.mean(dim=0).tolist()}, "
+            f"bit-equal share {exact.tolist()} over {len(pts)} points")
+        if kind == "perlin":
+            check(float(d.max()) == 0.0, f"perlin probe is not bit-equal: "
+                                         f"{d.amax(dim=0).tolist()}")
+        else:
+            near = float((d[:, 0] <= 2e-3).float().mean())
+            on_card = tnoise.noise_probe_plain(
+                torch.as_tensor(pts, device=dev), *args, kind).cpu()
+            log(f"noise probe [iq]: {near:.5f} of raw values within 2e-3 of "
+                f"the CPU's (limit 0.99), mean {float(d[:, 0].mean()):.3g} "
+                f"(limit 1e-3); against the torch ops on the card: max |d| "
+                f"{(got - on_card).abs().amax(dim=0).tolist()}")
+            check(near >= 0.99 and float(d[:, 0].mean()) < 1e-3,
+                  f"iq probe: {near} within 2e-3, mean {float(d[:, 0].mean())}")
 
     def post_cpu(lin, scene):
         c = scene.config
@@ -646,12 +717,246 @@ def main() -> int:
         f"pixels differ; bound {batch_bound[0]:.4f} ms by {batch_bound[1]} "
         f"({batch_bound[2]}; {batch_stats})")
 
+
+    # =======================================================================
+    # K6: the ray-list launch and the all-sky path
+    # =======================================================================
+    from gamer_tpu_torch.engine.allsky import allsky_dirs
+    from gamer_tpu_torch.io.fits import write_fits_image
+    from gamer_tpu_torch.ops.camera import ray_grid
+
+    sky = allsky_scene()
+    page_y, table_y, _, _ = cr.prepare(sky, "cpu")
+    d32 = np.concatenate([allsky_dirs(32), np.zeros((1, 3), np.float32)])
+    rays_k = cr.march_rays(page_y.to(dev), table_y.to(dev),
+                           torch.as_tensor(d32, device=dev))
+    torch.cuda.synchronize()
+    rays_p = cr.march_rays_plain(page_y, table_y, torch.as_tensor(d32))
+    check(bool(torch.isfinite(rays_k).all()), "non-finite ray-list radiance")
+    check(float(rays_k[-1].abs().max()) == 0.0 and
+          float(rays_p[-1].abs().max()) == 0.0,
+          "the zero direction did not give radiance 0")
+    mx, frac, _ = lsb_diff(post_cpu(rays_k, sky), post_cpu(rays_p, sky))
+    log(f"march_rays vs plain nside 32 ({len(d32) - 1} rays + a zero "
+        f"direction): max {mx} LSB, {frac:.4f} of rays differ, linear "
+        f"max_abs_err {float((rays_k.cpu() - rays_p).abs().max()):.3g}; the "
+        f"zero direction gives 0")
+    check(mx <= 2, f"march_rays vs plain: {mx} LSB > 2")
+
+    # the 512^2 still's own rays as a list: the same direction bits give the
+    # frame's radiance
+    grid = ray_grid(MAIN_SIZE, page[cr.G_INV_VP:cr.G_INV_VP + 16].cpu().numpy(),
+                    0.0, device=dev, rows=MAIN_SIZE).reshape(-1, 3).contiguous()
+    grid_ms, grid_lin = cuda_ms(lambda: cr.march_rays(page, table, grid), 5)
+    grid_err = float((grid_lin.reshape(MAIN_SIZE, MAIN_SIZE, 3)
+                      - lin_k).abs().max())
+    log(f"march_rays on the {MAIN_SIZE}^2 still's ray_grid: bit-equal to "
+        f"march's frame: {grid_err == 0.0} (max |d| {grid_err:.3g}); "
+        f"{grid_ms:.3f} ms vs march {kern_ms:.3f} ms [{card}]")
+    check(grid_err <= 1e-6 * float(lin_k.abs().max()),
+          f"march_rays on the frame's rays differs by {grid_err}")
+
+    # the map at nside 32 against the same pixels from the plain version
+    map_k = gt.render_allsky_map(sky, 32, device="cuda")
+    map_p = gt.render_allsky_map(sky, 32, device="cpu")
+    map_rel = float(np.abs(map_k - map_p).max() / np.abs(map_p).max())
+    log(f"render_allsky_map nside 32: card vs plain max |d| / max |m| "
+        f"{map_rel:.3g} (limit 1e-3), non-zero share "
+        f"{float((map_k > 0).mean()):.4f}")
+    check(map_rel < 1e-3 and bool((map_k > 0).all()), "all-sky map nside 32")
+
+    # --- the all-sky main path at full size --------------------------------
+    n_sky = 12 * ALLSKY_NSIDE * ALLSKY_NSIDE
+    reset_counts()
+    t = time.perf_counter()
+    sky_img = gt.render_allsky_image(sky, nside=ALLSKY_NSIDE, size=ALLSKY_SIZE,
+                                     device="cuda")
+    sky_wall_ms = (time.perf_counter() - t) * 1e3
+    sky_launches = read_counts()
+    check(sky_launches["march_rays"] == 1 and sky_launches["simplex"] == 1,
+          f"the all-sky path launched {sky_launches}")
+    check(sky_img.shape == (ALLSKY_SIZE, ALLSKY_SIZE, 3)
+          and sky_img.dtype == np.uint8 and int(sky_img.sum()) > 0,
+          f"all-sky image {sky_img.shape} {sky_img.dtype}")
+    check(np.array_equal(sky_img[..., 0], sky_img[..., 1])
+          and not sky_img[0, 0].any(), "all-sky image is not a gray ellipse")
+    t = time.perf_counter()
+    sky_dirs_np = allsky_dirs(ALLSKY_NSIDE)
+    dirs_host_ms = (time.perf_counter() - t) * 1e3
+    page_yd, table_yd = page_y.to(dev), cr.upload_table(table_y.numpy(), dev)
+    sky_dirs = torch.as_tensor(sky_dirs_np, device=dev)
+    check(sky_dirs.shape == (n_sky, 3), "all-sky ray count")
+    sky_ms, sky_lin = cuda_ms(lambda: cr.march_rays(page_yd, table_yd,
+                                                    sky_dirs), 5)
+    check(bool(torch.isfinite(sky_lin).all()), "non-finite all-sky radiance")
+    sky_nonzero = float((sky_lin.sum(dim=1) > 0).float().mean())
+    log(f"all-sky main path: render_allsky_image(spiral, nside="
+        f"{ALLSKY_NSIDE}, size={ALLSKY_SIZE}, device='cuda') launched "
+        f"{sky_launches}, {sky_wall_ms:.1f} ms wall (host clock; "
+        f"allsky_dirs alone {dirs_host_ms:.1f} ms on the host), mean pixel "
+        f"{sky_img.mean():.2f}")
+    log(f"timing [{card}] march_rays nside {ALLSKY_NSIDE} ({n_sky} rays, "
+        f"median of 5): {sky_ms:.3f} ms = {n_sky / sky_ms / 1e3:.2f} Mrays/s"
+        f" ({sky_ms / n_sky * MAIN_SIZE * MAIN_SIZE / kern_ms:.3f} x K1 per "
+        f"ray); non-zero share of the map {sky_nonzero:.5f}")
+    check(sky_nonzero == 1.0, "the camera is inside: every ray should hit")
+
+    # the plain version on the card at the main path's ray count, if a
+    # quarter-size trial says it fits the budget; else at nside 128
+    d128 = torch.as_tensor(allsky_dirs(128), device=dev)
+    torch.cuda.synchronize()
+    t = time.perf_counter()
+    cr.march_rays_plain(page_yd, table_yd, d128)
+    torch.cuda.synchronize()
+    t128 = time.perf_counter() - t
+    full = 3.0 * t128 <= PLAIN_BUDGET_S
+    sky_plain_dirs = sky_dirs if full else d128
+    sky_k_ms = sky_ms if full else cuda_ms(
+        lambda: cr.march_rays(page_yd, table_yd, d128), 5)[0]
+    torch.cuda.synchronize()
+    t = time.perf_counter()
+    sky_stats = {}
+    sky_p = cr.march_rays_plain(page_yd, table_yd, sky_plain_dirs,
+                                stats=sky_stats)
+    torch.cuda.synchronize()
+    sky_plain_ms = (time.perf_counter() - t) * 1e3
+    sky_k = sky_lin if full else cr.march_rays(page_yd, table_yd, d128)
+    sky_err = float((sky_k - sky_p).abs().max())
+    mx, frac, mean_d = lsb_diff(post_cpu(sky_k, sky), post_cpu(sky_p, sky))
+    del sky_p
+    n_plain = sky_plain_dirs.shape[0]
+    sky_bound = march_bound(sky_stats, page_yd.numel() * 4
+                            + table_yd.numel() * 4 + 2048 + n_plain * 12,
+                            n_plain * 12)
+    log(f"timing [{card}] march_rays_plain on cuda, {n_plain} rays (nside 128"
+        f" trial {t128:.1f} s): {sky_plain_ms:.1f} ms with its counters vs "
+        f"kernel {sky_k_ms:.3f} ms; linear max_abs_err {sky_err:.3g}, uint8 "
+        f"max {mx} LSB, {frac:.5f} of rays differ, mean {mean_d:.4f} LSB; "
+        f"bound {sky_bound[0]:.4f} ms by {sky_bound[1]} ({sky_bound[2]}; "
+        f"{sky_stats})")
+    check(frac < 0.01 and mean_d < 0.05,
+          f"march_rays vs plain at {n_plain} rays: {frac:.4f} differ, "
+          f"mean {mean_d}")
+
+    # =======================================================================
+    # K1-perlin and K1-iq: the other raw-noise backends
+    # =======================================================================
+    kind_rows = {}
+    for kind in ("perlin", "iq"):
+        # kernel vs plain (CPU) at 64^2
+        small_k = spiral_scene(64, noise_kind=kind)
+        pg, tb, sz, _ = cr.prepare(small_k, "cpu")
+        a = cr.march(pg.to(dev), tb.to(dev), sz)
+        torch.cuda.synchronize()
+        b = cr.march_plain(pg, tb, sz)
+        ia, ib = post_cpu(a, small_k), post_cpu(b, small_k)
+        mx, frac, mean_d = lsb_diff(ia, ib)
+        ok, within, _ = iq_gate(ia, ib)
+        log(f"kernel vs plain [{kind}] spiral 64^2: max {mx} LSB, {frac:.4f} "
+            f"of pixels differ, mean {mean_d:.4f} LSB, {within:.4f} within 2 "
+            f"LSB, linear max_abs_err {float((a.cpu() - b).abs().max()):.3g}")
+        check(mx <= 2 if kind == "perlin" else ok,
+              f"{kind}: kernel vs plain at 64^2: {mx} LSB, {within} within 2")
+
+        # the still at 512^2 through render_scene
+        scene_k = spiral_scene(MAIN_SIZE, noise_kind=kind)
+        gt.render_scene(scene_k, device="cuda")  # warm-up
+        reset_counts()
+        frame_k = gt.render_scene(scene_k, device="cuda")
+        counts = read_counts()
+        check(counts["march"] == 1 and counts[kind] == 1
+              and counts["simplex"] == 0,
+              f"the {kind} still launched {counts}")
+        check(frame_k.shape == frame.shape and int(frame_k.sum()) > 0
+              and lsb_diff(frame_k, frame)[0] > 2,
+              f"the {kind} still is black or is the simplex frame")
+        pg_d, tb_d, _, _ = cr.prepare(scene_k, dev)
+        ms_k, lin_kk = cuda_ms(lambda: cr.march(pg_d, tb_d, MAIN_SIZE), 5)
+        check(bool(torch.isfinite(lin_kk).all()), f"non-finite {kind} radiance")
+        torch.cuda.synchronize()
+        t = time.perf_counter()
+        stats_k = {}
+        lin_pp = cr.march_plain(pg_d, tb_d, MAIN_SIZE, stats=stats_k)
+        torch.cuda.synchronize()
+        plain_k_ms = (time.perf_counter() - t) * 1e3
+        err_k = float((lin_kk - lin_pp).abs().max())
+        ia, ib = post_cpu(lin_kk, scene_k), post_cpu(lin_pp, scene_k)
+        mx, frac, mean_d = lsb_diff(ia, ib)
+        ok, within, _ = iq_gate(ia, ib)
+        bound_k = march_bound(stats_k, pg_d.numel() * 4 + tb_d.numel() * 4
+                              + 4096, MAIN_SIZE * MAIN_SIZE * 12, kind)
+        log(f"timing [{card}] {kind} still {MAIN_SIZE}^2 (median of 5): march "
+            f"kernel {ms_k:.3f} ms ({ms_k / kern_ms:.3f} x simplex "
+            f"{kern_ms:.3f} ms), plain on cuda {plain_k_ms:.1f} ms with its "
+            f"counters; kernel vs plain: linear max_abs_err {err_k:.3g}, "
+            f"uint8 max {mx} LSB, {frac:.5f} of pixels differ, mean "
+            f"{mean_d:.4f} LSB, {within:.5f} within 2 LSB; bound "
+            f"{bound_k[0]:.4f} ms by {bound_k[1]} ({bound_k[2]}; {stats_k})")
+        check((frac < 0.01 and mean_d < 0.05) if kind == "perlin" else ok,
+              f"{kind} kernel vs plain at {MAIN_SIZE}^2: {frac:.4f} differ, "
+              f"mean {mean_d}, {within} within 2 LSB")
+        kind_rows[kind] = (counts[kind], err_k, ms_k, plain_k_ms, bound_k)
+        if kind == "perlin":
+            # every launch form with a second kind: one band sweep and a
+            # 2-frame batch, bit-equal to the perlin still
+            reset_counts()
+            prog_k = gt.render_progressive(scene_k, bands=BANDS, device="cuda")
+            fly_k = gt.render_flythrough(scene_k, fly_cams[:2], device="cuda")
+            counts = read_counts()
+            check(counts["march_band"] == BANDS and counts["march_batch"] == 1
+                  and counts["perlin"] == BANDS + 1 and counts["simplex"] == 0,
+                  f"perlin bands and batch launched {counts}")
+            check(np.array_equal(prog_k, frame_k),
+                  "perlin bands differ from the perlin still")
+            for i in range(2):
+                check(np.array_equal(fly_k[i], gt.render_scene(
+                    dataclasses.replace(scene_k, camera=fly_cams[i]),
+                    device="cuda")),
+                    f"perlin batch frame {i} differs from its still")
+            sky_p32 = gt.render_dirs(allsky_scene(noise_kind=kind), d32[:768],
+                                     device="cuda")
+            check(np.isfinite(sky_p32).all() and (sky_p32.sum(1) > 0).all(),
+                  "perlin ray list")
+            log(f"perlin launch forms: {BANDS} bands and a 2-frame batch "
+                f"bit-equal to the perlin still ({counts}); a perlin ray "
+                f"list of 768 rays is finite and non-zero")
+
+    # --- the CLI commands of the all-sky path -------------------------------
+    with tempfile.TemporaryDirectory() as tmp:
+        tmp = Path(tmp)
+        gax.save(presets.spiral(), tmp / "spiral.gax")
+        env = dict(os.environ, PYTHONPATH=str(ROOT))
+        r = subprocess.run([sys.executable, "-m", "gamer_tpu_torch.cli",
+                            "allsky", "spiral.gax", "64", "256", "sky.png"],
+                           cwd=tmp, env=env, capture_output=True, text=True,
+                           timeout=600)
+        check(r.returncode == 0, f"CLI allsky failed:\n{r.stdout}\n{r.stderr}")
+        check(np.array_equal(
+            decode_png((tmp / "sky.png").read_bytes()),
+            gt.render_allsky_image(spiral_scene(256), 64, 256, device="cuda")),
+            "CLI allsky PNG differs from render_allsky_image's frame")
+        hpx = gt.render_allsky_map(sky, 64, device="cuda")
+        write_fits_image(tmp / "map.fits", hpx[None, :])
+        r = subprocess.run([sys.executable, "-m", "gamer_tpu_torch.cli",
+                            "renderhpx", "map.fits", "256", "hpx.png", "1.0",
+                            "1.0", "1.0"], cwd=tmp, env=env,
+                           capture_output=True, text=True, timeout=600)
+        check(r.returncode == 0,
+              f"CLI renderhpx failed:\n{r.stdout}\n{r.stderr}")
+        check(np.array_equal(
+            decode_png((tmp / "hpx.png").read_bytes()),
+            gt.render_allsky_image(sky, 64, 256, device="cuda")),
+            "CLI renderhpx PNG differs from render_allsky_image's frame")
+    log("cli allsky nside 64, 256^2: PNG equals render_allsky_image's frame; "
+        "renderhpx on a FITS map from the port's writer: PNG equals the "
+        "all-sky image of that map")
+
     for pkg in ("jax", "gamer_tpu"):
         check(pkg not in sys.modules, f"{pkg} was imported")
 
-    def entry(name, replaces, launches, err, ms, plain, bound):
-        return {"name": name, "route": "cuda",
-                "source": "gamer_tpu_torch/csrc/march.cu",
+    def entry(name, replaces, launches, err, ms, plain, bound,
+              source="gamer_tpu_torch/csrc/march.cu"):
+        return {"name": name, "route": "cuda", "source": source,
                 "replaces": replaces, "launches": launches,
                 "max_abs_err": err, "ms": ms, "plain_ms": plain,
                 "bound_ms": bound[0], "bound_by": bound[1],
@@ -666,6 +971,13 @@ def main() -> int:
         entry("march_batch", "gamer_tpu/engine/pallas_render.py:1294",
               batch_launches["march_batch"], batch_err, batch_k_ms,
               batch_plain_ms, batch_bound),
+        entry("march_rays", "gamer_tpu/engine/pallas_render.py:1324",
+              sky_launches["march_rays"], sky_err, sky_k_ms, sky_plain_ms,
+              sky_bound),
+        entry("march[perlin]", "gamer_tpu/ops/pallas_noise.py:248",
+              *kind_rows["perlin"], source="gamer_tpu_torch/csrc/noise.cuh"),
+        entry("march[iq]", "gamer_tpu/ops/pallas_noise.py:294",
+              *kind_rows["iq"], source="gamer_tpu_torch/csrc/noise.cuh"),
     ]}))
     log(card)
     log(json.dumps({"ok": True, "device": {

@@ -1,12 +1,16 @@
 """gamer_tpu_torch — the galaxy renderer in PyTorch, with a hand-written
 CUDA march kernel for NVIDIA Hopper (sm_90a).
 
-The port of ``gamer_tpu``'s still-frame, band and batch paths:
+The port of ``gamer_tpu``'s still-frame, band, batch and all-sky paths:
 ``render_scene(scene, device=...)`` returns the same uint8 frame as
 ``gamer_tpu.engine.pallas_render.render_scene_pallas``;
 ``render_progressive`` renders it in row bands with progress and abort;
 ``render_batch`` / ``render_flythrough`` render many frames in one launch
-per scene structure, and ``DatasetJob`` renders resumable dataset chunks.
+per scene structure, and ``DatasetJob`` renders resumable dataset chunks;
+``render_dirs`` marches an explicit list of ray directions, and
+``render_allsky_map`` / ``render_allsky_image`` the HEALPix sky around the
+camera. Every path takes the three raw-noise backends of
+``RenderConfig.noise_kind`` (simplex, perlin, iq).
 On a CUDA device the march runs in csrc/march.cu (built with nvcc at first
 use); on the CPU it runs the kernel's plain torch version. The package
 stands alone: it has its own copy of the scene model, the presets, the star
@@ -19,7 +23,12 @@ from .engine.batch import (  # noqa: F401
     render_batch_linear,
     render_flythrough,
 )
+from .engine.allsky import (  # noqa: F401
+    render_allsky_image,
+    render_allsky_map,
+)
 from .engine.cuda_render import (  # noqa: F401
+    render_dirs,
     render_linear,
     render_progressive,
     render_scene,

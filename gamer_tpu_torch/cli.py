@@ -41,6 +41,8 @@ Commands:
    morph <gax A> <gax B> <frames> <size> <outprefix>
    scene <gax[,gax...]> <n> <box> <seed> <size> <outfile>
    dataset <gax[,gax...]> <n per gax> <seed> <size> <chunk> <out dir>
+   allsky <gax file> <nside> <size> <outfile>
+   renderhpx <fits file> <size> <outfile> <exposure> <gamma> <saturation>
 <method>: omp | thread | pallas (all three: the CUDA march kernel)
 """
 
@@ -299,6 +301,49 @@ def cmd_dataset(argv, device) -> int:
     return 0
 
 
+def cmd_allsky(argv, device) -> int:
+    """The HEALPix sky around the canonical camera in one ray-list launch
+    (K6), Mollweide-projected to a <size>^2 PNG."""
+    if len(argv) != 5:
+        print(USAGE)
+        return 1
+    from .engine.allsky import render_allsky_image
+
+    scene = _orbit_scene(argv[1], int(argv[3]))
+    with ScopedTimer("All-sky rendering"):
+        img = render_allsky_image(scene, nside=int(argv[2]),
+                                  size=int(argv[3]), device=device)
+    print(f"Image saved to file {_save_png(img, argv[4])}")
+    return 0
+
+
+def cmd_renderhpx(argv, device) -> int:
+    """A stored HEALPix map (FITS) through the Mollweide projection and the
+    post chain; nothing is marched."""
+    if len(argv) != 7:
+        print(USAGE)
+        return 1
+    import numpy as np
+    import torch
+
+    from .engine.cuda_render import _device
+    from .engine.render import post_process
+    from .io.fits import read_fits_image
+    from .post.mollweide import mollweide_image
+
+    hpx = np.asarray(read_fits_image(argv[1])).ravel()
+    nside = int(np.sqrt(hpx.size / 12))
+    if 12 * nside * nside != hpx.size:
+        print(f"ERROR: {hpx.size} values is not a HEALPix map (12*nside^2)")
+        return 1
+    buf = mollweide_image(hpx, nside, int(argv[2]))
+    img = post_process(torch.as_tensor(buf, device=_device(device)),
+                       np.float32(float(argv[4])), np.float32(float(argv[5])),
+                       np.float32(float(argv[6])))
+    print(f"Image saved to file {_save_png(img.cpu().numpy(), argv[3])}")
+    return 0
+
+
 def _device_desc(device: str) -> str:
     import torch
 
@@ -316,6 +361,8 @@ COMMANDS = {
     "morph": cmd_morph,
     "scene": cmd_scene,
     "dataset": cmd_dataset,
+    "allsky": cmd_allsky,
+    "renderhpx": cmd_renderhpx,
 }
 
 

@@ -1,13 +1,16 @@
-// The march kernel: frames (or row bands of a frame) of emission-absorption
-// ray marching through every galaxy instance of a scene, for sm_90a.
+// The march kernel: frames (or row bands of a frame, or an explicit list of
+// ray directions) of emission-absorption ray marching through every galaxy
+// instance of a scene, for sm_90a.
 //
-// Replaces the TPU kernels K1, K5 and K4 of gamer_tpu/engine/pallas_render.py
-// — the
-// camera-ray branch of _make_kernel (:284-383) with _march_instance
-// (:386-679), _apply_bulge (:682-702), the component gates and emission
-// (:705-914) and the arm/winding/twirl helpers (:917-988), launched by
-// _compiled (:1094-1121) through _tile_call (:1022-1062) — together with
-// its in-kernel noise (K2, noise.cuh).
+// Replaces the TPU kernels K1, K5, K4 and K6 of
+// gamer_tpu/engine/pallas_render.py — both ray sources of _make_kernel
+// (:284-383: the camera rays and the rays_input branch :296-298,327-333)
+// with _march_instance (:386-679), _apply_bulge (:682-702), the component
+// gates and emission (:705-914) and the arm/winding/twirl helpers
+// (:917-988), launched by _compiled (:1094-1121), _compiled_band
+// (:1243-1291), _compiled_batch (:1294-1321) and _compiled_dirs
+// (:1324-1346) through _tile_call (:1022-1062) — together with its
+// in-kernel noise (K2 and the perlin and iq raw backends, noise.cuh).
 //
 // Design. One thread per pixel ray, each with its own loop exit: the
 // reference's per-pixel loop (rasterizer.cpp:447-475). The TPU kernel's
@@ -26,7 +29,18 @@
 // so one body serves the still frame (K1), a row band (K5: the band's rows
 // at its row offset, _compiled_band :1243-1291 with _set_row0 :996-1000)
 // and a batch of frames of one structure (K4: grid z over the frames,
-// _compiled_batch :1294-1321); only the launch differs.
+// _compiled_batch :1294-1321); only the launch differs. The ray-list launch
+// (K6) is a second, 1-D kernel around the same march_scene: thread i reads
+// direction i of an (N, 3) list, used as given, and writes radiance i; the
+// TPU's padding of the list to (32, 128) tiles was a tiling constraint and
+// is replaced by the i < N guard. A zero direction has A = B = 0, so its
+// discriminant is not positive and the ray leaves before the loop.
+//
+// Noise kinds. The raw noise backend (simplex, perlin, iq) is the same for
+// every component of a scene; it is a template parameter of both kernels
+// and of everything between them and the noise, so each kind is its own
+// instantiation, chosen by the launch, and stages only its own lookup
+// table (PERM[512], the Perlin permutation [1024], nothing for iq).
 //
 // Bound. ALU and SFU bound: exp, pow, sin/cos and sqrt per sample, ~40 raw
 // simplex evaluations per step on the default spiral, with trip counts
@@ -56,7 +70,7 @@ constexpr int C_STRENGTH = 0, C_ARM = 1, C_Z0 = 2, C_R0 = 3, C_INNER = 4,
               C_NTILT = 9, C_KS = 10, C_SPEC = 11, C_RIDGED_W = 14;
 
 // Structure table (engine/cuda_render.py::_build_table).
-constexpr int T_N_INST = 0, T_DITHER = 1, T_HDR = 2;
+constexpr int T_N_INST = 0, T_DITHER = 1, T_HDR = 3;  // [2]: noise kind
 constexpr int T_INST = 4;  // n_comps, max_arms, page_off, comp_row
 constexpr int T_COMP = 9;  // cid, arm_en, wind_en, star_extra, oct10, oct9,
                            // oct4, n_ridged, page_off
@@ -132,6 +146,7 @@ struct Ray {
 
 // One non-bulge component at one sample (galaxycomponent.cpp:45-88 and
 // the galaxycomponents.cpp class kernels).
+template <int KIND>
 __device__ void apply_component(const int* perm, const int* ct,
                                 const float* ip, const float* cp, int max_arms,
                                 const Quat& rot, float px, float py, float pz,
@@ -183,17 +198,17 @@ __device__ void apply_component(const int* perm, const int* ct,
     float cval;  // this sample's noise factor
     if (cid == CID_DUST) {
         twirl(tw, winding, px, py, pz, tx, ty, tz);
-        cval = octave_noise_3d(perm, ct[5], ks, cscale * F32(0.1), tx, ty, tz);
+        cval = octave_noise_3d<KIND>(perm, ct[5], ks, cscale * F32(0.1), tx, ty, tz);
         cval = nan_max(cval - noff, 0.0f);
         cval = qt_clamp(powf(5.0f * cval, ntilt), -10.0f, 10.0f);
     } else if (cid == CID_DUST2 || cid == CID_DUST_POSITIVE) {
         twirl(tw, winding, px, py, pz, tx, ty, tz);
-        cval = nan_max(ridged_mf(perm, tx * cscale, ty * cscale, tz * cscale,
+        cval = nan_max(ridged_mf<KIND>(perm, tx * cscale, ty * cscale, tz * cscale,
                                  cp + C_RIDGED_W, ct[7], 2.5f, noff, ntilt),
                        0.0f);
     } else if (cid == CID_DISK) {
         twirl(tw, winding, px, py, pz, tx, ty, tz);
-        cval = fabsf(octave_noise_3d(perm, ct[4], ks, cscale * F32(0.1),
+        cval = fabsf(octave_noise_3d<KIND>(perm, ct[4], ks, cscale * F32(0.1),
                                      tx, ty, tz));
         cval = nan_max(cval, F32(0.01));
         cval = powf(cval, ntilt);
@@ -201,14 +216,14 @@ __device__ void apply_component(const int* perm, const int* ct,
         if (!(cval >= 0.0f)) return;
     } else if (cid == CID_STARS) {
         float freq = (F32(0.01) * cscale) * 100.0f;
-        float perlin = fabsf(octave_noise_3d(perm, ct[4], ks, freq, px, py, pz));
+        float perlin = fabsf(octave_noise_3d<KIND>(perm, ct[4], ks, freq, px, py, pz));
         float add_n = 0.0f;
         if (ct[3]) {  // star_extra
             twirl(tw, winding, px, py, pz, tx, ty, tz);
-            add_n = noff * octave_noise_3d(perm, ct[6], -2.0f, F32(2.0 * 0.1),
+            add_n = noff * octave_noise_3d<KIND>(perm, ct[6], -2.0f, F32(2.0 * 0.1),
                                            tx, ty, tz);
             twirl(tw, winding * 0.5f, px, py, pz, tx, ty, tz);
-            add_n = add_n + 0.5f * noff * octave_noise_3d(
+            add_n = add_n + 0.5f * noff * octave_noise_3d<KIND>(
                 perm, ct[6], -2.0f, F32(4.0 * 0.1), tx, ty, tz);
         }
         cval = fabsf(powf(perlin + 1.0f + add_n, ntilt));
@@ -257,6 +272,7 @@ __device__ __forceinline__ void apply_bulge(const float* ip, const float* cp,
 }
 
 // Intersect and march one instance (rasterizer.cpp:379-483).
+template <int KIND>
 __device__ void march_instance(const int* perm, const int* tab,
                                const float* pg, const int* it, bool dither,
                                float dx, float dy, float dz, Ray& I) {
@@ -334,7 +350,7 @@ __device__ void march_instance(const int* perm, const int* tab,
             if (ct[0] == CID_BULGE)
                 apply_bulge(ip, cp, rot, px, py, pz, weight, ray_step, I);
             else
-                apply_component(perm, ct, ip, cp, max_arms, rot, px, py, pz,
+                apply_component<KIND>(perm, ct, ip, cp, max_arms, rot, px, py, pz,
                                 Px, Py, Pz, dott, radius, weight, ray_step, I);
         }
 
@@ -351,22 +367,47 @@ __device__ void march_instance(const int* perm, const int* tab,
     }
 }
 
+// Every instance of the scene for one ray, far to near; I carries across.
+template <int KIND>
+__device__ __forceinline__ void march_scene(const int* perm, const int* tab,
+                                            const float* pg, float dx,
+                                            float dy, float dz, Ray& I) {
+    const bool dither = tab[T_DITHER] != 0;
+    for (int gi = 0; gi < tab[T_N_INST]; ++gi)
+        march_instance<KIND>(perm, tab, pg, tab + T_HDR + gi * T_INST, dither,
+                             dx, dy, dz, I);
+}
+
+// Copies the kind's lookup table, the structure table and one page into
+// shared memory, laid out [noise table | table | page].
+template <int KIND>
+__device__ __forceinline__ void stage(int* smem, const int* perm_g,
+                                      const int* table, int n_table,
+                                      const float* page, int n_page, int tid,
+                                      int nthr) {
+    constexpr int n_perm = noise_table_size(KIND);
+    int* tab = smem + n_perm;
+    float* pg = reinterpret_cast<float*>(tab + n_table);
+    for (int k = tid; k < n_perm; k += nthr) smem[k] = perm_g[k];
+    for (int k = tid; k < n_table; k += nthr) tab[k] = table[k];
+    for (int k = tid; k < n_page; k += nthr) pg[k] = page[k];
+    __syncthreads();
+}
+
+template <int KIND>
 __global__ void __launch_bounds__(256)
 march_kernel(const float* __restrict__ pages, int n_page, int page_stride,
              const int* __restrict__ table, int n_table,
              const int* __restrict__ perm_g, float* __restrict__ out,
              int frame_size, int rows) {
     extern __shared__ int smem[];
-    int* perm = smem;                                     // [512]
-    int* tab = perm + 512;                                // [n_table]
-    float* pg = reinterpret_cast<float*>(tab + n_table);  // [n_page]
-    const float* page = pages + (size_t)blockIdx.z * page_stride;
-    const int tid = threadIdx.y * blockDim.x + threadIdx.x;
-    const int nthr = blockDim.x * blockDim.y;
-    for (int k = tid; k < 512; k += nthr) perm[k] = perm_g[k];
-    for (int k = tid; k < n_table; k += nthr) tab[k] = table[k];
-    for (int k = tid; k < n_page; k += nthr) pg[k] = page[k];
-    __syncthreads();
+    const int* perm = smem;                          // [noise_table_size]
+    const int* tab = perm + noise_table_size(KIND);  // [n_table]
+    const float* pg = reinterpret_cast<const float*>(tab + n_table);  // [n_page]
+    stage<KIND>(smem, perm_g, table, n_table,
+                pages + (size_t)blockIdx.z * page_stride, n_page,
+                threadIdx.y * blockDim.x + threadIdx.x,
+                blockDim.x * blockDim.y);
 
     const int col = blockIdx.x * blockDim.x + threadIdx.x;
     const int row = blockIdx.y * blockDim.y + threadIdx.y;
@@ -389,12 +430,8 @@ march_kernel(const float* __restrict__ pages, int n_page, int page_stride,
 
     // rows of a band past the frame's last row stay 0 (the TPU's padding)
     Ray I{0.0f, 0.0f, 0.0f};
-    if (jrow < fsize && icol < fsize) {
-        const bool dither = tab[T_DITHER] != 0;
-        for (int gi = 0; gi < tab[T_N_INST]; ++gi)
-            march_instance(perm, tab, pg, tab + T_HDR + gi * T_INST, dither,
-                           dx, dy, dz, I);
-    }
+    if (jrow < fsize && icol < fsize)
+        march_scene<KIND>(perm, tab, pg, dx, dy, dz, I);
     // final scale (rasterizer.cpp:409)
     const float fs = F32(0.01) / pg[G_RAY_STEP];
     float* o = out + (((size_t)blockIdx.z * rows + row) * frame_size + col) * 3;
@@ -403,34 +440,124 @@ march_kernel(const float* __restrict__ pages, int n_page, int page_stride,
     o[2] = I.I2 * fs;
 }
 
+// K6: ray i of an explicit (n_rays, 3) direction list from the page's
+// camera point; no frame mask, inv_vp and row0 unused.
+template <int KIND>
+__global__ void __launch_bounds__(256)
+march_rays_kernel(const float* __restrict__ page, int n_page,
+                  const int* __restrict__ table, int n_table,
+                  const int* __restrict__ perm_g,
+                  const float* __restrict__ dirs, int n_rays,
+                  float* __restrict__ out) {
+    extern __shared__ int smem[];
+    const int* perm = smem;
+    const int* tab = perm + noise_table_size(KIND);
+    const float* pg = reinterpret_cast<const float*>(tab + n_table);
+    stage<KIND>(smem, perm_g, table, n_table, page, n_page, threadIdx.x,
+                blockDim.x);
+
+    const size_t i = (size_t)blockIdx.x * blockDim.x + threadIdx.x;
+    if (i >= (size_t)n_rays) return;
+    const float dx = dirs[3 * i], dy = dirs[3 * i + 1], dz = dirs[3 * i + 2];
+    Ray I{0.0f, 0.0f, 0.0f};
+    march_scene<KIND>(perm, tab, pg, dx, dy, dz, I);
+    const float fs = F32(0.01) / pg[G_RAY_STEP];
+    out[3 * i] = I.I0 * fs;
+    out[3 * i + 1] = I.I1 * fs;
+    out[3 * i + 2] = I.I2 * fs;
+}
+
+// Dynamic shared memory above 48 KB has to be granted to the kernel first.
+template <typename Kernel>
+static cudaError_t reserve_smem(Kernel kernel, size_t smem) {
+    if (smem <= 48 * 1024) return cudaSuccess;
+    return cudaFuncSetAttribute(
+        kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
+}
+
+template <int KIND>
+static int launch_frames(const float* pages, int n_page, int page_stride,
+                         int n_frames, const int* table, int n_table,
+                         const int* perm, float* out, int frame_size, int rows,
+                         cudaStream_t stream) {
+    const size_t smem = (size_t)(noise_table_size(KIND) + n_table + n_page) * 4;
+    cudaError_t e = reserve_smem(march_kernel<KIND>, smem);
+    if (e != cudaSuccess) return (int)e;
+    dim3 block(16, 16);
+    dim3 grid((frame_size + 15) / 16, (rows + 15) / 16, n_frames);
+    march_kernel<KIND><<<grid, block, smem, stream>>>(
+        pages, n_page, page_stride, table, n_table, perm, out, frame_size,
+        rows);
+    return (int)cudaGetLastError();
+}
+
+template <int KIND>
+static int launch_rays(const float* page, int n_page, const int* table,
+                       int n_table, const int* perm, const float* dirs,
+                       int n_rays, float* out, cudaStream_t stream) {
+    const size_t smem = (size_t)(noise_table_size(KIND) + n_table + n_page) * 4;
+    cudaError_t e = reserve_smem(march_rays_kernel<KIND>, smem);
+    if (e != cudaSuccess) return (int)e;
+    march_rays_kernel<KIND><<<(n_rays + 255) / 256, 256, smem, stream>>>(
+        page, n_page, table, n_table, perm, dirs, n_rays, out);
+    return (int)cudaGetLastError();
+}
+
 }  // namespace gamer
 
 // n_frames frames of one structure: block z marches page
-// pages + z * page_stride, with the table and PERM shared by all frames, and
-// writes rows [0, rows) of frame z's rays at global rows row0 + [0, rows)
-// (row0 from the page) into out (n_frames, rows, frame_size, 3). The still
-// frame (K1) is n_frames = 1, rows = frame_size; a row band (K5) is one
-// frame with rows = the band height; a batch (K4) is rows = frame_size.
+// pages + z * page_stride, with the table and the noise table shared by all
+// frames, and writes rows [0, rows) of frame z's rays at global rows
+// row0 + [0, rows) (row0 from the page) into out (n_frames, rows,
+// frame_size, 3). The still frame (K1) is n_frames = 1, rows = frame_size; a
+// row band (K5) is one frame with rows = the band height; a batch (K4) is
+// rows = frame_size. ``kind`` picks the instantiation (0 simplex, 1 perlin,
+// 2 iq) and ``perm`` is that kind's lookup table (unread for iq).
 extern "C" int gamer_march_batch(const float* pages, int n_page,
                                  int page_stride, int n_frames,
                                  const int* table, int n_table,
                                  const int* perm, float* out, int frame_size,
-                                 int rows, void* stream) {
+                                 int rows, int kind, void* stream) {
     if (frame_size <= 0 || rows <= 0 || n_frames <= 0) return 0;
     if (n_frames > 65535 || page_stride < n_page) return (int)cudaErrorInvalidValue;
-    const size_t smem = (size_t)(512 + n_table + n_page) * 4;
-    if (smem > 48 * 1024) {
-        cudaError_t e = cudaFuncSetAttribute(
-            gamer::march_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
-            (int)smem);
-        if (e != cudaSuccess) return (int)e;
+    cudaStream_t st = (cudaStream_t)stream;
+    switch (kind) {
+    case gamer::NOISE_SIMPLEX:
+        return gamer::launch_frames<gamer::NOISE_SIMPLEX>(
+            pages, n_page, page_stride, n_frames, table, n_table, perm, out,
+            frame_size, rows, st);
+    case gamer::NOISE_PERLIN:
+        return gamer::launch_frames<gamer::NOISE_PERLIN>(
+            pages, n_page, page_stride, n_frames, table, n_table, perm, out,
+            frame_size, rows, st);
+    case gamer::NOISE_IQ:
+        return gamer::launch_frames<gamer::NOISE_IQ>(
+            pages, n_page, page_stride, n_frames, table, n_table, perm, out,
+            frame_size, rows, st);
     }
-    dim3 block(16, 16);
-    dim3 grid((frame_size + 15) / 16, (rows + 15) / 16, n_frames);
-    gamer::march_kernel<<<grid, block, smem, (cudaStream_t)stream>>>(
-        pages, n_page, page_stride, table, n_table, perm, out, frame_size,
-        rows);
-    return (int)cudaGetLastError();
+    return (int)cudaErrorInvalidValue;
+}
+
+// K6: n_rays directions (n_rays, 3) from the page's camera point into out
+// (n_rays, 3); ``kind`` and ``perm`` as above.
+extern "C" int gamer_march_rays(const float* page, int n_page,
+                                const int* table, int n_table,
+                                const int* perm, const float* dirs, int n_rays,
+                                float* out, int kind, void* stream) {
+    if (n_rays <= 0) return 0;
+    cudaStream_t st = (cudaStream_t)stream;
+    switch (kind) {
+    case gamer::NOISE_SIMPLEX:
+        return gamer::launch_rays<gamer::NOISE_SIMPLEX>(
+            page, n_page, table, n_table, perm, dirs, n_rays, out, st);
+    case gamer::NOISE_PERLIN:
+        return gamer::launch_rays<gamer::NOISE_PERLIN>(
+            page, n_page, table, n_table, perm, dirs, n_rays, out, st);
+    case gamer::NOISE_IQ:
+        return gamer::launch_rays<gamer::NOISE_IQ>(
+            page, n_page, table, n_table, perm, dirs, n_rays, out, st);
+    }
+    return (int)cudaErrorInvalidValue;
 }
 
 extern "C" const char* gamer_error_string(int code) {

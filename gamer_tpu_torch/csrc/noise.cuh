@@ -1,12 +1,18 @@
 // Device math for the march kernel (march.cu): NaN-propagating min/max,
-// the Qt clamp, minimax atan/atan2, the integer hash, and simplex noise
-// (raw, octave, ridged multifractal).
+// the Qt clamp, minimax atan/atan2, the integer hash, and the three raw
+// noise backends (simplex, classic Perlin, IQ sin-hash value noise) under
+// the octave and ridged-multifractal combinators.
 //
 // Replaces the in-kernel device functions of the TPU kernel,
 // gamer_tpu/ops/pallas_noise.py: atan_f32/atan2_f32 (:39-67),
-// raw_noise_3d (:119-189), octave_noise_3d (:328-345), ridged_mf
-// (:348-374). The permutation table is read directly from shared memory
-// (PERM[idx]); the TPU's byte-packed lane-gather layout is not ported.
+// raw_noise_3d (:119-189), perlin_raw_3d (:248-291, with
+// perlin_perm_lookup :214-221 and _perlin_grad_dot :224-245), iq_raw_3d
+// (:294-325), octave_noise_3d (:328-345), ridged_mf (:348-374). The
+// permutation tables are read directly from shared memory (PERM[idx], and
+// the 1024-entry Perlin permutation p[idx & 1023]); the TPU's byte-packed
+// and chunked lane-gather layouts are not ported. The raw backend is a
+// template parameter of the combinators, so each kind is its own
+// instantiation and the simplex one carries no trace of the others.
 //
 // Every expression keeps the JAX evaluation order, and every non-trivial
 // constant is written F32(double literal): JAX rounds a Python float to
@@ -148,8 +154,140 @@ inline __device__ float raw_noise_3d(const int* perm, float x, float y, float z)
     return 32.0f * (n0 + n1 + n2 + n3);
 }
 
+// --- classic Perlin gradient noise (perlin.cpp:99-150) ----------------------
+
+// The gradient hash of ops/altnoise.py (GRAD_HASH): two rounds of
+// multiply-xorshift over int32 with two's-complement wrap (the multiplies
+// run in uint32, where overflow is defined) and arithmetic right shifts,
+// keyed for table seed 94; the three 10-bit fields decode to gradient
+// components (q - 511.5) / 511.5 with both constants rounded to float32.
+constexpr uint32_t PERLIN_SEEDK = 0x185EB1EEu;  // grad_hash_seedk(94)
+constexpr uint32_t GRAD_HASH_M1 = 0x7FEB352Du;
+constexpr uint32_t GRAD_HASH_M2 = 0x846CA68Bu;
+
+__device__ __forceinline__ float perlin_grad_dot(int idx, float rx, float ry,
+                                                 float rz) {
+    int h = (int)(((uint32_t)(idx & 1023) ^ PERLIN_SEEDK) * GRAD_HASH_M1);
+    h = h ^ (h >> 15);
+    h = (int)((uint32_t)h * GRAD_HASH_M2);
+    h = h ^ (h >> 13);
+    const float mid = F32(511.5);
+    const float inv = F32(1.0 / 511.5);
+    float gx = ((float)(h & 1023) - mid) * inv;
+    float gy = ((float)((h >> 10) & 1023) - mid) * inv;
+    float gz = ((float)((h >> 20) & 1023) - mid) * inv;
+    return rx * gx + ry * gy + rz * gz;
+}
+
+// The setup() macro (perlin.cpp:24-29): the cast truncates, which is the
+// lattice cell only for t >= 0, i.e. coordinates above -4096; kept as
+// written. __float2int_rz saturates and maps NaN to 0.
+__device__ __forceinline__ void perlin_setup(float v, int& b0, int& b1,
+                                             float& r0, float& r1) {
+    float t = v + 4096.0f;
+    int it = __float2int_rz(t);
+    b0 = it & 1023;
+    b1 = (b0 + 1) & 1023;
+    r0 = t - (float)it;
+    r1 = r0 - 1.0f;
+}
+
+__device__ __forceinline__ float s_curve(float t) {
+    return t * t * (3.0f - 2.0f * t);
+}
+
+__device__ __forceinline__ float lerp_w(float w, float a, float b) {
+    return a + w * (b - a);
+}
+
+// Raw 3-D Perlin noise, x2 as Perlin::raw_3d (perlin.h:32-37); p is the
+// 1024-entry permutation of table seed 94.
+inline __device__ float perlin_raw_3d(const int* p, float x, float y, float z) {
+    int bx0, bx1, by0, by1, bz0, bz1;
+    float rx0, rx1, ry0, ry1, rz0, rz1;
+    perlin_setup(x, bx0, bx1, rx0, rx1);
+    perlin_setup(y, by0, by1, ry0, ry1);
+    perlin_setup(z, bz0, bz1, rz0, rz1);
+
+    int i = p[bx0];
+    int j = p[bx1];
+    int b00 = p[(i + by0) & 1023];
+    int b10 = p[(j + by0) & 1023];
+    int b01 = p[(i + by1) & 1023];
+    int b11 = p[(j + by1) & 1023];
+
+    float t = s_curve(rx0);
+    float sy = s_curve(ry0);
+    float sz = s_curve(rz0);
+    float a = lerp_w(t, perlin_grad_dot(b00 + bz0, rx0, ry0, rz0),
+                   perlin_grad_dot(b10 + bz0, rx1, ry0, rz0));
+    float b = lerp_w(t, perlin_grad_dot(b01 + bz0, rx0, ry1, rz0),
+                   perlin_grad_dot(b11 + bz0, rx1, ry1, rz0));
+    float c = lerp_w(sy, a, b);
+    a = lerp_w(t, perlin_grad_dot(b00 + bz1, rx0, ry0, rz1),
+             perlin_grad_dot(b10 + bz1, rx1, ry0, rz1));
+    b = lerp_w(t, perlin_grad_dot(b01 + bz1, rx0, ry1, rz1),
+             perlin_grad_dot(b11 + bz1, rx1, ry1, rz1));
+    float d = lerp_w(sy, a, b);
+    return 2.0f * lerp_w(sz, c, d);
+}
+
+// --- IQ sin-hash trilinear value noise (iqnoise.cpp:34-53) ------------------
+
+// floor as trunc - (v < trunc), as the TPU kernel writes it.
+__device__ __forceinline__ float iq_floor(float v) {
+    float t = truncf(v);
+    return t - (v < t ? 1.0f : 0.0f);
+}
+
+// frac(sin(n) * 753.5453123): sinf, never __sinf; the multiply amplifies
+// the last ulps of the sine, so two sine implementations give hashes that
+// differ visibly at single lattice corners.
+__device__ __forceinline__ float iq_hash(float n) {
+    float v = sinf(n) * F32(753.5453123);
+    return v - iq_floor(v);
+}
+
+inline __device__ float iq_raw_3d(float x, float y, float z) {
+    float px = iq_floor(x), py = iq_floor(y), pz = iq_floor(z);
+    float fx = x - px, fy = y - py, fz = z - pz;
+    fx = s_curve(fx);
+    fy = s_curve(fy);
+    fz = s_curve(fz);
+    float n = px + py * 157.0f + 113.0f * pz;
+    return lerp_w(
+        fz,
+        lerp_w(fy, lerp_w(fx, iq_hash(n + 0.0f), iq_hash(n + 1.0f)),
+             lerp_w(fx, iq_hash(n + 157.0f), iq_hash(n + 158.0f))),
+        lerp_w(fy, lerp_w(fx, iq_hash(n + 113.0f), iq_hash(n + 114.0f)),
+             lerp_w(fx, iq_hash(n + 270.0f), iq_hash(n + 271.0f))));
+}
+
+// --- the raw backend as a compile-time kind ---------------------------------
+
+enum { NOISE_SIMPLEX = 0, NOISE_PERLIN = 1, NOISE_IQ = 2, N_NOISE_KINDS = 3 };
+
+// Entries of the kind's lookup table, which the caller stages in shared
+// memory: PERM[512], the Perlin permutation [1024], or none.
+__host__ __device__ constexpr int noise_table_size(int kind) {
+    return kind == NOISE_SIMPLEX ? 512 : (kind == NOISE_PERLIN ? 1024 : 0);
+}
+
+template <int KIND>
+__device__ __forceinline__ float raw_noise(const int* tab, float x, float y,
+                                           float z) {
+    if constexpr (KIND == NOISE_PERLIN) {
+        return perlin_raw_3d(tab, x, y, z);
+    } else if constexpr (KIND == NOISE_IQ) {
+        return iq_raw_3d(x, y, z);
+    } else {
+        return raw_noise_3d(tab, x, y, z);
+    }
+}
+
 // noise.cpp:162-180: frequency doubling, persistence amplitudes,
 // normalized by the total amplitude.
+template <int KIND>
 inline __device__ float octave_noise_3d(const int* perm, int octaves,
                                  float persistence, float scale, float x,
                                  float y, float z) {
@@ -158,7 +296,7 @@ inline __device__ float octave_noise_3d(const int* perm, int octaves,
     float amp = 1.0f;
     float max_amp = 0.0f;
     for (int o = 0; o < octaves; ++o) {
-        total = total + raw_noise_3d(perm, x * freq, y * freq, z * freq) * amp;
+        total = total + raw_noise<KIND>(perm, x * freq, y * freq, z * freq) * amp;
         freq = freq * 2.0f;
         max_amp = max_amp + amp;
         amp = amp * persistence;
@@ -167,13 +305,14 @@ inline __device__ float octave_noise_3d(const int* perm, int octaves,
 }
 
 // noise.cpp:81-128 with host-computed spectral weights sw[0..n).
+template <int KIND>
 inline __device__ float ridged_mf(const int* perm, float x, float y, float z,
                            const float* sw, int n, float lacunarity,
                            float offset, float gain) {
     float value = 0.0f;
     float weight = 1.0f;
     for (int o = 0; o < n; ++o) {
-        float signal = raw_noise_3d(perm, x, y, z);
+        float signal = raw_noise<KIND>(perm, x, y, z);
         signal = offset - fabsf(signal);
         signal = signal * signal;
         signal = signal * weight;

@@ -1,0 +1,62 @@
+"""All-sky (HEALPix) rendering — HPXRasterizer parity
+(source/galaxy/hpxrasterizer.cpp:61-140), the counterpart of
+``gamer_tpu.engine.allsky``.
+
+The work list is the 12*nside^2 RING pixels; each pixel's ray direction is
+its HEALPix centre vector turned 90 degrees about +X
+(fromEulerAngles((90,0,0)), hpxrasterizer.cpp:82); the stored value is the
+luminance mean(I) of the marched radiance, with the 0.01/rayStep final
+scale (the reference calls the same renderPixel). Assembly is the Mollweide
+projection of the map and the standard post chain.
+
+All sky pixels march in one ray-list launch (K6,
+``cuda_render.march_rays``): no shuffle is needed, since work-list
+shuffling only balanced the reference's thread chunks.
+"""
+
+from __future__ import annotations
+
+import numpy as np
+import torch
+
+from ..post.healpix import npix, pix2vec_ring
+from ..post.mollweide import mollweide_image
+from ..scene.schema import Scene
+from .cuda_render import _device, render_dirs
+from .render import post_process
+
+f32 = np.float32
+
+
+def allsky_dirs(nside: int) -> np.ndarray:
+    """(12*nside^2, 3) float32 ray directions of the RING pixel centres,
+    turned 90 degrees about +X: (x, y, z) -> (x, -z, y). Centres and turn
+    are float64; the cast to float32 comes last."""
+    d = pix2vec_ring(nside, np.arange(npix(nside)))
+    return np.stack([d[:, 0], -d[:, 2], d[:, 1]], axis=-1).astype(np.float32)
+
+
+def render_allsky_map(scene: Scene, nside: int, device="cuda",
+                      mesh=None) -> np.ndarray:
+    """Render the scene into a RING HEALPix luminance map of 12*nside^2
+    float64 values: one ray-list launch, the channel mean taken in float32
+    on ``device`` and then cast."""
+    linear = render_dirs(scene, allsky_dirs(nside), device=device,
+                         device_out=True, mesh=mesh)
+    # numpy's order of the three-term sum, and a tensor divisor: the f32
+    # quotient on every device (see render.post_process)
+    csum = (linear[:, 0] + linear[:, 1]) + linear[:, 2]
+    lum = csum / torch.full_like(csum, 3.0)
+    return lum.cpu().numpy().astype(np.float64)
+
+
+def render_allsky_image(scene: Scene, nside: int, size: int, device="cuda",
+                        mesh=None) -> np.ndarray:
+    """All-sky map -> Mollweide -> post chain -> uint8 (size, size, 3)."""
+    dev = _device(device)
+    hpx = render_allsky_map(scene, nside, device=dev, mesh=mesh)
+    buf = mollweide_image(hpx, nside, size)
+    cfg = scene.config
+    img = post_process(torch.as_tensor(buf, device=dev), f32(cfg.exposure),
+                       f32(cfg.gamma), f32(cfg.saturation))
+    return img.cpu().numpy()

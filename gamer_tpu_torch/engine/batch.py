@@ -28,10 +28,10 @@ from .cuda_render import (
     _build_layout,
     _build_table,
     _device,
-    _noise_kind_unsupported,
     _pack_scalars,
     _star_overlay,
     march_batch,
+    upload_table,
 )
 from .render import pool_linear, post_process
 from .scene_prep import flatten_scene
@@ -73,7 +73,7 @@ def _render_group(static, pages: np.ndarray, size: int, ss: int,
     radiance on ``device``, supersampling pooled in linear space."""
     table = _build_table(static, _build_layout(static))
     lin = march_batch(torch.as_tensor(pages, device=device),
-                      torch.as_tensor(table, device=device), size * ss)
+                      upload_table(table, device), size * ss)
     return pool_linear(lin, ss)
 
 
@@ -95,8 +95,6 @@ def render_batch_linear(scenes: Sequence[Scene], device="cuda",
             raise ValueError("all scenes in a batch must share the size")
         if s.config.supersample != ss:
             raise ValueError("all scenes in a batch must share the supersample")
-        if s.config.noise_kind != "simplex":
-            raise _noise_kind_unsupported(s.config.noise_kind)
     groups = _scene_groups(scenes)
     if len(groups) == 1:
         return _render_group(groups[0][0], groups[0][1], size, ss, dev)

@@ -1,21 +1,26 @@
-"""The still-frame and row-band paths: scene -> scalar page + structure
-table -> march kernel (csrc/march.cu) -> torch epilogue (pooling, stars,
-post) -> uint8.
+"""The still-frame, row-band and ray-list paths: scene -> scalar page +
+structure table -> march kernel (csrc/march.cu) -> torch epilogue (pooling,
+stars, post) -> uint8.
 
 The counterpart of ``gamer_tpu.engine.pallas_render``'s
-``render_scene_pallas`` (one fused frame) and ``render_progressive_pallas``
-(row bands with progress and abort). The host side packs the scene's
-numbers into one float32 page (``_build_layout`` / ``_pack_scalars``, as
-the TPU kernel's SMEM row) and its structure into a small int32 table
-(``_build_table``) that the one precompiled CUDA kernel walks at run time.
+``render_scene_pallas`` (one fused frame), ``render_progressive_pallas``
+(row bands with progress and abort) and ``render_dirs_pallas`` (an explicit
+list of ray directions, the all-sky work list). The host side packs the
+scene's numbers into one float32 page (``_build_layout`` /
+``_pack_scalars``, as the TPU kernel's SMEM row) and its structure into a
+small int32 table (``_build_table``) that the precompiled CUDA kernel walks
+at run time. The table's header names the scene's raw-noise backend
+(simplex, perlin or iq), which picks the kernel's instantiation.
 
 The kernel's wrappers are ``march`` (K1, a whole frame), ``march_band``
-(K5, a row band) and ``march_batch`` (K4, a stack of frames; used by
-engine/batch.py). A tensor on the CPU runs the plain version,
-``march_plain`` and its band and batch forms: the lockstep torch version
-with the kernel's arithmetic (the ``tacc`` / ``dist0 - tacc`` recurrence
-and ``tacc >= length + step_prev`` exit of pallas_render.py:428-434,578,
-the minimax atan); a CUDA tensor launches the kernel or raises.
+(K5, a row band), ``march_batch`` (K4, a stack of frames; used by
+engine/batch.py) and ``march_rays`` (K6, a ray list; used by
+engine/allsky.py). A tensor on the CPU runs the plain version,
+``march_plain`` and its band, batch and ray-list forms: the lockstep torch
+version with the kernel's arithmetic (the ``tacc`` / ``dist0 - tacc``
+recurrence and ``tacc >= length + step_prev`` exit of
+pallas_render.py:428-434,578, the minimax atan); a CUDA tensor launches the
+kernel or raises.
 """
 
 from __future__ import annotations
@@ -28,7 +33,14 @@ import torch
 
 from ..ops.camera import inv_view_projection, ray_grid
 from ..ops.math3d import PI, atan2_f32, atan_f32, floor0, qt_clamp, quat_rotate
-from ..ops.noise import octave_noise_3d, perm_table, ridged_mf, ridged_weights
+from ..ops.noise import (
+    NOISE_KINDS,
+    noise_table,
+    octave_noise_3d,
+    resolve_raw,
+    ridged_mf,
+    ridged_weights,
+)
 from ..post.stars import pad_star_rows, star_field_device, star_params
 from ..scene.schema import (
     CID_BULGE,
@@ -62,8 +74,9 @@ I_ARMS, I_ROTMAT, I_TWIRL, I_ORIENT, I_ISCALE = 9, 13, 17, 20, 23
 C_SPEC, C_RIDGED_W = 11, 14
 C_FIELD = {f: k for k, f in enumerate(COMP_FIELDS)}
 
-# Structure table: a header, one row per instance, one row per component.
-T_N_INST, T_DITHER, T_HDR = 0, 1, 2
+# Structure table: a header (instance count, dither flag, index of the
+# noise kind in NOISE_KINDS), one row per instance, one row per component.
+T_N_INST, T_DITHER, T_KIND, T_HDR = 0, 1, 2, 3
 T_INST = 4   # n_comps, max_arms, page_off, comp_row
 T_COMP = 9   # cid, arm_en, wind_en, star_extra, oct10, oct9, oct4, n_ridged,
              # page_off
@@ -87,11 +100,18 @@ def band_geometry(size: int, supersample: int, bands: int):
     return band_rows, -(-S // band_rows)
 
 
-def _noise_kind_unsupported(kind: str) -> NotImplementedError:
-    return NotImplementedError(
-        f"noise_kind={kind!r} is not ported yet: the march kernel implements "
-        "simplex only (the perlin and iq raw-noise backends are listed in "
-        "ROADMAP.md's port queue)")
+def _scene_noise_kind(static: SceneStatic) -> str:
+    """The one raw-noise backend of a scene's components (simplex for a
+    scene without components). A kernel launch is one instantiation, so an
+    unknown kind, or two kinds in one scene, raises ValueError."""
+    kinds = {cs.noise_kind for inst in static.instances for cs in inst.comps}
+    bad = kinds - set(NOISE_KINDS)
+    if bad:
+        raise ValueError(f"unknown noise_kind(s) {sorted(bad)!r}: expected "
+                         f"one of {NOISE_KINDS}")
+    if len(kinds) > 1:
+        raise ValueError(f"one noise kind per scene, got {sorted(kinds)!r}")
+    return kinds.pop() if kinds else "simplex"
 
 
 class _Layout:
@@ -102,6 +122,7 @@ class _Layout:
         self.sizes = {}
         self.offsets = {}
         self.n = 0
+        self.kind = "simplex"  # the scene's raw-noise backend
 
     def add(self, name: str, k: int) -> int:
         self.offsets[name] = self.n
@@ -112,13 +133,11 @@ class _Layout:
 
 
 def _build_layout(static: SceneStatic) -> _Layout:
-    """pallas_render._build_layout for the simplex kernel (same names, same
-    order, so the page equals the TPU page's first ``n`` entries)."""
-    for inst in static.instances:
-        for cs in inst.comps:
-            if cs.noise_kind != "simplex":
-                raise _noise_kind_unsupported(cs.noise_kind)
+    """pallas_render._build_layout (same names, same order, so the page
+    equals the TPU page's first ``n`` entries for every noise kind; the
+    kind's lookup table is not part of the page)."""
     lay = _Layout()
+    lay.kind = _scene_noise_kind(static)
     lay.add("inv_vp", 16)
     lay.add("camera", 3)
     lay.add("ray_step", 1)
@@ -191,7 +210,7 @@ def _build_table(static: SceneStatic, lay: _Layout) -> np.ndarray:
     """The scene's structure as int32 rows the kernel walks at run time."""
     n_inst = len(static.instances)
     comp_row = T_HDR + n_inst * T_INST
-    rows = [n_inst, int(static.dither)]
+    rows = [n_inst, int(static.dither), NOISE_KINDS.index(lay.kind)]
     comp_rows = []
     for gi, inst in enumerate(static.instances):
         p = f"i{gi}."
@@ -293,7 +312,8 @@ def _cloud(inst, octaves, t, ks_, pers_, px, py, pz):
     """octave noise of the twirled sample at frequency ks_*0.1, with the
     call sites' (scale, persistence) argument order (pallas_render.py:835)."""
     tx, ty, tz = _twirl(inst["twirl_axis"], t, px, py, pz)
-    return octave_noise_3d(octaves, pers_, f32(ks_) * f32(0.1), tx, ty, tz)
+    return octave_noise_3d(octaves, pers_, f32(ks_) * f32(0.1), tx, ty, tz,
+                           inst["raw_fn"])
 
 
 def _count(stats, key: str, n) -> None:
@@ -348,7 +368,7 @@ def _component(st, inst, cp, max_arms, px, py, pz, Px, Py, Pz, dott, radius,
         return
     e = emit.nonzero().squeeze(1)
     if stats is not None:
-        # the kernel's noise work on the emitting samples (raw simplex calls)
+        # the kernel's noise work on the emitting samples (raw noise calls)
         n_raw = {CID_DUST: st["oct9"], CID_DUST2: st["n_ridged"],
                  CID_DUST_POSITIVE: st["n_ridged"], CID_DISK: st["oct10"],
                  CID_STARS: st["oct10"] + (2 * st["oct4"] if st["star_extra"]
@@ -371,7 +391,8 @@ def _component(st, inst, cp, max_arms, px, py, pz, Px, Py, Pz, dott, radius,
     elif cid in (CID_DUST2, CID_DUST_POSITIVE):
         tx, ty, tz = _twirl(inst["twirl_axis"], winding, ex, ey, ez)
         contrib = torch.clamp(ridged_mf(tx * cscale, ty * cscale, tz * cscale,
-                                        cp["ridged_w"], 2.5, noff, ntilt),
+                                        cp["ridged_w"], 2.5, noff, ntilt,
+                                        inst["raw_fn"]),
                               min=0.0)
     elif cid == CID_DISK:
         contrib = torch.abs(_cloud(inst, st["oct10"], winding, cscale, ks,
@@ -380,7 +401,8 @@ def _component(st, inst, cp, max_arms, px, py, pz, Px, Py, Pz, dott, radius,
         keep = contrib >= 0
     elif cid == CID_STARS:
         freq = (f32(0.01) * f32(cscale)) * f32(100.0)
-        perlin = torch.abs(octave_noise_3d(st["oct10"], ks, freq, ex, ey, ez))
+        perlin = torch.abs(octave_noise_3d(st["oct10"], ks, freq, ex, ey, ez,
+                                           inst["raw_fn"]))
         add_n = torch.zeros_like(perlin)
         if st["star_extra"]:
             add_n = noff * _cloud(inst, st["oct4"], winding, 2.0, -2.0,
@@ -425,11 +447,20 @@ def _bulge(inst, cp, px, py, pz, weight, ray_step, I):
         I[k] = I[k] + cp["spec"][k] * add
 
 
+def _checked_kind(kind: int) -> int:
+    if not 0 <= kind < len(NOISE_KINDS):
+        raise ValueError(f"the table names noise kind {kind}, expected an "
+                         f"index into {NOISE_KINDS}")
+    return kind
+
+
 def _read_scene(pg: np.ndarray, tb: np.ndarray):
     """Decode the page and table into per-instance dicts of float32 values
-    (as Python floats) and per-component structure rows."""
+    (as Python floats), per-component structure rows and the scene's raw
+    noise function."""
     insts = []
     n_inst = int(tb[T_N_INST])
+    raw_fn = resolve_raw(NOISE_KINDS[_checked_kind(int(tb[T_KIND]))])
     for gi in range(n_inst):
         n_comps, max_arms, base, crow = (int(v) for v in
                                          tb[T_HDR + gi * T_INST:][:T_INST])
@@ -446,6 +477,7 @@ def _read_scene(pg: np.ndarray, tb: np.ndarray):
             "orientation": v[I_ORIENT:I_ORIENT + 3],
             "iscale": v[I_ISCALE],
             "max_arms": max_arms,
+            "raw_fn": raw_fn,
             "comps": [],
         }
         for ci in range(n_comps):
@@ -568,20 +600,41 @@ def march_plain(page: torch.Tensor, table: torch.Tensor, frame_size: int,
     dev = page.device
     pg = page.detach().to("cpu", torch.float32).numpy()
     tb = table.detach().to("cpu").numpy()
-    ray_step, min_step = float(pg[G_RAY_STEP]), float(pg[G_MIN_STEP])
     row0 = float(pg[G_ROW0])
     dirs = ray_grid(frame_size, pg[G_INV_VP:G_INV_VP + 16], row0,
                     device=dev, rows=rows).reshape(-1, 3)
     jrow = row0 + torch.arange(rows, dtype=torch.float32, device=dev)
     valid = (jrow < float(frame_size))[:, None].expand(
         rows, frame_size).reshape(-1)
-    I = torch.zeros((rows * frame_size, 3), dtype=torch.float32, device=dev)
+    return _march_dirs_plain(pg, tb, dirs, valid, stats).reshape(
+        rows, frame_size, 3)
+
+
+def _march_dirs_plain(pg: np.ndarray, tb: np.ndarray, dirs: torch.Tensor,
+                      valid: torch.Tensor, stats: dict | None):
+    """(n, 3) radiance, scaled by 0.01/ray_step, of the rays ``dirs`` (n, 3)
+    from the page's camera point through every instance; rays outside
+    ``valid`` stay 0."""
+    ray_step, min_step = float(pg[G_RAY_STEP]), float(pg[G_MIN_STEP])
+    I = torch.zeros((dirs.shape[0], 3), dtype=torch.float32,
+                    device=dirs.device)
     camera = pg[G_CAMERA:G_CAMERA + 3]
     for inst in _read_scene(pg, tb):
         _march_instance_plain(inst, dirs, valid, camera, ray_step, min_step,
                               bool(tb[T_DITHER]), I, stats)
-    fs = float(f32(0.01) / f32(ray_step))
-    return (I * fs).reshape(rows, frame_size, 3)
+    return I * float(f32(0.01) / f32(ray_step))
+
+
+def march_rays_plain(page: torch.Tensor, table: torch.Tensor,
+                     dirs: torch.Tensor, stats: dict | None = None):
+    """K6's function: (N, 3) radiance of the rays ``dirs`` (N, 3) float32,
+    used as given (not normalised), from the page's camera point. There is
+    no frame mask; a zero direction never hits and gives 0. ``stats``
+    counts the work as in ``march_plain``."""
+    pg = page.detach().to("cpu", torch.float32).numpy()
+    tb = table.detach().to("cpu").numpy()
+    valid = torch.ones(dirs.shape[0], dtype=torch.bool, device=dirs.device)
+    return _march_dirs_plain(pg, tb, dirs, valid, stats)
 
 
 def _with_row0(page: torch.Tensor, row0: int) -> torch.Tensor:
@@ -646,17 +699,37 @@ def _launch(pages: torch.Tensor, table: torch.Tensor, frame_size: int,
     lib = library()
     out = torch.empty((n_frames, rows, frame_size, 3), dtype=torch.float32,
                       device=pages.device)
-    perm = perm_table(pages.device, torch.int32)
+    kind = _table_kind(table)
+    perm = noise_table(NOISE_KINDS[kind], pages.device)
     stream = torch.cuda.current_stream(pages.device).cuda_stream
     with torch.cuda.device(pages.device):
         rc = lib.gamer_march_batch(pages.data_ptr(), n_page, n_page, n_frames,
                                    table.data_ptr(), table.numel(),
                                    perm.data_ptr(), out.data_ptr(),
-                                   int(frame_size), int(rows), stream)
+                                   int(frame_size), int(rows), kind, stream)
     if rc != 0:
         raise RuntimeError(f"march kernel launch failed: CUDA error {rc} "
                            f"({lib.gamer_error_string(rc).decode()})")
+    KIND_LAUNCHES[NOISE_KINDS[kind]] += 1
     return out
+
+
+def upload_table(table: np.ndarray, device) -> torch.Tensor:
+    """The structure table as an int32 tensor on ``device``, with its noise
+    kind noted on the tensor so that a launch need not read it back."""
+    t = torch.as_tensor(table, device=device)
+    t.noise_kind = int(table[T_KIND])
+    return t
+
+
+def _table_kind(table: torch.Tensor) -> int:
+    """The table's noise kind (an index into NOISE_KINDS), which picks the
+    kernel's instantiation on the host: the note ``upload_table`` left, else
+    one read of the header from the device, kept on the tensor."""
+    kind = getattr(table, "noise_kind", None)
+    if kind is None:
+        kind = table.noise_kind = _checked_kind(int(table[T_KIND]))
+    return kind
 
 
 def march(page: torch.Tensor, table: torch.Tensor, size: int) -> torch.Tensor:
@@ -703,9 +776,53 @@ def march_batch(pages: torch.Tensor, table: torch.Tensor,
     return out
 
 
+def march_rays(page: torch.Tensor, table: torch.Tensor,
+               dirs: torch.Tensor) -> torch.Tensor:
+    """K6: linear radiance (N, 3) float32 of an explicit list of ray
+    directions ``dirs`` (N, 3) float32, used as given, from the page's
+    camera point, on the page's device. On the card a ray is bit-equal to
+    the frame ray of the same direction bits. CPU tensors run
+    ``march_rays_plain``; CUDA tensors launch the kernel (counted in
+    ``march_rays.launch_count``) or raise."""
+    if dirs.dtype != torch.float32 or dirs.dim() != 2 or dirs.shape[1] != 3:
+        raise ValueError(f"dirs must be an (N, 3) float32 tensor, got "
+                         f"{tuple(dirs.shape)} {dirs.dtype}")
+    if dirs.device != page.device:
+        raise ValueError(f"dirs must be on the page's device {page.device}, "
+                         f"got {dirs.device}")
+    if _on_cpu(page, table, 1):
+        return march_rays_plain(page, table, dirs)
+    if not dirs.is_contiguous():
+        raise ValueError("dirs must be contiguous")
+    if dirs.shape[0] >= (1 << 31):
+        raise ValueError(f"a launch takes fewer than 2^31 rays, got "
+                         f"{dirs.shape[0]}")
+    from ..kernels import library
+
+    lib = library()
+    out = torch.empty_like(dirs)
+    kind = _table_kind(table)
+    perm = noise_table(NOISE_KINDS[kind], page.device)
+    stream = torch.cuda.current_stream(page.device).cuda_stream
+    with torch.cuda.device(page.device):
+        rc = lib.gamer_march_rays(page.data_ptr(), page.numel(),
+                                  table.data_ptr(), table.numel(),
+                                  perm.data_ptr(), dirs.data_ptr(),
+                                  dirs.shape[0], out.data_ptr(), kind, stream)
+    if rc != 0:
+        raise RuntimeError(f"march kernel launch failed: CUDA error {rc} "
+                           f"({lib.gamer_error_string(rc).decode()})")
+    KIND_LAUNCHES[NOISE_KINDS[kind]] += 1
+    march_rays.launch_count += 1
+    return out
+
+
 march.launch_count = 0
 march_band.launch_count = 0
 march_batch.launch_count = 0
+march_rays.launch_count = 0
+# launches of each kind's instantiation, over all four wrappers
+KIND_LAUNCHES = dict.fromkeys(NOISE_KINDS, 0)
 
 
 # ---------------------------------------------------------------------------
@@ -726,8 +843,6 @@ def prepare(scene: Scene, device):
     """(page, table, march size, pool factor) for a scene, with page and
     table on ``device``."""
     cfg = scene.config
-    if cfg.noise_kind != "simplex":
-        raise _noise_kind_unsupported(cfg.noise_kind)
     _check_march_cap(scene)
     static, params = flatten_scene(scene)
     camera = np.asarray(scene.camera.camera, np.float32)
@@ -739,7 +854,7 @@ def prepare(scene: Scene, device):
     table = _build_table(static, lay)
     ss = cfg.supersample
     return (torch.as_tensor(page, device=device),
-            torch.as_tensor(table, device=device), cfg.size * ss, ss)
+            upload_table(table, device), cfg.size * ss, ss)
 
 
 def render_linear(scene: Scene, device="cuda") -> torch.Tensor:
@@ -764,6 +879,26 @@ def render_scene(scene: Scene, device="cuda", device_out: bool = False):
     if device_out:
         return img
     return img.cpu().numpy()
+
+
+def render_dirs(scene: Scene, dirs, device="cuda", device_out: bool = False,
+                mesh=None):
+    """Linear radiance (N, 3) float32 for an arbitrary (N, 3) list of ray
+    directions from the scene's camera point, in one ray-list launch (K6):
+    the counterpart of ``render_dirs_pallas``. The directions are cast to
+    float32 and used as given. With ``device_out`` the tensor stays on
+    ``device``; otherwise a numpy array is returned."""
+    if mesh is not None:
+        raise NotImplementedError(
+            "mesh sharding of the ray list is not ported (ROADMAP.md, port "
+            "queue: multi-GPU)")
+    dev = _device(device)
+    page, table, _, _ = prepare(scene, dev)
+    d = np.ascontiguousarray(np.asarray(dirs, np.float32).reshape(-1, 3))
+    lin = march_rays(page, table, torch.as_tensor(d, device=dev))
+    if device_out:
+        return lin
+    return lin.cpu().numpy()
 
 
 def _star_overlay(cfg, device):

@@ -7,14 +7,9 @@ from __future__ import annotations
 import numpy as np
 import torch
 
-from ..ops.math3d import qt_clamp
+from ..ops.math3d import qt_clamp, wrap_i32
 
 _INT32_MIN = -(1 << 31)
-
-
-def _wrap_i32(v):
-    """Two's-complement wrap of an int64 tensor to the int32 range."""
-    return ((v + (1 << 31)) & 0xFFFFFFFF) - (1 << 31)
 
 
 def hash3_i32(bx, by, bz):
@@ -22,7 +17,7 @@ def hash3_i32(bx, by, bz):
     xor, and an arithmetic shift. Inputs are int32 (or int64 holding int32
     values); the result is an int64 tensor holding the int32 value."""
     bx, by, bz = bx.long(), by.long(), bz.long()
-    h = _wrap_i32((bx * -1640531527) ^ (by * 97) ^ (bz * 1013904223))
+    h = wrap_i32((bx * -1640531527) ^ (by * 97) ^ (bz * 1013904223))
     return h ^ (h >> 13)
 
 

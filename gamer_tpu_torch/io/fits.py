@@ -1,6 +1,7 @@
 """FITS export of the linear radiance buffer, one image per channel
 (FitsIO::Savedouble, fitsio.h:18-56, as standard big-endian FITS: the
-reference's 4-byte flip of 8-byte values is not reproduced)."""
+reference's 4-byte flip of 8-byte values is not reproduced), and a reader
+of simple primary-HDU images (the renderhpx command's input)."""
 
 from __future__ import annotations
 
@@ -51,3 +52,35 @@ def write_fits_channels(basepath: Union[str, Path], linear: np.ndarray) -> list:
         write_fits_image(p, np.asarray(linear)[..., i])
         paths.append(p)
     return paths
+
+
+def read_fits_image(path: Union[str, Path]) -> np.ndarray:
+    """Read a simple primary-HDU FITS image (1-D or 2-D, any BITPIX) as
+    float64, in file order (``write_fits_image`` flips rows on export; the
+    reader does not flip them back)."""
+    raw = Path(path).read_bytes()
+    pos = 0
+    hdr = {}
+    end = False
+    while not end:
+        block = raw[pos:pos + BLOCK]
+        if len(block) < BLOCK:
+            raise ValueError("truncated FITS header")
+        for c in range(0, BLOCK, CARD):
+            card = block[c:c + CARD].decode("ascii", "replace")
+            key = card[:8].strip()
+            if key == "END":
+                end = True
+                break
+            if "=" in card:
+                hdr[key] = card.split("=", 1)[1].split("/")[0].strip()
+        pos += BLOCK
+    bitpix = int(hdr["BITPIX"])
+    naxis = int(hdr["NAXIS"])
+    dims = [int(hdr[f"NAXIS{i + 1}"]) for i in range(naxis)]
+    count = int(np.prod(dims)) if dims else 0
+    dt = {8: ">u1", 16: ">i2", 32: ">i4", 64: ">i8", -32: ">f4",
+          -64: ">f8"}[bitpix]
+    arr = np.frombuffer(raw, dtype=dt, count=count,
+                        offset=pos).astype(np.float64)
+    return arr.reshape(dims[::-1]) if naxis >= 2 else arr

@@ -108,10 +108,16 @@ def library() -> ctypes.CDLL:
         lib = ctypes.CDLL(str(build()))
         p, i, f = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
         # pages, n_page, page_stride, n_frames, table, n_table, perm, out,
-        # frame_size, rows, stream
-        lib.gamer_march_batch.argtypes = [p, i, i, i, p, i, p, p, i, i, p]
+        # frame_size, rows, kind, stream
+        lib.gamer_march_batch.argtypes = [p, i, i, i, p, i, p, p, i, i, i, p]
         lib.gamer_march_batch.restype = i
-        lib.gamer_noise_probe.argtypes = [p, i, p, i, f, f, p, i, f, f, f, p, p]
+        # page, n_page, table, n_table, perm, dirs, n_rays, out, kind, stream
+        lib.gamer_march_rays.argtypes = [p, i, p, i, p, p, i, p, i, p]
+        lib.gamer_march_rays.restype = i
+        # points, n, perm, octaves, persistence, scale, weights, n_weights,
+        # lacunarity, offset, gain, out, kind, stream
+        lib.gamer_noise_probe.argtypes = [p, i, p, i, f, f, p, i, f, f, f, p,
+                                          i, p]
         lib.gamer_noise_probe.restype = i
         lib.gamer_error_string.argtypes = [i]
         lib.gamer_error_string.restype = ctypes.c_char_p

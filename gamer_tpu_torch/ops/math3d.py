@@ -26,6 +26,14 @@ def floor0(v):
     return torch.where(v >= 0, v, 0.0)
 
 
+def wrap_i32(v):
+    """Two's-complement wrap of an int64 tensor to the int32 range: int32
+    multiplies run in int64 (a product of two int32 values fits) and wrap
+    by hand, since signed overflow is not defined underneath torch's own
+    int32 multiply."""
+    return ((v + (1 << 31)) & 0xFFFFFFFF) - (1 << 31)
+
+
 def dot3(a, b):
     """Dot product over the trailing axis of size 3."""
     return (a[..., 0] * b[..., 0] + a[..., 1] * b[..., 1]) + a[..., 2] * b[..., 2]

@@ -202,8 +202,8 @@ def test_batch_rejects_what_it_does_not_take():
         gt.render_batch([a, _scene(8)], device="cpu")
     with pytest.raises(ValueError, match="supersample"):
         gt.render_batch([a, _scene(6, supersample=2)], device="cpu")
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        gt.render_batch([_scene(6, noise_kind="perlin")], device="cpu")
+    with pytest.raises(ValueError, match="at least one"):
+        gt.render_batch([], device="cpu")
     page, table, size, _ = cr.prepare(a, "cpu")
     with pytest.raises(ValueError):
         cr.march_batch(page, table, size)  # a 1-D page is not a stack

@@ -1,7 +1,8 @@
-"""The JAX-free modules that gamer_tpu_torch copies for its band and batch
-paths, held equal to the originals: the .gax codec, RenderParams.dat, the
-seeded RNG, scene and dataset generation, morphing, camera controls, and
-the log and timers. The port never imports ``gamer_tpu``, so each copy is
+"""The JAX-free modules that gamer_tpu_torch copies for its band, batch and
+all-sky paths, held equal to the originals: the .gax codec,
+RenderParams.dat, the seeded RNG, scene and dataset generation, morphing,
+camera controls, the log and timers, HEALPix, Mollweide, the FITS reader
+and the stored Perlin tables of seed 94. The port never imports ``gamer_tpu``, so each copy is
 checked here on presets and seeds."""
 
 from __future__ import annotations
@@ -169,3 +170,102 @@ def test_log_and_timers_match_jax():
     with ttimers.ScopedTimer("t", quiet=True) as t:
         pass
     assert t.elapsed_ms is not None and t.elapsed_ms >= 0.0
+
+
+# ---------------------------------------------------------------------------
+# the all-sky path's copies and the stored Perlin tables
+# ---------------------------------------------------------------------------
+
+
+@pytest.mark.parametrize("nside", [1, 2, 8, 32])
+def test_healpix_copy_matches_jax(nside):
+    import numpy as np
+
+    from gamer_tpu.post import healpix as jhp
+    from gamer_tpu_torch.post import healpix as thp
+
+    ipix = np.arange(jhp.npix(nside))
+    assert thp.npix(nside) == jhp.npix(nside)
+    np.testing.assert_array_equal(thp.pix2vec_ring(nside, ipix),
+                                  jhp.pix2vec_ring(nside, ipix))
+    for a, b in zip(thp.pix2ang_ring(nside, ipix),
+                    jhp.pix2ang_ring(nside, ipix)):
+        np.testing.assert_array_equal(a, b)
+    rng = np.random.default_rng(nside)
+    theta = rng.uniform(1e-6, np.pi - 1e-6, 4000)
+    phi = rng.uniform(-2 * np.pi, 4 * np.pi, 4000)
+    np.testing.assert_array_equal(thp.ang2pix_ring(nside, theta, phi),
+                                  jhp.ang2pix_ring(nside, theta, phi))
+    # a pixel's centre maps back to the pixel
+    t, p = thp.pix2ang_ring(nside, ipix)
+    np.testing.assert_array_equal(thp.ang2pix_ring(nside, t, p), ipix)
+
+
+@pytest.mark.parametrize("size", [16, 33])
+def test_mollweide_copy_matches_jax(size):
+    import numpy as np
+
+    from gamer_tpu.post import mollweide as jmw
+    from gamer_tpu_torch.post import mollweide as tmw
+
+    for a, b in zip(tmw.mollweide_lookup(size), jmw.mollweide_lookup(size)):
+        np.testing.assert_array_equal(a, b)
+    hpx = np.random.default_rng(size).uniform(0, 5, 12 * 4 * 4)
+    ours = tmw.mollweide_image(hpx, 4, size)
+    assert ours.shape == (size, size, 3) and ours.dtype == np.float32
+    np.testing.assert_array_equal(ours, jmw.mollweide_image(hpx, 4, size))
+
+
+@pytest.mark.parametrize("shape,dtype", [((5, 7), ">f8"), ((1, 48), ">f8"),
+                                         ((4, 6), ">f4"), ((3, 3), ">i2"),
+                                         ((12,), ">i4")])
+def test_fits_reader_copy_matches_jax(tmp_path, shape, dtype):
+    import numpy as np
+
+    from gamer_tpu.io import fits as jfits
+    from gamer_tpu_torch.io import fits as tfits
+
+    data = (np.random.default_rng(len(shape)).uniform(-50, 50, shape)
+            .astype(dtype))
+    bitpix = {">f8": -64, ">f4": -32, ">i2": 16, ">i4": 32}[dtype]
+    cards = [tfits._card("SIMPLE", "T"), tfits._card("BITPIX", str(bitpix)),
+             tfits._card("NAXIS", str(len(shape)))]
+    cards += [tfits._card(f"NAXIS{i + 1}", str(n))
+              for i, n in enumerate(shape[::-1])]
+    hdr = b"".join(cards) + "END".ljust(80).encode()
+    raw = hdr.ljust(2880, b" ") + data.tobytes()
+    path = tmp_path / "img.fits"
+    path.write_bytes(raw + b"\0" * (-len(raw) % 2880))
+    ours = tfits.read_fits_image(path)
+    assert ours.shape == shape and ours.dtype == np.float64
+    np.testing.assert_array_equal(ours, jfits.read_fits_image(path))
+    np.testing.assert_array_equal(ours, data.astype(np.float64))
+    if dtype == ">f8" and len(shape) == 2:
+        # the writer's own files: rows flipped on export
+        tfits.write_fits_image(tmp_path / "w.fits", ours)
+        np.testing.assert_array_equal(
+            tfits.read_fits_image(tmp_path / "w.fits"), ours[::-1])
+    with pytest.raises(ValueError, match="truncated"):
+        (tmp_path / "cut.fits").write_bytes(raw[:100])
+        tfits.read_fits_image(tmp_path / "cut.fits")
+
+
+def test_stored_perlin_tables_equal_the_seeded_build():
+    """data/perlin_seed94.npz holds what ``_perlin_build(94)`` and
+    ``_perlin_build2(94)`` draw here; the port never draws them itself."""
+    import numpy as np
+
+    from gamer_tpu.ops import altnoise as jalt
+    from gamer_tpu_torch.ops import altnoise as talt
+
+    perm, g2 = talt.perlin_tables()
+    assert perm.dtype == np.int32 and g2.dtype == np.float32
+    np.testing.assert_array_equal(perm, jalt._perlin_build(94)[0])
+    np.testing.assert_array_equal(np.sort(perm), np.arange(1024))
+    np.testing.assert_array_equal(g2, jalt._perlin_build2(94))
+    # the gradient triples the hash regenerates are the stored g3 table
+    qx, qy, qz = talt.grad_hash_q(torch.arange(1024))
+    q = np.stack([qx.numpy(), qy.numpy(), qz.numpy()], axis=-1)
+    np.testing.assert_array_equal(q, jalt._perlin_build(94)[1])
+    assert talt.SAMPLE_SIZE == jalt.SAMPLE_SIZE
+

@@ -1,6 +1,12 @@
-"""The CUDA march kernel against its plain torch version. These run only
-where a CUDA card and nvcc are present (``pytest -m cuda`` on the card);
-elsewhere they skip."""
+"""The CUDA march kernel against its plain torch version: every launch
+form (frame, band, batch, ray list) and every noise kind (simplex, perlin,
+iq). These run only where a CUDA card and nvcc are present
+(``pytest -m cuda`` on the card); elsewhere they skip.
+
+Gates: <= 2 uint8 LSB between a kernel and its plain version for simplex
+and perlin; for iq, whose sin-hash amplifies the last ulps of two sine
+implementations, at least 98 % of the pixels within 2 LSB and a mean
+difference below 0.25 LSB."""
 
 from __future__ import annotations
 
@@ -142,3 +148,123 @@ def test_batch_device_out_stays_on_card(cuda):
     assert img.device.type == "cuda" and img.shape == (2, 24, 24, 3)
     np.testing.assert_array_equal(img.cpu().numpy(),
                                   gt.render_batch(scenes, device="cuda"))
+
+
+def _inside_scene(**cfg):
+    """The all-sky geometry: the camera inside the ellipsoid."""
+    return gt.Scene(
+        camera=gt.CameraParams(camera=(0.3, 0.05, 0), target=(0, 0, 0),
+                               up=(0, 1, 0), fov=90.0),
+        instances=[gt.GalaxyInstance(galaxy=presets.spiral())],
+        config=gt.RenderConfig(size=16, ray_step=0.025, **cfg))
+
+
+def test_march_rays_matches_plain(cuda):
+    """K6 against march_rays_plain at nside 8 (768 rays) plus a zero
+    direction: <= 1e-3 of the largest radiance, the zero ray exactly 0."""
+    from gamer_tpu_torch.engine.allsky import allsky_dirs
+
+    dirs = np.concatenate([allsky_dirs(8), np.zeros((1, 3), np.float32)])
+    page, table, _, _ = cr.prepare(_inside_scene(), "cpu")
+    before = cr.march_rays.launch_count
+    got = cr.march_rays(page.to(cuda), table.to(cuda),
+                        torch.as_tensor(dirs, device=cuda))
+    torch.cuda.synchronize()
+    assert cr.march_rays.launch_count == before + 1
+    want = cr.march_rays_plain(page, table, torch.as_tensor(dirs))
+    assert got.shape == (769, 3) and bool(torch.isfinite(got).all())
+    assert float(got[-1].abs().max()) == 0.0
+    assert bool((got[:-1].sum(dim=1) > 0).all())
+    scale = float(want.abs().max())
+    assert float((got.cpu() - want).abs().max()) <= 1e-3 * scale
+
+
+def test_ray_list_reproduces_the_frame(cuda):
+    """march_rays on a frame's own ray grid, made on the card: the same
+    direction bits give the frame's radiance bit for bit."""
+    from gamer_tpu_torch.ops.camera import ray_grid
+
+    scene = _scene(presets.spiral(), 64)
+    page, table, size, _ = cr.prepare(scene, cuda)
+    frame = cr.march(page, table, size)
+    dirs = ray_grid(size, page[cr.G_INV_VP:cr.G_INV_VP + 16].cpu().numpy(),
+                    0.0, device=cuda, rows=size).reshape(-1, 3).contiguous()
+    rays = cr.march_rays(page, table, dirs)
+    assert torch.equal(rays.reshape(size, size, 3), frame)
+
+
+@pytest.mark.parametrize("kind", ["perlin", "iq"])
+def test_kind_kernel_matches_plain(cuda, kind):
+    scene = _scene(presets.spiral(), 48, noise_kind=kind)
+    page, table, size, _ = cr.prepare(scene, "cpu")
+    lin_k = cr.march(page.to(cuda), table.to(cuda), size)
+    torch.cuda.synchronize()
+    lin_p = cr.march_plain(page, table, size)
+    assert bool(torch.isfinite(lin_k).all()) and float(lin_k.sum()) > 0
+    post = (np.float32(1.0),) * 3
+    a = post_process(lin_k.cpu(), *post).numpy().astype(np.int16)
+    b = post_process(lin_p, *post).numpy().astype(np.int16)
+    d = np.abs(a - b)
+    if kind == "perlin":
+        assert int(d.max()) <= 2
+    else:
+        assert float((d.max(-1) <= 2).mean()) >= 0.98
+        assert float(d.mean()) <= 0.25
+
+
+@pytest.mark.parametrize("kind", ["perlin", "iq"])
+def test_kind_launch_forms_agree(cuda, kind):
+    """Bands, a batch and the ray list of a second kind are bit-equal to
+    that kind's still frame."""
+    import dataclasses
+
+    from gamer_tpu_torch.scene.cameracontrols import orbit_path
+
+    scene = _scene(presets.spiral(), 80, noise_kind=kind)
+    still = gt.render_scene(scene, device="cuda")
+    np.testing.assert_array_equal(
+        gt.render_progressive(scene, bands=3, device="cuda"), still)
+    cams = orbit_path(scene.camera, 2, horizontal_deg=45.0)
+    frames = gt.render_flythrough(scene, cams, device="cuda")
+    for frame, cam in zip(frames, cams):
+        np.testing.assert_array_equal(
+            frame, gt.render_scene(dataclasses.replace(scene, camera=cam),
+                                   device="cuda"))
+    assert int(np.abs(still.astype(np.int16) - gt.render_scene(
+        _scene(presets.spiral(), 80), device="cuda")).max()) > 2
+
+
+@pytest.mark.parametrize("kind", ["perlin", "iq"])
+def test_noise_probe_kind_matches_plain(cuda, kind):
+    """perlin is integer lattice work and lerps in one order: bit-equal.
+    iq: the card's sinf against torch's CPU sine, amplified by 753.5 — at
+    least 99 % of the raw values within 2e-3, mean below 1e-3."""
+    from gamer_tpu_torch.ops import noise as tnoise
+
+    rng = np.random.default_rng(4)
+    pts = rng.uniform(-20.0, 20.0, (4096, 3)).astype(np.float32)
+    pts[:32] = np.round(pts[:32])
+    args = (10, 0.6, 0.1, tnoise.ridged_weights(1.5, 9), 2.5, 1.0, 1.2, kind)
+    before = tnoise.noise_probe.launch_count
+    got = tnoise.noise_probe(torch.as_tensor(pts, device=cuda), *args).cpu()
+    assert tnoise.noise_probe.launch_count == before + 1
+    want = tnoise.noise_probe(torch.as_tensor(pts), *args)
+    d = (got - want).abs()
+    if kind == "perlin":
+        assert float(d.max()) == 0.0
+    else:
+        assert float((d[:, 0] <= 2e-3).float().mean()) >= 0.99
+        assert float(d[:, 0].mean()) < 1e-3
+
+
+def test_allsky_map_on_the_card(cuda):
+    """render_allsky_map on the card (one ray-list launch) against the
+    same map from the plain version."""
+    scene = _inside_scene()
+    before = cr.march_rays.launch_count
+    got = gt.render_allsky_map(scene, 8, device="cuda")
+    assert cr.march_rays.launch_count == before + 1
+    want = gt.render_allsky_map(scene, 8, device="cpu")
+    assert got.shape == (768,) and (got > 0).all()
+    assert np.abs(got - want).max() / np.abs(want).max() < 1e-3
+

@@ -211,13 +211,6 @@ def test_zero_saturation_is_grey():
     np.testing.assert_array_equal(img[..., 1], img[..., 2])
 
 
-@pytest.mark.parametrize("kind", ["perlin", "iq"])
-def test_unported_noise_kind_raises(kind):
-    scene = _preset_scene(presets.spiral(), size=8, noise_kind=kind)
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        gt.render_scene(scene, device="cpu")
-
-
 def test_march_cap_warning():
     ok = _preset_scene(presets.spiral())
     with warnings.catch_warnings():

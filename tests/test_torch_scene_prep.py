@@ -158,9 +158,17 @@ def test_table_describes_the_structure(case):
             np.testing.assert_array_equal(np.float32(cdec["spec"]), cp["spec"])
 
 
-def test_non_simplex_noise_is_not_ported():
-    for kind in ("perlin", "iq"):
-        st, _ = tsp.flatten_scene(_scene([(presets.spiral(), {})],
-                                         noise_kind=kind))
-        with pytest.raises(NotImplementedError, match="ROADMAP"):
-            cr._build_layout(st)
+@pytest.mark.parametrize("kind", ["simplex", "perlin", "iq"])
+def test_layout_and_table_take_every_noise_kind(kind):
+    """The page layout does not depend on the kind (its lookup table is not
+    part of the page); the table header names it."""
+    st, _ = tsp.flatten_scene(_scene([(presets.spiral(), {})],
+                                     noise_kind=kind))
+    base, _ = tsp.flatten_scene(_scene([(presets.spiral(), {})]))
+    lay, lay0 = cr._build_layout(st), cr._build_layout(base)
+    assert lay.kind == kind
+    assert lay.offsets == lay0.offsets and lay.n == lay0.n
+    table, table0 = cr._build_table(st, lay), cr._build_table(base, lay0)
+    assert table[cr.T_KIND] == cr.NOISE_KINDS.index(kind)
+    keep = np.arange(len(table)) != cr.T_KIND
+    np.testing.assert_array_equal(table[keep], table0[keep])
