@@ -4,8 +4,11 @@ frame at 512x512 (``render_scene``, K1), the same frame in 16 row bands
 (``render_progressive``, K5), an 8-frame orbit fly-through in one batched
 launch (``render_flythrough``, K4), the all-sky image at nside 512
 (``render_allsky_image``, K6: 3,145,728 rays in one ray-list launch) and
-the still with the perlin and the iq noise backends (K1-perlin, K1-iq).
-Each launch form and each noise kind is checked against its plain torch
+the still with the perlin and the iq noise backends (K1-perlin, K1-iq),
+the same frame, orbit and sky spread over a mesh that names the card
+several times (S1-S3: one launch per mesh entry, each on a stream of its
+own) and the render service on all of them, through the library and over
+HTTP on a loopback port. Each launch form and each noise kind is checked against its plain torch
 version; the frames against each other (bands, batch frames and the ray
 list are bit-equal to the still frame), the spec oracle and the CLI
 commands (``render``, ``galaxy``, ``skybox``, ``dataset``, ``allsky``,
@@ -27,7 +30,10 @@ import os
 import subprocess
 import sys
 import tempfile
+import threading
 import time
+import urllib.error
+import urllib.request
 import zlib
 from pathlib import Path
 
@@ -74,6 +80,9 @@ IQ_SHARE_WITHIN_2LSB = 0.98
 IQ_MEAN_LSB = 0.25
 ALLSKY_NSIDE = 512
 ALLSKY_SIZE = 1024
+MESH_ENTRIES = 4
+SERVE_SIZE = 256
+SERVE_WAIT_S = 120.0
 
 
 def log(msg: str) -> None:
@@ -222,7 +231,9 @@ def main() -> int:
     from gamer_tpu_torch.scene.cameracontrols import orbit_path
     from gamer_tpu_torch.scene.schema import ComponentParams, scene_to_dict
 
-    wrappers = (cr.march, cr.march_band, cr.march_batch, cr.march_rays)
+    wrappers = (cr.march, cr.march_band, cr.march_batch, cr.march_rays,
+                cr.march_rowshard, cr.march_batch_rowshard,
+                cr.march_rays_rowshard)
 
     def reset_counts():
         for fn in wrappers:
@@ -951,6 +962,577 @@ def main() -> int:
         "renderhpx on a FITS map from the port's writer: PNG equals the "
         "all-sky image of that map")
 
+
+    # =======================================================================
+    # S1-S3: the sharded launches, on a mesh that names this card n times
+    # =======================================================================
+    from gamer_tpu_torch.parallel import Mesh
+
+    def card_mesh(n, *axes):
+        return Mesh(["cuda:0"] * n, *axes)
+
+    # S1 against its plain version (CPU) at 64^2: two 32-row slabs
+    k = cr.march_rowshard(page_s.to(dev), table_s.to(dev), size_s,
+                          card_mesh(2))
+    torch.cuda.synchronize()
+    p = cr.march_rowshard_plain(page_s, table_s, size_s, Mesh(["cpu"] * 2))
+    mx, frac, _ = lsb_diff(post_cpu(k, small), post_cpu(p, small))
+    log(f"march_rowshard vs plain 64^2 on 2 entries: max {mx} LSB, "
+        f"{frac:.4f} of pixels differ, linear max_abs_err "
+        f"{float((k.cpu() - p).abs().max()):.3g}")
+    check(mx <= 2, f"march_rowshard vs plain: {mx} LSB > 2")
+
+    # the S1 main path: the 512^2 still over 4 entries, then 1-3 entries,
+    # a size that does not tile, and supersampling with stars
+    mesh4 = card_mesh(MESH_ENTRIES)
+    gt.render_scene(main_scene, mesh=mesh4)  # warm-up: makes the streams
+    reset_counts()
+    t = time.perf_counter()
+    shard_frame = gt.render_scene(main_scene, mesh=mesh4)
+    s1_wall_ms = (time.perf_counter() - t) * 1e3
+    s1_launches = read_counts()
+    check(s1_launches["march_rowshard"] == MESH_ENTRIES
+          and s1_launches["march_band"] == MESH_ENTRIES
+          and s1_launches["march"] == 0,
+          f"the row-sharded still launched {s1_launches}")
+    check(np.array_equal(shard_frame, frame),
+          "the row-sharded 512^2 frame differs from the fused frame")
+    for n in (1, 2, 3):
+        before = cr.march_rowshard.launch_count
+        got = gt.render_scene(main_scene, mesh=card_mesh(n))
+        slabs = -(-MAIN_SIZE // cr.slab_rows(MAIN_SIZE, n))
+        check(cr.march_rowshard.launch_count - before == slabs,
+              f"{n} entries: not one launch per slab that owns rows")
+        check(np.array_equal(got, frame),
+              f"the frame over {n} entries differs from the fused frame")
+    odd = spiral_scene(500)
+    before = cr.march_rowshard.launch_count
+    odd_sharded = gt.render_scene(odd, mesh=card_mesh(3))
+    check(cr.march_rowshard.launch_count - before == 3
+          and cr.slab_rows(500, 3) == 192,
+          "size 500 on 3 entries: slabs of 192, 192 and 116 rows expected")
+    check(np.array_equal(odd_sharded, gt.render_scene(odd, device="cuda")),
+          "size 500 over 3 entries differs from the fused frame")
+    many = card_mesh(8)
+    before = cr.march_rowshard.launch_count
+    check(np.array_equal(gt.render_scene(spiral_scene(100), mesh=many),
+                         gt.render_scene(spiral_scene(100), device="cuda"))
+          and cr.march_rowshard.launch_count - before == 4,
+          "size 100 over 8 entries: 4 slabs of 32 rows own rows, 4 none")
+    check(np.array_equal(gt.render_scene(ss_scene, mesh=mesh4),
+                         gt.render_scene(ss_scene, device="cuda")),
+          "supersample=2 + stars over 4 entries differs from the fused frame")
+    log(f"S1 main path: render_scene(spiral {MAIN_SIZE}^2, mesh=4 x cuda:0) "
+        f"launched {s1_launches}, {s1_wall_ms:.1f} ms wall with download; "
+        f"bit-equal to render_scene on 1, 2, 3 and 4 entries, at size 500 on "
+        f"3 (last slab clipped), at size 100 on 8 (four entries idle) and at "
+        f"256^2 with supersample=2 and stars")
+
+    s1_ms = {n: cuda_ms(lambda: cr.march_rowshard(
+        page, table, MAIN_SIZE, card_mesh(n)), 5)[0] for n in (2, 4, 16)}
+    kern2_ms, _ = cuda_ms(lambda: cr.march(page, table, MAIN_SIZE), 5)
+    # the entry of the kernels' record: at the size K1's plain version and
+    # bound were taken at (the main size, if the plain version fits)
+    s1_k_ms, s1_k = cuda_ms(lambda: cr.march_rowshard(pp, tp, plain_size,
+                                                      mesh4), 5)
+    torch.cuda.synchronize()
+    t = time.perf_counter()
+    s1_p = cr.march_rowshard_plain(pp, tp, plain_size, mesh4)
+    torch.cuda.synchronize()
+    s1_plain_ms = (time.perf_counter() - t) * 1e3
+    s1_err = float((s1_k - s1_p).abs().max())
+    mx, frac, mean_d = lsb_diff(post_cpu(s1_k, main_scene),
+                                post_cpu(s1_p, main_scene))
+    del s1_p
+    check(frac < 0.01 and mean_d < 0.05,
+          f"march_rowshard vs plain at {plain_size}^2: {frac:.4f} differ, "
+          f"mean {mean_d}")
+    check(bool((s1_k == lin_kp).all()),
+          "march_rowshard's radiance differs from march's")
+    log(f"timing [{card}] march_rowshard {MAIN_SIZE}^2 (median of 5, CUDA "
+        f"events): 2 entries {s1_ms[2]:.3f} ms, 4 entries {s1_ms[4]:.3f} ms, "
+        f"16 entries (the band path's 32-row slabs, on 16 "
+        f"streams) {s1_ms[16]:.3f} ms; K1 march beside them {kern2_ms:.3f} ms "
+        f"(earlier {kern_ms:.3f}), the 16 sequential bands {sweep_ms:.3f} ms; "
+        f"at {plain_size}^2 over 4 entries: kernel {s1_k_ms:.3f} ms, plain "
+        f"on cuda {s1_plain_ms:.1f} ms; kernel vs plain: "
+        f"linear max_abs_err {s1_err:.3g}, uint8 max {mx} LSB, {frac:.5f} of "
+        f"pixels differ; radiance bit-equal to march's")
+
+    # S2: the orbit on a 4-entry batch mesh and on a 2 x 2 mesh
+    small_pages = torch.as_tensor(pages_s[:2])
+    for axes, cpu_mesh in (
+            ((("batch",),), Mesh(["cpu"] * 2, ("batch",))),
+            ((("batch", "rows"), (2, 2)),
+             Mesh(["cpu"] * 4, ("batch", "rows"), (2, 2)))):
+        n = 2 if len(axes) == 1 else 4
+        k = cr.march_batch_rowshard(small_pages.to(dev), tab_s.to(dev), 64,
+                                    card_mesh(n, *axes))
+        torch.cuda.synchronize()
+        p = cr.march_batch_rowshard_plain(small_pages, tab_s, 64, cpu_mesh)
+        mx = max(lsb_diff(post_cpu(k[i], small), post_cpu(p[i], small))[0]
+                 for i in range(2))
+        log(f"march_batch_rowshard vs plain 64^2, 2 frames on a "
+            f"{'x'.join(map(str, cpu_mesh.shape))} mesh: max {mx} LSB, linear "
+            f"max_abs_err {float((k.cpu() - p).abs().max()):.3g}")
+        check(mx <= 2, f"march_batch_rowshard vs plain: {mx} LSB > 2")
+    batch_mesh = card_mesh(MESH_ENTRIES, ("batch",))
+    mesh2d = card_mesh(4, ("batch", "rows"), (2, 2))
+    gt.render_flythrough(main_scene, fly_cams[:4], mesh=batch_mesh)  # warm-up
+    reset_counts()
+    t = time.perf_counter()
+    fly_sharded = gt.render_flythrough(main_scene, fly_cams, mesh=batch_mesh)
+    s2_wall_ms = (time.perf_counter() - t) * 1e3
+    s2_launches = read_counts()
+    check(s2_launches["march_batch_rowshard"] == MESH_ENTRIES
+          and s2_launches["march_batch"] == MESH_ENTRIES,
+          f"the batch-sharded orbit launched {s2_launches}")
+    check(np.array_equal(fly_sharded, fly),
+          "the batch-sharded orbit differs from render_batch's frames")
+    reset_counts()
+    fly_2d = gt.render_flythrough(main_scene, fly_cams, mesh=mesh2d)
+    s2_launches_2d = read_counts()
+    check(s2_launches_2d["march_batch_rowshard"] == 4
+          and np.array_equal(fly_2d, fly),
+          f"the orbit on a 2 x 2 mesh: {s2_launches_2d}, or frames differ")
+    before = cr.march_batch_rowshard.launch_count
+    three = gt.render_flythrough(main_scene, fly_cams[:3], mesh=batch_mesh)
+    check(three.shape[0] == 3 and np.array_equal(three, fly[:3])
+          and cr.march_batch_rowshard.launch_count - before == MESH_ENTRIES,
+          "3 frames on 4 entries: one pad frame, sliced off, expected")
+    log(f"S2 main path: render_flythrough(spiral {MAIN_SIZE}^2, {FLY_FRAMES} "
+        f"cameras, mesh=4 x cuda:0 'batch') launched {s2_launches}, "
+        f"{s2_wall_ms:.1f} ms wall with download; on a (2 batch x 2 rows) "
+        f"mesh {s2_launches_2d['march_batch_rowshard']} launches; a 3-frame "
+        f"group on 4 entries is padded by one frame; every frame bit-equal "
+        f"to render_batch's")
+    s2_ms_1d, _ = cuda_ms(lambda: cr.march_batch_rowshard(
+        fly_pages_d, fly_tab, MAIN_SIZE, batch_mesh), 5)
+    s2_ms_2d, _ = cuda_ms(lambda: cr.march_batch_rowshard(
+        fly_pages_d, fly_tab, MAIN_SIZE, mesh2d), 5)
+    batch2_ms, _ = cuda_ms(lambda: cr.march_batch(fly_pages_d, fly_tab,
+                                                  MAIN_SIZE), 5)
+    s2_k_ms, s2_k = cuda_ms(lambda: cr.march_batch_rowshard(
+        two, fly_tab, MAIN_SIZE, mesh2d), 5)
+    torch.cuda.synchronize()
+    t = time.perf_counter()
+    s2_p = cr.march_batch_rowshard_plain(two, fly_tab, MAIN_SIZE, mesh2d)
+    torch.cuda.synchronize()
+    s2_plain_ms = (time.perf_counter() - t) * 1e3
+    s2_err = float((s2_k - s2_p).abs().max())
+    mx, frac, mean_d = lsb_diff(post_cpu(s2_k, main_scene),
+                                post_cpu(s2_p, main_scene))
+    del s2_p
+    check(frac < 0.01 and mean_d < 0.05 and bool((s2_k == batch_k).all()),
+          f"march_batch_rowshard at 512^2: {frac:.4f} differ from plain, "
+          f"mean {mean_d}, or radiance differs from march_batch's")
+    log(f"timing [{card}] march_batch_rowshard, {FLY_FRAMES} orbit frames of "
+        f"{MAIN_SIZE}^2 (median of 5, CUDA events): 4-entry batch mesh "
+        f"{s2_ms_1d:.3f} ms, 2 x 2 mesh {s2_ms_2d:.3f} ms, K4 march_batch "
+        f"beside them {batch2_ms:.3f} ms (earlier {batch_ms:.3f}); 2 frames "
+        f"on the 2 x 2 mesh {s2_k_ms:.3f} ms, plain on cuda "
+        f"{s2_plain_ms:.1f} ms, linear max_abs_err {s2_err:.3g}, uint8 max "
+        f"{mx} LSB, {frac:.5f} of pixels differ; radiance bit-equal to "
+        f"march_batch's")
+
+    # S3: the sky in four blocks of rays
+    d32_t = torch.as_tensor(d32)
+    k = cr.march_rays_rowshard(page_y.to(dev), table_y.to(dev), d32_t.to(dev),
+                               card_mesh(3))
+    torch.cuda.synchronize()
+    p = cr.march_rays_rowshard_plain(page_y, table_y, d32_t,
+                                     Mesh(["cpu"] * 3))
+    mx, frac, _ = lsb_diff(post_cpu(k, sky), post_cpu(p, sky))
+    log(f"march_rays_rowshard vs plain nside 32 on 3 entries ({len(d32)} "
+        f"rays, blocks of {-(-len(d32) // 3)}, the tail short): max {mx} "
+        f"LSB, {frac:.4f} of rays differ, linear max_abs_err "
+        f"{float((k.cpu() - p).abs().max()):.3g}")
+    check(mx <= 2, f"march_rays_rowshard vs plain: {mx} LSB > 2")
+    sky_map = gt.render_allsky_map(sky, ALLSKY_NSIDE, device="cuda")
+    gt.render_allsky_map(sky, 64, mesh=mesh4)  # warm-up
+    reset_counts()
+    t = time.perf_counter()
+    sky_map_sharded = gt.render_allsky_map(sky, ALLSKY_NSIDE, mesh=mesh4)
+    s3_wall_ms = (time.perf_counter() - t) * 1e3
+    s3_launches = read_counts()
+    check(s3_launches["march_rays_rowshard"] == MESH_ENTRIES
+          and s3_launches["march_rays"] == MESH_ENTRIES,
+          f"the sharded all-sky map launched {s3_launches}")
+    check(np.array_equal(sky_map_sharded, sky_map),
+          "the sharded nside-512 map differs from the unsharded map")
+    check(np.array_equal(
+        gt.render_allsky_image(sky, 64, 256, mesh=card_mesh(3)),
+        gt.render_allsky_image(sky, 64, 256, device="cuda")),
+        "the sharded all-sky image differs from the unsharded one")
+    s3_ms, s3_lin = cuda_ms(lambda: cr.march_rays_rowshard(
+        page_yd, table_yd, sky_dirs, mesh4), 5)
+    sky2_ms, _ = cuda_ms(lambda: cr.march_rays(page_yd, table_yd, sky_dirs), 5)
+    check(bool((s3_lin == sky_lin).all()),
+          "march_rays_rowshard's radiance differs from march_rays's")
+    s3_k_ms = s3_ms if full else cuda_ms(lambda: cr.march_rays_rowshard(
+        page_yd, table_yd, d128, mesh4), 5)[0]
+    torch.cuda.synchronize()
+    t = time.perf_counter()
+    s3_p = cr.march_rays_rowshard_plain(page_yd, table_yd, sky_plain_dirs,
+                                        mesh4)
+    torch.cuda.synchronize()
+    s3_plain_ms = (time.perf_counter() - t) * 1e3
+    s3_k = s3_lin if full else cr.march_rays_rowshard(page_yd, table_yd, d128,
+                                                      mesh4)
+    s3_err = float((s3_k - s3_p).abs().max())
+    mx, frac, mean_d = lsb_diff(post_cpu(s3_k, sky), post_cpu(s3_p, sky))
+    del s3_p
+    check(frac < 0.01 and mean_d < 0.05,
+          f"march_rays_rowshard vs plain: {frac:.4f} differ, mean {mean_d}")
+    pg_iq, tb_iq, _, _ = cr.prepare(allsky_scene(noise_kind="iq"), dev)
+    rays_iq_ms, rays_iq = cuda_ms(lambda: cr.march_rays(pg_iq, tb_iq,
+                                                        sky_dirs), 3)
+    check(bool(torch.isfinite(rays_iq).all()) and float(rays_iq.sum()) > 0,
+          "the iq ray list is not finite or is black")
+    del rays_iq
+    log(f"S3 main path: render_allsky_map(spiral, nside={ALLSKY_NSIDE}, "
+        f"mesh=4 x cuda:0) launched {s3_launches}, {s3_wall_ms:.1f} ms wall "
+        f"(host clock); bit-equal to the unsharded map")
+    log(f"timing [{card}] march_rays_rowshard nside {ALLSKY_NSIDE} ({n_sky} "
+        f"rays in 4 blocks, median of 5): {s3_ms:.3f} ms, K6 march_rays "
+        f"beside it {sky2_ms:.3f} ms (earlier {sky_ms:.3f}); plain on cuda, "
+        f"{n_plain} rays over 4 entries {s3_plain_ms:.1f} ms vs kernel "
+        f"{s3_k_ms:.3f} ms, linear max_abs_err {s3_err:.3g}, uint8 max {mx} "
+        f"LSB, {frac:.5f} of rays differ; march_rays_kernel<iq> on the same "
+        f"{n_sky} rays (median of 3): {rays_iq_ms:.3f} ms "
+        f"({rays_iq_ms / sky2_ms:.3f} x simplex)")
+
+    # =======================================================================
+    # the render service: library surface, then HTTP
+    # =======================================================================
+    from gamer_tpu_torch.scene.morph import morph_scenes
+    from gamer_tpu_torch.serve import (ABORTED, DONE, FAILED, RenderService,
+                                       serve)
+
+    def done(svc, jid):
+        job = svc.wait(jid, timeout=SERVE_WAIT_S)
+        check(job.state == DONE, f"job {jid} is {job.state}: {job.error}")
+        return job
+
+    serve_scene = spiral_scene(SERVE_SIZE)
+    serve_orbit = [dataclasses.replace(serve_scene, camera=c)
+                   for c in orbit_path(serve_scene.camera, 8,
+                                       horizontal_deg=120.0)]
+    serve_stills = [gt.render_scene(s, device="cuda") for s in serve_orbit]
+    still_256 = gt.render_scene(serve_scene, device="cuda")
+
+    # 8 concurrent requests -> one launch
+    svc = RenderService(device="cuda", bands=BANDS, autostart=False)
+    try:
+        jids = [svc.submit(scene_to_dict(s)) for s in serve_orbit]
+        reset_counts()
+        svc.start()
+        jobs = [done(svc, j) for j in jids]
+        counts = read_counts()
+        check(svc.metrics["batches"] == 1
+              and svc.metrics["batched_frames"] == 8
+              and svc.metrics["padded_frames"] == 0
+              and counts["march_batch"] == 1 and counts["march"] == 0
+              and all(j.batched for j in jobs),
+              f"8 concurrent requests: {svc.metrics}, {counts}")
+        for j, want in zip(jobs, serve_stills):
+            check(np.array_equal(j.image, want),
+                  f"served batch frame {j.id} differs from its render_scene")
+        # a 256^2 single is one fused launch
+        reset_counts()
+        job = done(svc, svc.submit(serve_scene))
+        counts = read_counts()
+        check(svc.metrics["singles_fused"] == 1 and counts["march"] == 1
+              and counts["march_band"] == 0 and not job.batched
+              and np.array_equal(job.image, still_256),
+              f"fused single: {svc.metrics}, {counts}")
+        # a 512^2 single is progressive, with rising progress
+        reset_counts()
+        jid = svc.submit(main_scene)
+        job, seen = svc.jobs[jid], []
+        deadline = time.time() + SERVE_WAIT_S
+        while job.state != DONE and time.time() < deadline:
+            seen.append(job.progress)
+            time.sleep(0.0005)
+        job = done(svc, jid)
+        counts = read_counts()
+        steps = sorted(set(seen))
+        check(counts["march_band"] == BANDS and seen == sorted(seen)
+              and len(steps) >= 3 and np.array_equal(job.image, frame),
+              f"progressive single: {counts}, progress values {steps}")
+        log(f"service: 8 concurrent {SERVE_SIZE}^2 requests were 1 "
+            f"march_batch launch, each image bit-equal to its render_scene; "
+            f"a {SERVE_SIZE}^2 single 1 march launch; a {MAIN_SIZE}^2 single "
+            f"{BANDS} march_band launches with {len(steps)} rising progress "
+            f"values seen, bit-equal to render_scene")
+        # abort in mid-frame keeps the partial frame (1024^2: 16 bands of
+        # 64 rows, long enough to be caught between two bands)
+        big = spiral_scene(1024)
+        big_frame = gt.render_scene(big, device="cuda")
+        jid = svc.submit(big)
+        job = svc.jobs[jid]
+        deadline = time.time() + SERVE_WAIT_S
+        while job.progress < 0.2 and time.time() < deadline:
+            time.sleep(0.0005)
+        svc.abort(jid)
+        job = svc.wait(jid, timeout=SERVE_WAIT_S)
+        rows = int(round(job.progress * 1024))
+        check(job.state == ABORTED and 0 < rows < 1024
+              and job.image is not None and int(job.image.sum()) > 0
+              and np.array_equal(job.image[:rows], big_frame[:rows])
+              and int(job.image[rows:].sum()) == 0,
+              f"abort in mid-frame: {job.state}, progress {job.progress}")
+        abort_progress = job.progress
+        # preview-then-refine at 512^2
+        jid = svc.submit(main_scene, preview=True)
+        job = svc.wait(jid, timeout=SERVE_WAIT_S, until="preview")
+        check(job.preview_ready and job.image is not None,
+              "no preview frame")
+        preview = job.image.copy()
+        job = done(svc, jid)
+        check(np.array_equal(job.image, frame)
+              and lsb_diff(preview, frame)[0] > 2
+              and svc.metrics["previews_rendered"] == 1,
+              "preview-then-refine: the final frame is not render_scene's, "
+              "or the preview is not a different frame")
+        # animations, a warm job, another noise kind
+        reset_counts()
+        job = done(svc, svc.submit_flythrough(serve_scene, 8, 120.0))
+        check(read_counts()["march_batch"] == 1
+              and np.array_equal(job.frames, gt.render_flythrough(
+                  serve_scene, orbit_path(serve_scene.camera, 8, 120.0),
+                  device="cuda")), "served fly-through differs")
+        target = presets.spiral(arm_tightness=0.5)
+        job = done(svc, svc.submit_morph(serve_scene, target, 3))
+        check(np.array_equal(job.frames, gt.render_batch(
+            morph_scenes(serve_scene, target, 3), device="cuda"))
+            and not np.array_equal(job.frames[0], job.frames[-1]),
+            "served morph differs")
+        job = done(svc, svc.submit_warm(serve_scene, buckets=(1, 2),
+                                        sizes=[128, SERVE_SIZE]))
+        check(sorted(job.result["warmed"]) == sorted(
+            f"{s}px/{k}" for s in (128, SERVE_SIZE)
+            for k in ("single", "batch1", "batch2")), f"warm: {job.result}")
+        perlin_scene = spiral_scene(SERVE_SIZE, noise_kind="perlin")
+        reset_counts()
+        job = done(svc, svc.submit(scene_to_dict(perlin_scene)))
+        check(read_counts()["perlin"] == 1 and np.array_equal(
+            job.image, gt.render_scene(perlin_scene, device="cuda")),
+            "served perlin request differs")
+        # a job made to fail fails alone
+        real_launch = cr._launch
+
+        def boom(*a, **k):
+            raise RuntimeError("launch made to fail")
+
+        cr._launch = boom
+        try:
+            failed = svc.wait(svc.submit(serve_scene), timeout=SERVE_WAIT_S)
+        finally:
+            cr._launch = real_launch
+        job = done(svc, svc.submit(serve_scene))
+        check(failed.state == FAILED and "made to fail" in failed.error
+              and np.array_equal(job.image, still_256) and svc.healthy()
+              and svc.metrics["jobs_failed"] == 1,
+              f"failure isolation: {failed.state}, {failed.error}")
+        log(f"service: abort in mid-frame at 1024^2 kept a partial frame "
+            f"(progress {abort_progress:.3f}); preview-then-refine at "
+            f"{MAIN_SIZE}^2 published a different frame first and ended "
+            f"bit-equal to render_scene; an 8-frame fly-through, a 3-frame "
+            f"morph, a warm job of 6 shapes and a perlin request equal their "
+            f"library renders; a job made to fail failed alone")
+    finally:
+        svc.stop()
+
+    # a 5-request wave with max_batch=4 is two launches
+    svc = RenderService(device="cuda", autostart=False, max_batch=4)
+    try:
+        jids = [svc.submit(s) for s in serve_orbit[:5]]
+        reset_counts()
+        svc.start()
+        jobs = [done(svc, j) for j in jids]
+        counts = read_counts()
+        check(counts["march_batch"] == 1 and counts["march"] == 1
+              and svc.metrics["batches"] == 1
+              and svc.metrics["batched_frames"] == 4
+              and svc.metrics["singles_fused"] == 1,
+              f"max_batch=4 on 5 requests: {counts}, {svc.metrics}")
+        for j, want in zip(jobs, serve_stills):
+            check(np.array_equal(j.image, want), "capped wave: frame differs")
+    finally:
+        svc.stop()
+
+    # the same single and batch over a mesh
+    svc = RenderService(mesh=mesh4, autostart=False)
+    try:
+        jids = [svc.submit(s) for s in serve_orbit]
+        reset_counts()
+        svc.start()
+        jobs = [done(svc, j) for j in jids]
+        counts = read_counts()
+        check(counts["march_batch_rowshard"] == MESH_ENTRIES
+              and svc.metrics["padded_frames"] == 0
+              and all(j.batched for j in jobs),
+              f"mesh service batch: {counts}, {svc.metrics}")
+        for j, want in zip(jobs, serve_stills):
+            check(np.array_equal(j.image, want), "mesh service: frame differs")
+        reset_counts()
+        job = done(svc, svc.submit(main_scene))
+        counts = read_counts()
+        check(counts["march_rowshard"] == MESH_ENTRIES
+              and np.array_equal(job.image, frame),
+              f"mesh service single: {counts}")
+        # three requests queued while the worker is down pad to four
+        svc.stop()
+        jids = [svc.submit(s) for s in serve_orbit[:3]]
+        svc.start()
+        jobs = [done(svc, j) for j in jids]
+        check(svc.metrics["padded_frames"] == 1
+              and all(np.array_equal(j.image, w)
+                      for j, w in zip(jobs, serve_stills)),
+              f"mesh service pad: {svc.metrics}")
+        log(f"service over mesh=4 x cuda:0: 8 requests were "
+            f"{MESH_ENTRIES} march_batch_rowshard launches, a {MAIN_SIZE}^2 "
+            f"single {MESH_ENTRIES} march_rowshard launches, 3 requests "
+            f"padded by one frame; a 5-request wave with max_batch=4 was a "
+            f"launch of 4 and a single; all bit-equal to render_scene")
+    finally:
+        svc.stop()
+
+    # the HTTP surface on a loopback port
+    httpd = serve(port=0, poll=False, batch_window_s=0.0, bands=BANDS)
+    http_thread = threading.Thread(target=httpd.serve_forever, daemon=True)
+    http_thread.start()
+    base = f"http://127.0.0.1:{httpd.server_address[1]}"
+
+    def http(path, data=None, method=None, expect=200):
+        if data is not None:
+            data = json.dumps(data).encode()
+        req = urllib.request.Request(base + path, data=data, method=method)
+        try:
+            with urllib.request.urlopen(req, timeout=SERVE_WAIT_S) as r:
+                status, body = r.status, r.read()
+        except urllib.error.HTTPError as e:
+            status, body = e.code, e.read()
+        check(status == expect, f"{method or 'GET'} {path}: {status} "
+                                f"{body[:200]!r}, expected {expect}")
+        return body
+
+    try:
+        health = json.loads(http("/healthz"))
+        check(health == {"ok": True, "platform": "cuda",
+                         "device": torch.cuda.get_device_name(0)},
+              f"/healthz: {health}")
+        jid = json.loads(http("/render", scene_to_dict(serve_scene),
+                              expect=202))["job"]
+        info = json.loads(http(f"/job/{jid}?wait=60"))
+        check(info["state"] == "done" and info["size"] == SERVE_SIZE,
+              f"long-poll: {info}")
+        check(np.array_equal(decode_png(http(f"/job/{jid}/image.png")),
+                             still_256),
+              "the served PNG differs from the library frame")
+        metrics = dict(
+            line.rsplit(" ", 1) for line in
+            http("/metrics").decode().splitlines() if not line.startswith("#"))
+        check(float(metrics["gamer_frames_rendered"]) == 1
+              and float(metrics["gamer_long_polls"]) == 1
+              and float(metrics["gamer_request_seconds_count"]) == 1
+              and float(metrics["gamer_healthy"]) == 1,
+              f"/metrics: {metrics}")
+        check("item 10" in json.loads(http("/fit", {"scene": {}},
+                                           expect=501))["error"],
+              "/fit does not name the roadmap item")
+        # DELETE aborts a job queued behind a long one
+        long_id = json.loads(http("/render", scene_to_dict(spiral_scene(1024)),
+                                  expect=202))["job"]
+        queued_id = json.loads(http("/render", scene_to_dict(serve_scene),
+                                    expect=202))["job"]
+        gone = json.loads(http(f"/job/{queued_id}", method="DELETE"))
+        check(gone["state"] == "aborted", f"DELETE of a queued job: {gone}")
+        http(f"/job/{queued_id}/image.png", expect=409)
+        check(json.loads(http(f"/job/{long_id}?wait=60"))["state"] == "done",
+              "the long job did not finish")
+        http("/job/999", expect=404)
+        http("/render", {"instances": ["not a galaxy"]}, expect=400)
+        log(f"http on {base}: /healthz names {health['device']}; POST "
+            f"/render, long-poll and image.png give the library frame; "
+            f"/metrics parses ({len(metrics)} samples); POST /fit answers "
+            f"501; DELETE aborts a queued job; a bad payload answers 400")
+    finally:
+        httpd.shutdown()
+        httpd.server_close()
+        httpd.service.stop()
+        http_thread.join(SERVE_WAIT_S)
+    check(not http_thread.is_alive(), "the HTTP thread did not stop")
+
+    # --- request latency, submit -> done on the host clock -----------------
+    def percentiles(jobs):
+        lat = np.asarray([j.finished - j.submitted for j in jobs]) * 1e3
+        return (f"p50 {np.percentile(lat, 50):.3f} ms, p95 "
+                f"{np.percentile(lat, 95):.3f} ms, max {lat.max():.3f} ms")
+
+    svc = RenderService(device="cuda")
+    try:
+        for _ in range(4):
+            done(svc, svc.submit(serve_scene))  # warm-up
+        t = time.perf_counter()
+        jobs = [done(svc, svc.submit(serve_scene)) for _ in range(64)]
+        wall = time.perf_counter() - t
+    finally:
+        svc.stop()
+    log(f"timing [{card}] service latency, 64 sequential {SERVE_SIZE}^2 "
+        f"singles (host clock, submit -> done): {percentiles(jobs)}; "
+        f"{64 / wall:.2f} frames/s")
+
+    def client_wave(svc):
+        """8 client threads, each 8 requests one after another."""
+        finished, errors = [], []
+
+        def client(k):
+            try:
+                for i in range(8):
+                    finished.append(done(svc, svc.submit(
+                        serve_orbit[(k + i) % 8])))
+            except BaseException as e:  # noqa: BLE001 - reported below
+                errors.append(e)
+
+        threads = [threading.Thread(target=client, args=(k,))
+                   for k in range(8)]
+        t = time.perf_counter()
+        for th in threads:
+            th.start()
+        for th in threads:
+            th.join(SERVE_WAIT_S)
+        wall = time.perf_counter() - t
+        check(not errors and len(finished) == 64
+              and not any(th.is_alive() for th in threads),
+              f"client wave: {len(finished)} finished, errors {errors[:1]}")
+        return finished, wall
+
+    for window, pipeline in ((0.0, True), (0.05, True), (0.0, False),
+                             (0.05, False)):
+        svc = RenderService(device="cuda", batch_window_s=window,
+                            pipeline=pipeline)
+        try:
+            client_wave(svc)  # warm-up
+            before = dict(svc.metrics)
+            jobs, wall = client_wave(svc)
+            n_batches = svc.metrics["batches"] - before["batches"]
+            singles = svc.metrics["singles_fused"] - before["singles_fused"]
+            frames = svc.metrics["batched_frames"] - before["batched_frames"]
+        finally:
+            svc.stop()
+        log(f"timing [{card}] service latency, 8 clients x 8 requests at "
+            f"{SERVE_SIZE}^2, batch_window_s={window}, pipeline="
+            f"{'on' if pipeline else 'off'} (host clock): "
+            f"{percentiles(jobs)}; {64 / wall:.2f} frames/s; {n_batches} "
+            f"batched launches of {frames / max(n_batches, 1):.2f} frames, "
+            f"{singles} singles")
+    left = [th.name for th in threading.enumerate()
+            if th is not threading.main_thread()]
+    check(not any(name.startswith("gamer-render") for name in left),
+          f"service threads left behind: {left}")
+
     for pkg in ("jax", "gamer_tpu"):
         check(pkg not in sys.modules, f"{pkg} was imported")
 
@@ -978,6 +1560,17 @@ def main() -> int:
               *kind_rows["perlin"], source="gamer_tpu_torch/csrc/noise.cuh"),
         entry("march[iq]", "gamer_tpu/ops/pallas_noise.py:294",
               *kind_rows["iq"], source="gamer_tpu_torch/csrc/noise.cuh"),
+        # the sharded launches: the same march.cu kernels, one launch per
+        # mesh entry; the bound is the unsharded form's for the same rays
+        entry("rowshard", "gamer_tpu/engine/pallas_render.py:1124",
+              s1_launches["march_rowshard"], s1_err, s1_k_ms, s1_plain_ms,
+              k1_bound),
+        entry("batch_rowshard", "gamer_tpu/engine/pallas_render.py:1190",
+              s2_launches["march_batch_rowshard"], s2_err, s2_k_ms,
+              s2_plain_ms, batch_bound),
+        entry("dirs_rowshard", "gamer_tpu/engine/pallas_render.py:1349",
+              s3_launches["march_rays_rowshard"], s3_err, s3_k_ms,
+              s3_plain_ms, sky_bound),
     ]}))
     log(card)
     log(json.dumps({"ok": True, "device": {

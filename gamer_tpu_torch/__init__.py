@@ -10,7 +10,10 @@ per scene structure, and ``DatasetJob`` renders resumable dataset chunks;
 ``render_dirs`` marches an explicit list of ray directions, and
 ``render_allsky_map`` / ``render_allsky_image`` the HEALPix sky around the
 camera. Every path takes the three raw-noise backends of
-``RenderConfig.noise_kind`` (simplex, perlin, iq).
+``RenderConfig.noise_kind`` (simplex, perlin, iq), and a ``mesh=`` of
+devices (``parallel.Mesh``) over which a frame's row slabs, a batch's
+frames or a ray list's blocks are spread. ``RenderService`` / ``serve``
+put the paths behind a job queue and an HTTP API.
 On a CUDA device the march runs in csrc/march.cu (built with nvcc at first
 use); on the CPU it runs the kernel's plain torch version. The package
 stands alone: it has its own copy of the scene model, the presets, the star
@@ -34,6 +37,16 @@ from .engine.cuda_render import (  # noqa: F401
     render_scene,
 )
 from .engine.jobs import DatasetJob  # noqa: F401
+from .parallel import (  # noqa: F401
+    HostTopology,
+    Mesh,
+    global_batch_mesh,
+    host_shard,
+    init_distributed,
+    make_pixel_mesh,
+    pixel_tile_mesh_2d,
+    render_scene_sharded,
+)
 from .scene import (  # noqa: F401
     CameraParams,
     ComponentParams,
@@ -46,5 +59,6 @@ from .scene import (  # noqa: F401
     scene_from_dict,
     scene_to_dict,
 )
+from .serve import RenderService, serve  # noqa: F401
 
 __version__ = "0.1.0"

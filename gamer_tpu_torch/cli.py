@@ -43,6 +43,8 @@ Commands:
    dataset <gax[,gax...]> <n per gax> <seed> <size> <chunk> <out dir>
    allsky <gax file> <nside> <size> <outfile>
    renderhpx <fits file> <size> <outfile> <exposure> <gamma> <saturation>
+   serve [port] [batch window s] [bands] [mesh] [maxbatch=N]
+         [warm=<gax file>[:size,size...]]
 <method>: omp | thread | pallas (all three: the CUDA march kernel)
 """
 
@@ -344,6 +346,60 @@ def cmd_renderhpx(argv, device) -> int:
     return 0
 
 
+def cmd_serve(argv, device) -> int:
+    """The HTTP render service (serve.py): POST /render with a scene dict;
+    concurrent requests that share a structure batch into one launch. A
+    trailing 'mesh' serves over all visible cards: single frames
+    row-sharded, batches and animations sharded on the batch axis. A
+    'warm=FILE.gax[:SIZE,SIZE...]' token runs that galaxy's launch shapes
+    once at startup, so the first client does not wait for the kernel
+    build. 'maxbatch=N' caps how many compatible requests merge into one
+    launch (the latency/throughput dial of RenderService)."""
+    from .serve import serve
+
+    args = argv[1:]
+    use_mesh = any(a.lower() == "mesh" for a in args)
+    warm = next((a[len("warm="):] for a in args if a.startswith("warm=")),
+                None)
+    raw_maxbatch = next((a[len("maxbatch="):] for a in args
+                         if a.startswith("maxbatch=")), None)
+    max_batch = None
+    if raw_maxbatch is not None:
+        try:
+            max_batch = int(raw_maxbatch)
+        except ValueError:
+            print(f"bad maxbatch value {raw_maxbatch!r} (want an integer). "
+                  "Usage:")
+            print(USAGE)
+            return 1
+    args = [a for a in args
+            if a.lower() != "mesh" and not a.startswith("warm=")
+            and not a.startswith("maxbatch=")]
+    port = int(args[0]) if len(args) > 0 else 8100
+    window = float(args[1]) if len(args) > 1 else 0.05
+    bands = int(args[2]) if len(args) > 2 else 8
+    mesh = None
+    if use_mesh:
+        from .parallel import make_pixel_mesh
+
+        mesh = make_pixel_mesh(["cpu"] if device == "cpu" else None)
+        print(f"serving over a {mesh.size}-device mesh")
+    warm_submit = None
+    if warm is not None:
+        path, _, size_csv = warm.partition(":")
+        sizes = [int(s) for s in size_csv.split(",")] if size_csv else None
+        scene = _orbit_scene(path, sizes[0] if sizes else 512)
+
+        def warm_submit(service):
+            jid = service.submit_warm(scene, sizes=sizes)
+            print(f"warming {path} at sizes {sizes or [scene.config.size]} "
+                  f"(job {jid})")
+
+    serve(port, window, bands, mesh=mesh, on_start=warm_submit,
+          max_batch=max_batch, device=device)
+    return 0
+
+
 def _device_desc(device: str) -> str:
     import torch
 
@@ -363,6 +419,7 @@ COMMANDS = {
     "dataset": cmd_dataset,
     "allsky": cmd_allsky,
     "renderhpx": cmd_renderhpx,
+    "serve": cmd_serve,
 }
 
 

@@ -10,8 +10,9 @@ scale (the reference calls the same renderPixel). Assembly is the Mollweide
 projection of the map and the standard post chain.
 
 All sky pixels march in one ray-list launch (K6,
-``cuda_render.march_rays``): no shuffle is needed, since work-list
-shuffling only balanced the reference's thread chunks.
+``cuda_render.march_rays``), or over a device mesh in one launch per entry
+(``march_rays_rowshard``): no shuffle is needed, since work-list shuffling
+only balanced the reference's thread chunks.
 """
 
 from __future__ import annotations
@@ -22,7 +23,7 @@ import torch
 from ..post.healpix import npix, pix2vec_ring
 from ..post.mollweide import mollweide_image
 from ..scene.schema import Scene
-from .cuda_render import _device, render_dirs
+from .cuda_render import _device, mesh_device, render_dirs
 from .render import post_process
 
 f32 = np.float32
@@ -39,7 +40,8 @@ def allsky_dirs(nside: int) -> np.ndarray:
 def render_allsky_map(scene: Scene, nside: int, device="cuda",
                       mesh=None) -> np.ndarray:
     """Render the scene into a RING HEALPix luminance map of 12*nside^2
-    float64 values: one ray-list launch, the channel mean taken in float32
+    float64 values: one ray-list launch (or, with a 1-D ``mesh``, one per
+    mesh entry on its block of pixels), the channel mean taken in float32
     on ``device`` and then cast."""
     linear = render_dirs(scene, allsky_dirs(nside), device=device,
                          device_out=True, mesh=mesh)
@@ -53,7 +55,7 @@ def render_allsky_map(scene: Scene, nside: int, device="cuda",
 def render_allsky_image(scene: Scene, nside: int, size: int, device="cuda",
                         mesh=None) -> np.ndarray:
     """All-sky map -> Mollweide -> post chain -> uint8 (size, size, 3)."""
-    dev = _device(device)
+    dev = _device(device) if mesh is None else mesh_device(mesh)
     hpx = render_allsky_map(scene, nside, device=dev, mesh=mesh)
     buf = mollweide_image(hpx, nside, size)
     cfg = scene.config

@@ -10,8 +10,11 @@ that frame's own camera (rasterizer.cpp:190-201), so an orbit that crosses
 the instances' depth order, or a batch of different galaxies, renders as
 one launch per group. The post chain runs per frame with the frame's own
 exposure, gamma and saturation, so each frame is bit-equal on the card to
-its single ``render_scene``. ``mesh=`` (sharding the batch over devices)
-is not ported.
+its single ``render_scene``. With ``mesh=`` each structure group's frames
+are spread over the entries of a device mesh (``march_batch_rowshard``): a
+1-D mesh shards the batch axis, a ('batch', 'rows') mesh also cuts every
+frame into row slabs; a group is padded to the mesh's batch divisor by
+repeating its last page, and the pad frames are sliced off.
 """
 
 from __future__ import annotations
@@ -30,7 +33,10 @@ from .cuda_render import (
     _device,
     _pack_scalars,
     _star_overlay,
+    batch_mesh_shape,
     march_batch,
+    march_batch_rowshard,
+    mesh_device,
     upload_table,
 )
 from .render import pool_linear, post_process
@@ -67,28 +73,51 @@ def _scene_groups(scenes: Sequence[Scene]):
             for st, (pages, idx) in groups.items()]
 
 
+BATCH_AXIS = "batch"
+
+
+def make_batch_mesh(devices=None, axis_name: str = BATCH_AXIS):
+    """1-D mesh over all visible CUDA devices (or the given ones, which may
+    repeat a device or be CPU entries), for batch-axis sharding."""
+    from ..parallel.sharding import make_pixel_mesh
+
+    return make_pixel_mesh(devices, axis_name)
+
+
 def _render_group(static, pages: np.ndarray, size: int, ss: int,
-                  device: torch.device) -> torch.Tensor:
-    """One launch for one structure group -> (n, size, size, 3) linear
-    radiance on ``device``, supersampling pooled in linear space."""
-    table = _build_table(static, _build_layout(static))
-    lin = march_batch(torch.as_tensor(pages, device=device),
-                      upload_table(table, device), size * ss)
-    return pool_linear(lin, ss)
+                  device: torch.device, mesh=None) -> torch.Tensor:
+    """One launch for one structure group (one per mesh entry on a mesh)
+    -> (n, size, size, 3) linear radiance on ``device``, supersampling
+    pooled in linear space.
+
+    On a mesh, the group is padded (repeating the last page) up to the
+    mesh's batch divisor and the pad frames are sliced off; padding only
+    costs anything when a batch does not tile the mesh."""
+    table = upload_table(_build_table(static, _build_layout(static)), device)
+    if mesh is None:
+        lin = march_batch(torch.as_tensor(pages, device=device), table,
+                          size * ss)
+        return pool_linear(lin, ss)
+    n = pages.shape[0]
+    n_b, _ = batch_mesh_shape(mesh)
+    pad = (-n) % n_b
+    if pad:
+        pages = np.concatenate([pages, np.repeat(pages[-1:], pad, axis=0)])
+    lin = march_batch_rowshard(torch.as_tensor(pages, device=device), table,
+                               size * ss, mesh)
+    return pool_linear(lin[:n], ss)
 
 
 def render_batch_linear(scenes: Sequence[Scene], device="cuda",
                         mesh=None) -> torch.Tensor:
     """Linear radiance of B scenes -> (B, size, size, 3) float32 on
     ``device``: one launch per structure group, no star overlay and no post
-    chain (the forward model of finite-difference fit probes)."""
-    if mesh is not None:
-        raise NotImplementedError(
-            "mesh= is not ported: gamer_tpu_torch renders a batch on one "
-            "device (multi-GPU batches are queued in ROADMAP.md)")
+    chain (the forward model of finite-difference fit probes). With
+    ``mesh`` each group is spread over the mesh's entries and assembled on
+    its first device; ``device`` is then not consulted."""
     if not scenes:
         raise ValueError("render_batch needs at least one scene")
-    dev = _device(device)
+    dev = _device(device) if mesh is None else mesh_device(mesh)
     size, ss = scenes[0].config.size, scenes[0].config.supersample
     for s in scenes:
         if s.config.size != size:
@@ -97,12 +126,12 @@ def render_batch_linear(scenes: Sequence[Scene], device="cuda",
             raise ValueError("all scenes in a batch must share the supersample")
     groups = _scene_groups(scenes)
     if len(groups) == 1:
-        return _render_group(groups[0][0], groups[0][1], size, ss, dev)
+        return _render_group(groups[0][0], groups[0][1], size, ss, dev, mesh)
     linear = torch.zeros((len(scenes), size, size, 3), dtype=torch.float32,
                          device=dev)
     for static, pages, idx in groups:
         linear[torch.as_tensor(idx, device=dev)] = _render_group(
-            static, pages, size, ss, dev)
+            static, pages, size, ss, dev, mesh)
     return linear
 
 
@@ -115,7 +144,8 @@ def render_batch(scenes: Sequence[Scene], device="cuda",
                  device_out: bool = False, mesh=None):
     """Render B scenes (one size and supersample) -> (B, size, size, 3)
     uint8: a numpy array, or with ``device_out`` a tensor left on
-    ``device``. Star overlays are made once per unique star configuration;
+    ``device`` (on the first device of ``mesh``). Star overlays are made
+    once per unique star configuration;
     the post chain runs per frame with its own scalars."""
     linear = render_batch_linear(scenes, device, mesh)
     fields = {}

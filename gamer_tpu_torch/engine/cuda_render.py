@@ -15,7 +15,12 @@ at run time. The table's header names the scene's raw-noise backend
 The kernel's wrappers are ``march`` (K1, a whole frame), ``march_band``
 (K5, a row band), ``march_batch`` (K4, a stack of frames; used by
 engine/batch.py) and ``march_rays`` (K6, a ray list; used by
-engine/allsky.py). A tensor on the CPU runs the plain version,
+engine/allsky.py). The sharded launches ``march_rowshard``,
+``march_batch_rowshard`` and ``march_rays_rowshard`` run those wrappers
+once per entry of a device mesh (parallel/sharding.py), each on its entry's
+device and stream, and gather the outputs on the mesh's first device: the
+counterparts of ``_compiled_rowshard``, ``_compiled_batch_rowshard`` and
+``_compiled_dirs_rowshard``. A tensor on the CPU runs the plain version,
 ``march_plain`` and its band, batch and ray-list forms: the lockstep torch
 version with the kernel's arithmetic (the ``tacc`` / ``dist0 - tacc``
 recurrence and ``tacc >= length + step_prev`` exit of
@@ -25,6 +30,7 @@ kernel or raises.
 
 from __future__ import annotations
 
+import contextlib
 import math
 import warnings
 
@@ -638,13 +644,14 @@ def march_rays_plain(page: torch.Tensor, table: torch.Tensor,
 
 
 def _with_row0(page: torch.Tensor, row0: int) -> torch.Tensor:
-    """A copy of the page with its row0 slot set to ``row0``, the band's
-    global row offset (``_set_row0``, pallas_render.py:996-1000). An integer
+    """A copy of the page (or of a stack of pages) with the row0 slot set to
+    ``row0``, the band's global row offset (``_set_row0``,
+    pallas_render.py:996-1000). An integer
     below 2^24 is exact in f32, so the band's rays are the whole frame's."""
     if int(row0) != row0 or not 0 <= int(row0) < (1 << 24):
         raise ValueError(f"row0 must be an integer in [0, 2^24), got {row0}")
     out = page.clone()
-    out[G_ROW0] = float(row0)
+    out[..., G_ROW0] = float(row0)
     return out
 
 
@@ -658,10 +665,14 @@ def march_band_plain(page: torch.Tensor, table: torch.Tensor,
 
 
 def march_batch_plain(pages: torch.Tensor, table: torch.Tensor,
-                      frame_size: int, stats: dict | None = None):
-    """K4's function: (B, frame_size, frame_size, 3) radiance, one whole
-    frame per page of the (B, n) stack, all of one structure table."""
-    return torch.stack([march_plain(p, table, frame_size, stats=stats)
+                      frame_size: int, stats: dict | None = None,
+                      rows: int | None = None, row0: int = 0):
+    """K4's function: (B, rows, frame_size, 3) radiance, the rows
+    row0 + [0, rows) of one frame per page of the (B, n) stack (the whole
+    frame by default), all of one structure table."""
+    if rows is not None:
+        pages = _with_row0(pages, row0)
+    return torch.stack([march_plain(p, table, frame_size, rows, stats)
                         for p in pages])
 
 
@@ -759,19 +770,25 @@ def march_band(page: torch.Tensor, table: torch.Tensor, frame_size: int,
     return out
 
 
-def march_batch(pages: torch.Tensor, table: torch.Tensor,
-                frame_size: int) -> torch.Tensor:
+def march_batch(pages: torch.Tensor, table: torch.Tensor, frame_size: int,
+                rows: int | None = None, row0: int = 0) -> torch.Tensor:
     """K4: linear radiance (B, frame_size, frame_size, 3) of B frames of
     one structure, one page each ((B, n) float32), in one launch. Each
-    frame is bit-equal on the card to ``march`` of its page. CPU tensors
-    run ``march_batch_plain``; CUDA tensors launch the kernel (counted in
+    frame is bit-equal on the card to ``march`` of its page. With ``rows``,
+    the launch covers the row band row0 + [0, rows) of every frame
+    ((B, rows, frame_size, 3): a row slab of a batch). CPU tensors run
+    ``march_batch_plain``; CUDA tensors launch the kernel (counted in
     ``march_batch.launch_count``) or raise."""
     if _on_cpu(pages, table, 2):
-        return march_batch_plain(pages, table, frame_size)
+        return march_batch_plain(pages, table, frame_size, rows=rows,
+                                 row0=row0)
     if not 1 <= pages.shape[0] <= 65535:
         raise ValueError(f"a launch takes 1 to 65535 frames, got "
                          f"{pages.shape[0]}")
-    out = _launch(pages, table, frame_size, frame_size)
+    if rows is None:
+        out = _launch(pages, table, frame_size, frame_size)
+    else:
+        out = _launch(_with_row0(pages, row0), table, frame_size, rows)
     march_batch.launch_count += 1
     return out
 
@@ -826,6 +843,246 @@ KIND_LAUNCHES = dict.fromkeys(NOISE_KINDS, 0)
 
 
 # ---------------------------------------------------------------------------
+# the sharded launches: one launch per mesh entry, then a gather
+# ---------------------------------------------------------------------------
+
+
+def slab_rows(size: int, n: int) -> int:
+    """Rows of one of ``n`` row slabs of a ``size``-row frame, as
+    ``_compiled_rowshard`` cuts them (pallas_render.py:1157-1160): every
+    entry gets the same whole number of tile heights, so a slab here is the
+    same set of rows as a slab there."""
+    tr = _tile_rows(size)
+    return -(-size // (n * tr)) * tr
+
+
+def _check_mesh(mesh, dims: tuple) -> None:
+    if len(mesh.axis_names) not in dims:
+        raise ValueError(f"need a {'- or '.join(str(d) for d in dims)}-D "
+                         f"mesh, got axes {mesh.axis_names}")
+
+
+def _replicas(mesh, pages: torch.Tensor, table: torch.Tensor) -> list:
+    """(pages, table) on each mesh entry's device: one copy per distinct
+    device, shared by the entries that repeat it. The table keeps the note
+    of its noise kind, so that no launch reads it back. The kind's lookup
+    table is brought to each device here, on the caller's stream, which
+    every entry's stream waits for before it launches."""
+    kind = _table_kind(table)
+    per_device = {}
+    for dev in mesh.devices:
+        if dev not in per_device:
+            tb = table.to(dev)
+            tb.noise_kind = kind
+            noise_table(NOISE_KINDS[kind], dev)
+            per_device[dev] = (pages.to(dev), tb)
+    return [per_device[dev] for dev in mesh.devices]
+
+
+@contextlib.contextmanager
+def _on_entry(mesh, i: int):
+    """Run the body on mesh entry i's device and stream, after the work the
+    caller's stream on that device has queued so far (the uploads)."""
+    stream = mesh.stream(i)
+    if stream is None:
+        yield
+        return
+    stream.wait_stream(torch.cuda.current_stream(stream.device))
+    with torch.cuda.stream(stream):
+        yield
+
+
+def _gather(dst: torch.Tensor, src: torch.Tensor, mesh, i: int) -> None:
+    """Copy entry i's output into its place in the assembled tensor, on the
+    caller's streams, after entry i's stream: the output gather XLA inserts
+    around a ``shard_map``."""
+    stream = mesh.stream(i)
+    if stream is not None:
+        current = torch.cuda.current_stream(stream.device)
+        current.wait_stream(stream)
+        src.record_stream(current)
+    dst.copy_(src, non_blocking=True)
+
+
+def _rowshard(band_fn, page, table, size: int, mesh) -> torch.Tensor:
+    _check_mesh(mesh, (1,))
+    rows_local = slab_rows(size, mesh.size)
+    out = torch.empty((size, size, 3), dtype=torch.float32,
+                      device=mesh.devices[0])
+    slabs = []
+    for i, (pg, tb) in enumerate(_replicas(mesh, page, table)):
+        row0 = i * rows_local
+        if row0 >= size:
+            break  # this entry and the ones after it own no row
+        rows = min(rows_local, size - row0)
+        with _on_entry(mesh, i):
+            slabs.append((i, row0, band_fn(pg, tb, size, rows, row0)))
+    for i, row0, slab in slabs:
+        _gather(out[row0:row0 + slab.shape[0]], slab, mesh, i)
+    return out
+
+
+def march_rowshard_plain(page: torch.Tensor, table: torch.Tensor, size: int,
+                         mesh) -> torch.Tensor:
+    """S1's function: ``march_band_plain`` per mesh entry on its slab of
+    rows, then the same assembly."""
+    return _rowshard(march_band_plain, page, table, size, mesh)
+
+
+def march_rowshard(page: torch.Tensor, table: torch.Tensor, size: int,
+                   mesh) -> torch.Tensor:
+    """S1, the counterpart of ``_compiled_rowshard``: linear radiance
+    (size, size, 3) of one frame whose row slabs are spread over a 1-D
+    mesh. Entry i launches ``march_band`` over the rows
+    i * slab_rows + [0, slab_rows) on its own device and stream (the last
+    slab clipped to the frame, entries past the last row launching
+    nothing); the slabs are copied into one frame on the mesh's first
+    device. On the card the frame is bit-equal to ``march``'s. CPU tensors
+    run ``march_rowshard_plain``; CUDA tensors launch the kernel (each
+    launch counted in ``march_rowshard.launch_count``) or raise."""
+    if _on_cpu(page, table, 1):
+        return march_rowshard_plain(page, table, size, mesh)
+
+    def band(*args):
+        out = march_band(*args)
+        march_rowshard.launch_count += 1
+        return out
+
+    return _rowshard(band, page, table, size, mesh)
+
+
+def batch_mesh_shape(mesh) -> tuple:
+    """(batch entries, row entries) of a mesh that shards a batch: a 1-D
+    mesh is all batch; a 2-D mesh must be named ('batch', 'rows')."""
+    _check_mesh(mesh, (1, 2))
+    if len(mesh.axis_names) == 1:
+        return mesh.size, 1
+    if set(mesh.axis_names) != {"batch", "rows"}:
+        raise ValueError(
+            f"2-D batch mesh must have axes ('batch', 'rows'), got "
+            f"{mesh.axis_names} — use parallel.pixel_tile_mesh_2d")
+    return mesh.axis_size("batch"), mesh.axis_size("rows")
+
+
+def _batch_rowshard(batch_fn, pages, table, size: int, mesh) -> torch.Tensor:
+    n_b, n_r = batch_mesh_shape(mesh)
+    if len(mesh.axis_names) == 2:
+        entry = mesh.index
+    else:
+        def entry(batch, rows):
+            return batch
+    n_frames = pages.shape[0]
+    if n_frames % n_b:
+        raise ValueError(f"{n_frames} pages do not tile the mesh's {n_b} "
+                         f"batch entries: pad the stack")
+    per = n_frames // n_b
+    rows_local = slab_rows(size, n_r) if n_r > 1 else size
+    out = torch.empty((n_frames, size, size, 3), dtype=torch.float32,
+                      device=mesh.devices[0])
+    replicas = _replicas(mesh, pages, table)
+    slabs = []
+    for b in range(n_b):
+        for r in range(n_r):
+            row0 = r * rows_local
+            if row0 >= size:
+                break
+            rows = min(rows_local, size - row0)
+            i = entry(batch=b, rows=r)
+            pg, tb = replicas[i]
+            with _on_entry(mesh, i):
+                slabs.append((i, b, row0, batch_fn(
+                    pg[b * per:(b + 1) * per], tb, size, rows=rows,
+                    row0=row0)))
+    for i, b, row0, slab in slabs:
+        _gather(out[b * per:(b + 1) * per, row0:row0 + slab.shape[1]], slab,
+                mesh, i)
+    return out
+
+
+def march_batch_rowshard_plain(pages: torch.Tensor, table: torch.Tensor,
+                               size: int, mesh) -> torch.Tensor:
+    """S2's function: ``march_batch_plain`` per mesh entry on its frames
+    (and row slab), then the same assembly."""
+    return _batch_rowshard(march_batch_plain, pages, table, size, mesh)
+
+
+def march_batch_rowshard(pages: torch.Tensor, table: torch.Tensor, size: int,
+                         mesh) -> torch.Tensor:
+    """S2, the counterpart of ``_compiled_batch_rowshard`` and of the 1-D
+    batch ``shard_map`` of ``engine/batch.py``: linear radiance
+    (B, size, size, 3) of a page stack spread over a mesh. On a 1-D mesh of
+    n entries, entry i launches ``march_batch`` on the pages
+    i * B/n + [0, B/n); on a ('batch', 'rows') mesh each batch entry's
+    frames are also cut into row slabs over 'rows', the row offset written
+    into every page of the entry's stack. B must be a multiple of the batch
+    entries (the caller pads). On the card every frame is bit-equal to
+    ``march_batch``'s. CPU tensors run ``march_batch_rowshard_plain``; CUDA
+    tensors launch the kernel (each launch counted in
+    ``march_batch_rowshard.launch_count``) or raise."""
+    if _on_cpu(pages, table, 2):
+        return march_batch_rowshard_plain(pages, table, size, mesh)
+
+    def batch(*args, **kwargs):
+        out = march_batch(*args, **kwargs)
+        march_batch_rowshard.launch_count += 1
+        return out
+
+    return _batch_rowshard(batch, pages, table, size, mesh)
+
+
+def _rays_rowshard(rays_fn, page, table, dirs, mesh) -> torch.Tensor:
+    _check_mesh(mesh, (1,))
+    n_rays = dirs.shape[0]
+    block = -(-n_rays // mesh.size)
+    out = torch.empty((n_rays, 3), dtype=torch.float32,
+                      device=mesh.devices[0])
+    blocks = []
+    for i, (pg, tb) in enumerate(_replicas(mesh, page, table)):
+        start = i * block
+        if start >= n_rays:
+            break
+        with _on_entry(mesh, i):
+            d = dirs[start:start + block].to(mesh.devices[i])
+            blocks.append((i, start, rays_fn(pg, tb, d)))
+    for i, start, lin in blocks:
+        _gather(out[start:start + lin.shape[0]], lin, mesh, i)
+    return out
+
+
+def march_rays_rowshard_plain(page: torch.Tensor, table: torch.Tensor,
+                              dirs: torch.Tensor, mesh) -> torch.Tensor:
+    """S3's function: ``march_rays_plain`` per mesh entry on its block of
+    rays, then the same assembly."""
+    return _rays_rowshard(march_rays_plain, page, table, dirs, mesh)
+
+
+def march_rays_rowshard(page: torch.Tensor, table: torch.Tensor,
+                        dirs: torch.Tensor, mesh) -> torch.Tensor:
+    """S3, the counterpart of ``_compiled_dirs_rowshard``: linear radiance
+    (N, 3) of a ray list spread over a 1-D mesh in contiguous blocks of
+    ceil(N / n) rays, the tail block short (the kernel's ``i < N`` guard
+    stands where the TPU form pads with zero vectors). Entry i launches
+    ``march_rays`` on its block, on its own device and stream. On the card
+    every ray is bit-equal to ``march_rays``'s. CPU tensors run
+    ``march_rays_rowshard_plain``; CUDA tensors launch the kernel (each
+    launch counted in ``march_rays_rowshard.launch_count``) or raise."""
+    if _on_cpu(page, table, 1):
+        return march_rays_rowshard_plain(page, table, dirs, mesh)
+
+    def rays(*args):
+        out = march_rays(*args)
+        march_rays_rowshard.launch_count += 1
+        return out
+
+    return _rays_rowshard(rays, page, table, dirs, mesh)
+
+
+march_rowshard.launch_count = 0
+march_batch_rowshard.launch_count = 0
+march_rays_rowshard.launch_count = 0
+
+
+# ---------------------------------------------------------------------------
 # front door
 # ---------------------------------------------------------------------------
 
@@ -857,21 +1114,35 @@ def prepare(scene: Scene, device):
             upload_table(table, device), cfg.size * ss, ss)
 
 
-def render_linear(scene: Scene, device="cuda") -> torch.Tensor:
+def mesh_device(mesh) -> torch.device:
+    """The device a mesh's output is assembled on: its first entry, checked
+    as ``_device`` checks a device argument."""
+    return _device(mesh.devices[0])
+
+
+def render_linear(scene: Scene, device="cuda", mesh=None) -> torch.Tensor:
     """Linear radiance (size, size, 3) float32 on ``device`` (supersampled
-    frames pooled in linear space)."""
-    dev = _device(device)
+    frames pooled in linear space). With ``mesh`` (1-D) the frame's row
+    slabs are spread over its entries (S1) and assembled, then pooled, on
+    its first device; ``device`` is then not consulted."""
+    dev = _device(device) if mesh is None else mesh_device(mesh)
     page, table, size, ss = prepare(scene, dev)
-    return pool_linear(march(page, table, size), ss)
+    if mesh is None:
+        return pool_linear(march(page, table, size), ss)
+    return pool_linear(march_rowshard(page, table, size, mesh), ss)
 
 
-def render_scene(scene: Scene, device="cuda", device_out: bool = False):
+def render_scene(scene: Scene, device="cuda", device_out: bool = False,
+                 mesh=None):
     """A full frame -> (size, size, 3) uint8: march, star overlay and post
     chain, as ``render_scene_pallas``. With ``device_out`` the uint8 tensor
-    stays on ``device``; otherwise a numpy array is returned."""
-    dev = _device(device)
+    stays on ``device``; otherwise a numpy array is returned. With ``mesh``
+    (a 1-D device mesh) the frame's row slabs are spread over its entries
+    and the epilogue runs on its first device; on the card the frame is
+    bit-equal to the unsharded one."""
+    dev = _device(device) if mesh is None else mesh_device(mesh)
     cfg = scene.config
-    lin = render_linear(scene, dev)
+    lin = render_linear(scene, dev, mesh)
     if cfg.no_stars > 0:
         lin = lin + _star_overlay(cfg, dev)
     img = post_process(lin, f32(cfg.exposure), f32(cfg.gamma),
@@ -887,15 +1158,18 @@ def render_dirs(scene: Scene, dirs, device="cuda", device_out: bool = False,
     directions from the scene's camera point, in one ray-list launch (K6):
     the counterpart of ``render_dirs_pallas``. The directions are cast to
     float32 and used as given. With ``device_out`` the tensor stays on
-    ``device``; otherwise a numpy array is returned."""
-    if mesh is not None:
-        raise NotImplementedError(
-            "mesh sharding of the ray list is not ported (ROADMAP.md, port "
-            "queue: multi-GPU)")
-    dev = _device(device)
+    ``device``; otherwise a numpy array is returned. With ``mesh`` (a 1-D
+    device mesh) the rays are spread over its entries in contiguous blocks
+    (S3) and gathered on its first device."""
+    dev = _device(device) if mesh is None else mesh_device(mesh)
     page, table, _, _ = prepare(scene, dev)
-    d = np.ascontiguousarray(np.asarray(dirs, np.float32).reshape(-1, 3))
-    lin = march_rays(page, table, torch.as_tensor(d, device=dev))
+    d = torch.as_tensor(
+        np.ascontiguousarray(np.asarray(dirs, np.float32).reshape(-1, 3)),
+        device=dev)
+    if mesh is None:
+        lin = march_rays(page, table, d)
+    else:
+        lin = march_rays_rowshard(page, table, d, mesh)
     if device_out:
         return lin
     return lin.cpu().numpy()

@@ -1,5 +1,6 @@
 """Parametric galaxy families over the reference's component vocabulary:
-the seven builders of ``gamer_tpu.models.presets``, value for value.
+the seven recipes of ``gamer_tpu.models.presets``, value for value, and
+its loader of the reference's bundled ``.gax`` galaxies.
 
   spiral / barred_spiral / elliptical / irregular / dusty_disk / ring /
   flocculent
@@ -8,8 +9,32 @@ the seven builders of ``gamer_tpu.models.presets``, value for value.
 from __future__ import annotations
 
 import math
+import os
+from pathlib import Path
+from typing import List
 
+from ..scene import gax
 from ..scene.schema import ComponentParams, GalaxyData, GalaxyParams
+
+# where the reference's publish/data/galaxies/*.gax are, when a checkout of
+# the reference is at hand: $GAMER_FIXTURE_DIR, else the path below relative
+# to the working directory
+FIXTURE_DIR = Path(os.environ.get("GAMER_FIXTURE_DIR",
+                                  "reference/publish/data/galaxies"))
+
+
+def fixture_names() -> List[str]:
+    if not FIXTURE_DIR.is_dir():
+        return []
+    return sorted(p.stem for p in FIXTURE_DIR.glob("*.gax"))
+
+
+def fixture(name: str) -> GalaxyData:
+    """Load one of the reference's bundled galaxies (when at hand)."""
+    path = FIXTURE_DIR / f"{name}.gax"
+    if not path.exists():
+        raise FileNotFoundError(f"fixture {name!r} not found under {FIXTURE_DIR}")
+    return gax.load(path)
 
 
 def spiral(arms: int = 2, winding_n: float = 4.0, winding_b: float = 0.5,

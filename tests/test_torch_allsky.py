@@ -146,8 +146,9 @@ def test_march_rays_wrapper_checks_its_inputs(random_dirs):
         cr.march_rays(page, table, dirs.reshape(-1))
     with pytest.raises(ValueError, match="device"):
         cr.march_rays(page, table, dirs.to("meta"))
-    with pytest.raises(NotImplementedError, match="mesh"):
-        gt.render_dirs(_scene(), random_dirs, device="cpu", mesh=object())
+    with pytest.raises(ValueError, match="1-D mesh"):  # rays shard over 1-D
+        gt.render_dirs(_scene(), random_dirs, mesh=gt.Mesh(
+            ["cpu"] * 4, ("batch", "rows"), (2, 2)))
     with pytest.raises(RuntimeError, match="cuda"):
         gt.render_allsky_map(_scene(), 1)  # the default device is the card
 

@@ -196,8 +196,8 @@ def test_batch_linear_and_device_out():
 
 def test_batch_rejects_what_it_does_not_take():
     a = _scene(6)
-    with pytest.raises(NotImplementedError, match="mesh"):
-        gt.render_batch([a], device="cpu", mesh=object())
+    with pytest.raises(ValueError, match="mesh must have axes"):
+        gt.render_batch([a], mesh=gt.Mesh(["cpu"] * 4, ("px", "py"), (2, 2)))
     with pytest.raises(ValueError, match="size"):
         gt.render_batch([a, _scene(8)], device="cpu")
     with pytest.raises(ValueError, match="supersample"):

@@ -269,3 +269,57 @@ def test_stored_perlin_tables_equal_the_seeded_build():
     np.testing.assert_array_equal(q, jalt._perlin_build(94)[1])
     assert talt.SAMPLE_SIZE == jalt.SAMPLE_SIZE
 
+
+
+def test_presets_fixture_matches_jax(tmp_path, monkeypatch):
+    """``presets.fixture`` / ``fixture_names`` load the same galaxies from
+    the same directory in both packages, and miss the same way."""
+    for name in ("spiral", "ring"):
+        jgax.save(getattr(jpresets, name)(), tmp_path / f"{name}.gax")
+    (tmp_path / "notes.txt").write_text("not a galaxy")
+    monkeypatch.setattr(jpresets, "FIXTURE_DIR", tmp_path)
+    monkeypatch.setattr(tpresets, "FIXTURE_DIR", tmp_path)
+    assert tpresets.fixture_names() == jpresets.fixture_names() == [
+        "ring", "spiral"]
+    for name in tpresets.fixture_names():
+        assert (tschema._to_dict(tpresets.fixture(name))
+                == jschema._to_dict(jpresets.fixture(name)))
+    with pytest.raises(FileNotFoundError, match="nebula"):
+        tpresets.fixture("nebula")
+    with pytest.raises(FileNotFoundError, match="nebula"):
+        jpresets.fixture("nebula")
+    monkeypatch.setattr(tpresets, "FIXTURE_DIR", tmp_path / "absent")
+    assert tpresets.fixture_names() == []
+
+
+@pytest.mark.parametrize("case", ["plain", "preview", "perlin-stars"])
+def test_scene_dict_payload_round_trips_like_jax(case):
+    """The service's state that crosses: the same JSON scene dict goes
+    through both ``scene_from_dict`` and comes back out of both
+    ``scene_to_dict`` equal, so both services render the same request;
+    including the LOD fields the preview phase sets."""
+    import json
+
+    scene = jschema.Scene(
+        camera=jschema.CameraParams(camera=(0.5, 0.1, 0), target=(0, 0, 0),
+                                    up=(0, 1, 0), fov=75.0),
+        instances=[jschema.GalaxyInstance(galaxy=jpresets.spiral()),
+                   jschema.GalaxyInstance(galaxy=jpresets.dusty_disk(),
+                                          position=(0.4, 0.0, -0.6),
+                                          orientation=(0.3, 0.8, 0.1),
+                                          intensity_scale=0.7)],
+        config=jschema.RenderConfig(size=24, ray_step=0.025, **{
+            "plain": {},
+            "preview": dict(noise_octaves=3, is_preview=True),
+            "perlin-stars": dict(noise_kind="perlin", no_stars=50,
+                                 star_seed=9, supersample=2, exposure=1.5),
+        }[case]))
+    payload = json.loads(json.dumps(jschema.scene_to_dict(scene)))
+    ours = tschema.scene_to_dict(tschema.scene_from_dict(payload))
+    ref = jschema.scene_to_dict(jschema.scene_from_dict(payload))
+    assert ours == ref == payload
+    cfg = tschema.scene_from_dict(payload).config
+    assert cfg.min_ray_step == jschema.scene_from_dict(
+        payload).config.min_ray_step
+    if case == "preview":
+        assert cfg.noise_octaves == 3 and cfg.is_preview is True

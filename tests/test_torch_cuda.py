@@ -10,6 +10,8 @@ difference below 0.25 LSB."""
 
 from __future__ import annotations
 
+import dataclasses
+
 import numpy as np
 import pytest
 
@@ -98,8 +100,6 @@ def test_band_frame_equals_fused_frame(cuda):
 def test_batch_frame_equals_single_frame(cuda):
     """render_flythrough (K4): one launch, each frame bit-equal to its
     single render_scene."""
-    import dataclasses
-
     from gamer_tpu_torch.scene.cameracontrols import orbit_path
 
     scene = _scene(presets.spiral(), 48)
@@ -115,8 +115,6 @@ def test_batch_frame_equals_single_frame(cuda):
 
 def test_band_and_batch_kernels_match_plain(cuda):
     """<= 2 uint8 LSB between each new launch and its plain version."""
-    import dataclasses
-
     from gamer_tpu_torch.engine.batch import _scene_groups
     from gamer_tpu_torch.scene.cameracontrols import orbit_path
 
@@ -216,8 +214,6 @@ def test_kind_kernel_matches_plain(cuda, kind):
 def test_kind_launch_forms_agree(cuda, kind):
     """Bands, a batch and the ray list of a second kind are bit-equal to
     that kind's still frame."""
-    import dataclasses
-
     from gamer_tpu_torch.scene.cameracontrols import orbit_path
 
     scene = _scene(presets.spiral(), 80, noise_kind=kind)
@@ -268,3 +264,176 @@ def test_allsky_map_on_the_card(cuda):
     assert got.shape == (768,) and (got > 0).all()
     assert np.abs(got - want).max() / np.abs(want).max() < 1e-3
 
+
+
+# --- the sharded launches (S1-S3) and the service on the card -------------
+
+
+def _one_card_mesh(n, *axes):
+    """A mesh that names card 0 n times: n concurrent launches on n
+    streams of one card, the form a one-card machine can run."""
+    from gamer_tpu_torch.parallel import Mesh
+
+    return Mesh(["cuda:0"] * n, *axes)
+
+
+@pytest.mark.parametrize("n,size", [(1, 96), (2, 96), (3, 100), (4, 40)])
+def test_rowshard_equals_fused_frame(cuda, n, size):
+    """S1: the row-sharded frame is bit-equal to the fused frame, with one
+    launch per slab that owns rows; size 100 on 3 entries clips the last
+    slab, size 40 on 4 leaves three entries without a row."""
+    scene = _scene(presets.spiral(), size)
+    before = cr.march_rowshard.launch_count
+    got = gt.render_scene(scene, mesh=_one_card_mesh(n))
+    slabs = -(-size // cr.slab_rows(size, n))
+    assert cr.march_rowshard.launch_count == before + slabs
+    np.testing.assert_array_equal(got, gt.render_scene(scene, device="cuda"))
+
+
+def test_rowshard_supersample_and_stars(cuda):
+    scene = _scene(presets.spiral(), 48, supersample=2, no_stars=40,
+                   star_seed=7)
+    np.testing.assert_array_equal(
+        gt.render_scene(scene, mesh=_one_card_mesh(3)),
+        gt.render_scene(scene, device="cuda"))
+
+
+def test_sharded_kernels_match_plain(cuda):
+    """Each sharded launch against its plain version on the CPU, the same
+    mesh shape: <= 2 uint8 LSB."""
+    from gamer_tpu_torch.engine.batch import _scene_groups
+    from gamer_tpu_torch.parallel import Mesh
+    from gamer_tpu_torch.scene.cameracontrols import orbit_path
+
+    post = (np.float32(1.0),) * 3
+
+    def lsb(a, b):
+        return int(np.abs(
+            post_process(a.cpu(), *post).numpy().astype(np.int16)
+            - post_process(b, *post).numpy().astype(np.int16)).max())
+
+    scene = _scene(presets.spiral(), 48)
+    page, table, size, _ = cr.prepare(scene, "cpu")
+    k = cr.march_rowshard(page.to(cuda), table.to(cuda), size,
+                          _one_card_mesh(2))
+    p = cr.march_rowshard_plain(page, table, size, Mesh(["cpu"] * 2))
+    assert lsb(k, p) <= 2
+    cams = orbit_path(scene.camera, 4, horizontal_deg=90.0)
+    st, pages, _ = _scene_groups([dataclasses.replace(scene, camera=c)
+                                  for c in cams])[0]
+    tab = torch.as_tensor(cr._build_table(st, cr._build_layout(st)))
+    pages = torch.as_tensor(pages)
+    for axes, cpu_mesh in (
+            ((("batch",),), Mesh(["cpu"] * 2, ("batch",))),
+            ((("batch", "rows"), (2, 2)),
+             Mesh(["cpu"] * 4, ("batch", "rows"), (2, 2)))):
+        n = 2 if len(axes) == 1 else 4
+        k = cr.march_batch_rowshard(pages.to(cuda), tab.to(cuda), 48,
+                                    _one_card_mesh(n, *axes))
+        p = cr.march_batch_rowshard_plain(pages, tab, 48, cpu_mesh)
+        assert lsb(k, p) <= 2, axes
+    from gamer_tpu_torch.engine.allsky import allsky_dirs
+
+    sky = _inside_scene()
+    page, table, _, _ = cr.prepare(sky, "cpu")
+    dirs = torch.as_tensor(allsky_dirs(8))
+    k = cr.march_rays_rowshard(page.to(cuda), table.to(cuda), dirs.to(cuda),
+                               _one_card_mesh(4))
+    p = cr.march_rays_rowshard_plain(page, table, dirs, Mesh(["cpu"] * 4))
+    assert lsb(k, p) <= 2
+
+
+def test_batch_and_ray_shards_equal_unsharded(cuda):
+    """S2 (1-D with a pad frame, and 2-D) and S3 (a tail block) are
+    bit-equal to the unsharded launches."""
+    from gamer_tpu_torch.scene.cameracontrols import orbit_path
+
+    scene = _scene(presets.spiral(), 80)
+    cams = orbit_path(scene.camera, 3, horizontal_deg=90.0)
+    want = gt.render_flythrough(scene, cams, device="cuda")
+    before = cr.march_batch_rowshard.launch_count
+    got = gt.render_flythrough(scene, cams,
+                               mesh=_one_card_mesh(2, ("batch",)))
+    assert cr.march_batch_rowshard.launch_count == before + 2
+    np.testing.assert_array_equal(got, want)
+    got = gt.render_flythrough(
+        scene, cams, mesh=_one_card_mesh(4, ("batch", "rows"), (2, 2)))
+    np.testing.assert_array_equal(got, want)
+    sky = _inside_scene()
+    before = cr.march_rays_rowshard.launch_count
+    got = gt.render_allsky_map(sky, 4, mesh=_one_card_mesh(5))
+    assert cr.march_rays_rowshard.launch_count == before + 5
+    np.testing.assert_array_equal(got, gt.render_allsky_map(sky, 4,
+                                                            device="cuda"))
+
+
+def test_service_round_trip_on_the_card(cuda):
+    """Three concurrent requests are one batched launch, a lone one a
+    fused launch; every served image is bit-equal to its render_scene."""
+    from gamer_tpu_torch.scene.cameracontrols import orbit_path
+    from gamer_tpu_torch.serve import DONE, RenderService
+
+    scene = _scene(presets.spiral(), 64)
+    scenes = [dataclasses.replace(scene, camera=c)
+              for c in orbit_path(scene.camera, 3, horizontal_deg=60.0)]
+    svc = RenderService(autostart=False)
+    try:
+        jids = [svc.submit(s) for s in scenes]
+        svc.start()
+        jobs = [svc.wait(j, timeout=120.0) for j in jids]
+        assert [j.state for j in jobs] == [DONE] * 3, [j.error for j in jobs]
+        assert svc.metrics["batches"] == 1 and all(j.batched for j in jobs)
+        for j, s in zip(jobs, scenes):
+            np.testing.assert_array_equal(
+                j.image, gt.render_scene(s, device="cuda"))
+        job = svc.wait(svc.submit(scene), timeout=120.0)
+        assert job.state == DONE and svc.metrics["singles_fused"] == 1
+        np.testing.assert_array_equal(job.image,
+                                      gt.render_scene(scene, device="cuda"))
+    finally:
+        svc.stop()
+
+
+def test_sharded_launches_on_several_cards(cuda):
+    """S1-S3 and the service on a mesh of every visible card (needs at
+    least two): the same frames, bit for bit, as card 0 alone."""
+    import gamer_tpu_torch.parallel as par
+    from gamer_tpu_torch.scene.cameracontrols import orbit_path
+    from gamer_tpu_torch.serve import DONE, RenderService
+
+    n = torch.cuda.device_count()
+    if n < 2:
+        pytest.skip("needs at least two CUDA cards")
+    mesh = par.make_pixel_mesh()
+    assert mesh.size == n and len(set(mesh.devices)) == n
+    scene = _scene(presets.spiral(), 200, supersample=2, no_stars=50)
+    still = gt.render_scene(scene, device="cuda")
+    before = cr.march_rowshard.launch_count
+    np.testing.assert_array_equal(gt.render_scene(scene, mesh=mesh), still)
+    assert cr.march_rowshard.launch_count > before
+    cams = orbit_path(scene.camera, n + 1, horizontal_deg=90.0)
+    small = _scene(presets.spiral(), 96)
+    want = gt.render_flythrough(small, cams, device="cuda")
+    np.testing.assert_array_equal(
+        gt.render_flythrough(small, cams, mesh=par.global_batch_mesh()), want)
+    if n % 2 == 0:
+        np.testing.assert_array_equal(
+            gt.render_flythrough(small, cams,
+                                 mesh=par.pixel_tile_mesh_2d(rows_axis=2)),
+            want)
+    sky = _inside_scene()
+    np.testing.assert_array_equal(gt.render_allsky_map(sky, 16, mesh=mesh),
+                                  gt.render_allsky_map(sky, 16, device="cuda"))
+    svc = RenderService(mesh=mesh, autostart=False)
+    try:
+        scenes = [dataclasses.replace(small, camera=c) for c in cams]
+        jids = [svc.submit(s) for s in scenes] + [svc.submit(scene)]
+        svc.start()
+        jobs = [svc.wait(j, timeout=120.0) for j in jids]
+        assert [j.state for j in jobs] == [DONE] * len(jobs), [
+            j.error for j in jobs]
+        for j, frame in zip(jobs, want):
+            np.testing.assert_array_equal(j.image, frame)
+        np.testing.assert_array_equal(jobs[-1].image, still)
+    finally:
+        svc.stop()

@@ -144,7 +144,8 @@ def test_package_never_imports_gamer_tpu():
 
 
 def test_cpu_render_loads_no_jax():
-    """Import the port, render with stars on the CPU and write a PNG, in a
+    """Import the port, render with stars on the CPU, write a PNG and serve
+    one request over a mesh, in a
     process where nothing keeps gamer_tpu from loading jax: neither jax nor
     gamer_tpu may be in sys.modules afterwards."""
     code = (
@@ -159,6 +160,10 @@ def test_cpu_render_loads_no_jax():
         "img = gt.render_scene(s, device='cpu')\n"
         "assert img.shape == (8, 8, 3)\n"
         "write_png(tempfile.mkdtemp() + '/x.png', img)\n"
+        "svc = gt.RenderService(device='cpu', mesh=gt.Mesh(['cpu'] * 2))\n"
+        "job = svc.wait(svc.submit(gt.scene_to_dict(s)), timeout=120)\n"
+        "svc.stop()\n"
+        "assert job.state == 'done' and job.image.shape == (8, 8, 3)\n"
         "print(sorted(m for m in sys.modules\n"
         "             if m.split('.')[0] in ('jax', 'jaxlib', 'gamer_tpu')))\n")
     r = subprocess.run([sys.executable, "-c", code], env=_clean_env(),
