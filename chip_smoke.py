@@ -213,6 +213,44 @@ def decode_png(data: bytes) -> np.ndarray:
     return raw[:, 1:].reshape(h, w, 3)
 
 
+def report_build() -> None:
+    """Build the kernels and print the toolchain, ptxas's register and spill
+    report, and each march kernel's resident blocks per SM and static SASS
+    instruction mix."""
+    sys.path.insert(0, str(ROOT))
+    from gamer_tpu_torch import kernels
+    from gamer_tpu_torch.ops.noise import NOISE_KINDS
+
+    t0 = time.perf_counter()
+    lib = kernels.library()
+    info = kernels.BUILD_INFO
+    release = [ln for ln in info.get("nvcc", "").splitlines() if "release" in ln]
+    log(f"nvcc: {kernels.nvcc_path()} | {(release or ['cached build'])[0]}")
+    log(f"build: {info['path']} in {info['seconds']:.1f} s "
+        f"(load {time.perf_counter() - t0:.1f} s, cached={info['cached']})")
+    for line in info.get("log", "").splitlines():
+        if ("registers" in line or "spill" in line
+                or "Compiling entry" in line):
+            log(f"ptxas: {line.strip()}")
+    threads = lib.gamer_march_block_threads()
+    with torch.cuda.device(0):
+        for k, kind in enumerate(NOISE_KINDS):
+            for rays, name in ((0, "march_kernel"), (1, "march_rays_kernel")):
+                n = lib.gamer_march_occupancy(k, rays)
+                check(n > 0, f"occupancy query of {name}<{kind}> failed: {n}")
+                log(f"occupancy: {name}<{kind}> {n} resident blocks of "
+                    f"{threads} threads per SM ({n * threads // 32} warps of "
+                    f"64)")
+    names = [f"{n}march{k}_kernelILi{i}E" for n, k in (("12", ""),
+                                                      ("17", "_rays"))
+             for i in range(len(NOISE_KINDS))]
+    mixes = kernels.sass_mix(info["path"], names)
+    for name in names:
+        log(f"sass mix {name} (static instruction counts, cuobjdump -sass): "
+            + (json.dumps(mixes[name]) if mixes else "not measured (no "
+               "cuobjdump)"))
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: torch.cuda.is_available() is False; this run "
@@ -220,7 +258,6 @@ def main() -> int:
         return 2
     sys.path.insert(0, str(ROOT))
     import gamer_tpu_torch as gt
-    from gamer_tpu_torch import kernels
     from gamer_tpu_torch.engine import cuda_render as cr
     from gamer_tpu_torch.engine.render import pool_linear, post_process
     from gamer_tpu_torch.golden import golden_scene, load_oracle_golden
@@ -253,19 +290,7 @@ def main() -> int:
     log(f"card: {card} (torch {torch.__version__}, cuda {torch.version.cuda}, "
         f"python {sys.version.split()[0]})")
 
-    # --- toolchain and build ----------------------------------------------
-    t0 = time.perf_counter()
-    kernels.library()
-    info = kernels.BUILD_INFO
-    release = [ln for ln in info.get("nvcc", "").splitlines() if "release" in ln]
-    log(f"nvcc: {kernels.nvcc_path()} | {(release or ['cached build'])[0]}")
-    log(f"build: {info['path']} in {info['seconds']:.1f} s "
-        f"(load {time.perf_counter() - t0:.1f} s, cached={info['cached']})")
-    for line in info.get("log", "").splitlines():
-        if ("registers" in line or "spill" in line
-                or "Compiling entry" in line):
-            log(f"ptxas: {line.strip()}")
-
+    report_build()
     f32 = np.float32
 
     # --- the kernel's noise device functions vs their plain versions -------

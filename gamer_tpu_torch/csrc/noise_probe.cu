@@ -4,10 +4,11 @@
 //
 // The counterpart of the TPU repo's inline test kernel
 // (tests/test_pallas.py:36-66), which checked the byte-packed permutation
-// lookups the Pallas kernel used; here the kind's table (PERM[512], or the
-// 1024-entry Perlin permutation) is in shared memory, read exactly as the
-// march kernel reads it. The raw backend is the template parameter the
-// march kernel uses (0 simplex, 1 perlin, 2 iq).
+// lookups the Pallas kernel used; here the kind's table (the paired simplex
+// tables or the paired Perlin permutation, ops/noise.py::kernel_noise_table)
+// is staged in noise_smem and read exactly as the march kernel reads it.
+// The raw backend is the template parameter the march kernel uses
+// (0 simplex, 1 perlin, 2 iq).
 //
 // Bound: ALU (one raw + octaves + ridged-octaves raw evaluations per
 // point); 12 B in and 12 B out per point. One thread per point.
@@ -25,20 +26,19 @@ noise_probe_kernel(const float* __restrict__ xyz, int n,
                    const float* __restrict__ sw_g, int n_sw,
                    float lacunarity, float offset, float gain,
                    float* __restrict__ out) {
-    constexpr int n_perm = noise_table_size(KIND);
-    __shared__ int perm[n_perm > 0 ? n_perm : 1];
     __shared__ float sw[32];
-    for (int k = threadIdx.x; k < n_perm; k += blockDim.x) perm[k] = perm_g[k];
+    for (int k = threadIdx.x; k < noise_table_size(KIND); k += blockDim.x)
+        noise_smem[k] = perm_g[k];
     for (int k = threadIdx.x; k < n_sw; k += blockDim.x) sw[k] = sw_g[k];
     __syncthreads();
     const int i = blockIdx.x * blockDim.x + threadIdx.x;
     if (i >= n) return;
     const float x = xyz[3 * i], y = xyz[3 * i + 1], z = xyz[3 * i + 2];
-    out[3 * i] = raw_noise<KIND>(perm, x, y, z);
-    out[3 * i + 1] = octave_noise_3d<KIND>(perm, octaves, persistence, scale,
-                                           x, y, z);
-    out[3 * i + 2] = ridged_mf<KIND>(perm, x, y, z, sw, n_sw, lacunarity,
-                                     offset, gain);
+    out[3 * i] = raw_noise<KIND>(x, y, z);
+    out[3 * i + 1] = octave_noise_3d<KIND>(octaves, persistence, scale, x, y,
+                                           z);
+    out[3 * i + 2] = ridged_mf<KIND>(x, y, z, sw, n_sw, lacunarity, offset,
+                                     gain);
 }
 
 template <int KIND>

@@ -697,6 +697,63 @@ def _on_cpu(pages: torch.Tensor, table: torch.Tensor, page_dim: int) -> bool:
     return False
 
 
+# Launch geometry of csrc/march.cu's persistent kernels: each warp takes
+# tiles of 32 rays, one per lane, from a per-launch counter; a frame tile is
+# TILE_W x TILE_H pixels, enumerated over (frame, tile row, tile col), a
+# ray-list tile 32 consecutive rays.
+TILE_W, TILE_H, WARP = 8, 4, 32
+
+
+def frame_tiles(frame_size: int, rows: int, n_frames: int = 1) -> int:
+    """Tiles of a launch of n_frames frames of ``rows`` rows (the last tile
+    row and column may reach past the rows and the frame)."""
+    return -(-frame_size // TILE_W) * -(-rows // TILE_H) * n_frames
+
+
+def ray_tiles(n_rays: int) -> int:
+    """Tiles of a ray-list launch (the last one may be short)."""
+    return -(-n_rays // WARP)
+
+
+def persistent_grid(blocks_per_sm: int, n_sms: int, n_tiles: int,
+                    block_warps: int) -> int:
+    """Blocks of a launch: all the card holds at once, but no more than
+    give each warp one tile."""
+    return max(1, min(blocks_per_sm * n_sms, -(-n_tiles // block_warps)))
+
+
+_OCCUPANCY: dict = {}
+
+
+def occupancy(device: torch.device, kind: int, rays: bool) -> tuple:
+    """(resident blocks per SM, SMs, warps per block) of the frame
+    (``rays`` False) or ray-list kernel of noise kind ``kind`` on a CUDA
+    device, from the kernel library's occupancy query; kept per device."""
+    from ..kernels import library
+
+    key = (device.index, kind, bool(rays))
+    got = _OCCUPANCY.get(key)
+    if got is None:
+        lib = library()
+        with torch.cuda.device(device):
+            blocks = lib.gamer_march_occupancy(kind, int(rays))
+        if blocks <= 0:
+            raise RuntimeError(f"march occupancy query failed: {blocks}")
+        sms = torch.cuda.get_device_properties(device).multi_processor_count
+        got = _OCCUPANCY[key] = (blocks, sms,
+                                 lib.gamer_march_block_threads() // WARP)
+    return got
+
+
+def _grid_and_counter(device: torch.device, kind: int, rays: bool,
+                      n_tiles: int):
+    """The persistent grid of a launch and its tile counter: one int32 0 on
+    the launch's device and current stream, of this launch alone."""
+    blocks, sms, warps = occupancy(device, kind, rays)
+    return (persistent_grid(blocks, sms, n_tiles, warps),
+            torch.zeros(1, dtype=torch.int32, device=device))
+
+
 def _launch(pages: torch.Tensor, table: torch.Tensor, frame_size: int,
             rows: int) -> torch.Tensor:
     """One launch of csrc/march.cu over a (B, n) page stack:
@@ -711,13 +768,16 @@ def _launch(pages: torch.Tensor, table: torch.Tensor, frame_size: int,
     out = torch.empty((n_frames, rows, frame_size, 3), dtype=torch.float32,
                       device=pages.device)
     kind = _table_kind(table)
-    perm = noise_table(NOISE_KINDS[kind], pages.device)
+    noise = noise_table(NOISE_KINDS[kind], pages.device)
+    grid, counter = _grid_and_counter(
+        pages.device, kind, False, frame_tiles(frame_size, rows, n_frames))
     stream = torch.cuda.current_stream(pages.device).cuda_stream
     with torch.cuda.device(pages.device):
         rc = lib.gamer_march_batch(pages.data_ptr(), n_page, n_page, n_frames,
                                    table.data_ptr(), table.numel(),
-                                   perm.data_ptr(), out.data_ptr(),
-                                   int(frame_size), int(rows), kind, stream)
+                                   noise.data_ptr(), out.data_ptr(),
+                                   int(frame_size), int(rows), kind, grid,
+                                   counter.data_ptr(), stream)
     if rc != 0:
         raise RuntimeError(f"march kernel launch failed: CUDA error {rc} "
                            f"({lib.gamer_error_string(rc).decode()})")
@@ -819,13 +879,16 @@ def march_rays(page: torch.Tensor, table: torch.Tensor,
     lib = library()
     out = torch.empty_like(dirs)
     kind = _table_kind(table)
-    perm = noise_table(NOISE_KINDS[kind], page.device)
+    noise = noise_table(NOISE_KINDS[kind], page.device)
+    grid, counter = _grid_and_counter(page.device, kind, True,
+                                      ray_tiles(dirs.shape[0]))
     stream = torch.cuda.current_stream(page.device).cuda_stream
     with torch.cuda.device(page.device):
         rc = lib.gamer_march_rays(page.data_ptr(), page.numel(),
                                   table.data_ptr(), table.numel(),
-                                  perm.data_ptr(), dirs.data_ptr(),
-                                  dirs.shape[0], out.data_ptr(), kind, stream)
+                                  noise.data_ptr(), dirs.data_ptr(),
+                                  dirs.shape[0], out.data_ptr(), kind, grid,
+                                  counter.data_ptr(), stream)
     if rc != 0:
         raise RuntimeError(f"march kernel launch failed: CUDA error {rc} "
                            f"({lib.gamer_error_string(rc).decode()})")

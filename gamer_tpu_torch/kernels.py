@@ -42,35 +42,38 @@ def nvcc_path() -> str:
                        "/usr/local/cuda/bin): the CUDA kernels cannot be built")
 
 
-def _source_hash() -> str:
+def _source_hash(csrc: Path, sources: tuple) -> str:
     h = hashlib.sha256(" ".join(NVCC_FLAGS + ARCH).encode())
-    for name in SOURCES + HEADERS:
+    for name in sources + HEADERS:
         h.update(name.encode())
-        h.update((CSRC / name).read_bytes())
+        h.update((csrc / name).read_bytes())
     return h.hexdigest()[:16]
 
 
-def build() -> Path:
-    """Compile csrc/ into a shared library (reused if already built from the
-    same sources) and return its path. ``BUILD_INFO`` records the nvcc
-    version, the compiler's register/spill report and the build time."""
-    lib = BUILD_DIR / f"libgamer_kernels_{_source_hash()}.so"
+def build(csrc: Path = CSRC, build_dir: Path = BUILD_DIR,
+          sources: tuple = SOURCES) -> Path:
+    """Compile ``sources`` of ``csrc`` (the package's csrc/ by default) into
+    a shared library in ``build_dir`` (reused if already built from the
+    same sources) and return its path; the compiler's output goes beside it
+    (``.log``). ``BUILD_INFO`` records the nvcc version, the compiler's
+    register/spill report and the build time."""
+    lib = build_dir / f"libgamer_kernels_{_source_hash(csrc, sources)}.so"
     log = lib.with_suffix(".log")
     if lib.exists():
         BUILD_INFO.update(path=str(lib), seconds=0.0, cached=True,
                           log=log.read_text() if log.exists() else "")
         return lib
     nvcc = nvcc_path()
-    BUILD_DIR.mkdir(parents=True, exist_ok=True)
+    build_dir.mkdir(parents=True, exist_ok=True)
     version = subprocess.run([nvcc, "--version"], capture_output=True,
                              text=True, check=True).stdout.strip()
-    work = Path(tempfile.mkdtemp(dir=BUILD_DIR))
+    work = Path(tempfile.mkdtemp(dir=build_dir))
     t0 = time.perf_counter()
     # one nvcc per source, all started together, then one link
     procs = []
-    for src in SOURCES:
+    for src in sources:
         cmd = [nvcc, *NVCC_FLAGS, "-c", "-o", str(work / f"{src}.o"),
-               str(CSRC / src)]
+               str(csrc / src)]
         procs.append((cmd, subprocess.Popen(cmd, stdout=subprocess.PIPE,
                                             stderr=subprocess.STDOUT,
                                             text=True)))
@@ -85,7 +88,7 @@ def build() -> Path:
             raise RuntimeError(f"nvcc failed ({' '.join(cmd)}):\n{text}")
     tmp = work / "lib.so"
     cmd = [nvcc, *ARCH, "-shared", "-o", str(tmp),
-           *(str(work / f"{src}.o") for src in SOURCES)]
+           *(str(work / f"{src}.o") for src in sources)]
     proc = subprocess.run(cmd, capture_output=True, text=True)
     seconds = time.perf_counter() - t0
     if proc.returncode != 0:
@@ -102,24 +105,108 @@ def build() -> Path:
 
 
 def library() -> ctypes.CDLL:
-    """The loaded kernel library with its C signatures declared."""
+    """The loaded kernel library of the package's csrc/."""
     global _LIB
     if _LIB is None:
-        lib = ctypes.CDLL(str(build()))
-        p, i, f = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
-        # pages, n_page, page_stride, n_frames, table, n_table, perm, out,
-        # frame_size, rows, kind, stream
-        lib.gamer_march_batch.argtypes = [p, i, i, i, p, i, p, p, i, i, i, p]
-        lib.gamer_march_batch.restype = i
-        # page, n_page, table, n_table, perm, dirs, n_rays, out, kind, stream
-        lib.gamer_march_rays.argtypes = [p, i, p, i, p, p, i, p, i, p]
-        lib.gamer_march_rays.restype = i
-        # points, n, perm, octaves, persistence, scale, weights, n_weights,
-        # lacunarity, offset, gain, out, kind, stream
-        lib.gamer_noise_probe.argtypes = [p, i, p, i, f, f, p, i, f, f, f, p,
-                                          i, p]
-        lib.gamer_noise_probe.restype = i
-        lib.gamer_error_string.argtypes = [i]
-        lib.gamer_error_string.restype = ctypes.c_char_p
-        _LIB = lib
+        _LIB = load(build())
     return _LIB
+
+
+def load(path) -> ctypes.CDLL:
+    """A kernel library built from csrc/, with its C signatures declared."""
+    lib = ctypes.CDLL(str(path))
+    p, i, f = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
+    # pages, n_page, page_stride, n_frames, table, n_table, noise, out,
+    # frame_size, rows, kind, grid, counter, stream
+    lib.gamer_march_batch.argtypes = [p, i, i, i, p, i, p, p, i, i, i, i,
+                                      p, p]
+    lib.gamer_march_batch.restype = i
+    # page, n_page, table, n_table, noise, dirs, n_rays, out, kind, grid,
+    # counter, stream
+    lib.gamer_march_rays.argtypes = [p, i, p, i, p, p, i, p, i, i, p, p]
+    lib.gamer_march_rays.restype = i
+    # points, n, perm, octaves, persistence, scale, weights, n_weights,
+    # lacunarity, offset, gain, out, kind, stream
+    lib.gamer_noise_probe.argtypes = [p, i, p, i, f, f, p, i, f, f, f, p,
+                                      i, p]
+    lib.gamer_noise_probe.restype = i
+    # kind, rays
+    lib.gamer_march_occupancy.argtypes = [i, i]
+    lib.gamer_march_occupancy.restype = i
+    lib.gamer_march_block_threads.argtypes = []
+    lib.gamer_march_block_threads.restype = i
+    lib.gamer_error_string.argtypes = [i]
+    lib.gamer_error_string.restype = ctypes.c_char_p
+    return lib
+
+
+def cuobjdump_path() -> str | None:
+    """cuobjdump from the CUDA toolkit beside nvcc, else the copy Triton's
+    package carries; None where neither exists."""
+    try:
+        beside = Path(nvcc_path()).parent / "cuobjdump"
+        if beside.exists():
+            return str(beside)
+    except RuntimeError:
+        pass
+    found = shutil.which("cuobjdump")
+    if found:
+        return found
+    try:
+        import triton
+    except ImportError:
+        return None
+    bundled = (Path(triton.__file__).parent / "backends" / "nvidia" / "bin"
+               / "cuobjdump")
+    return str(bundled) if bundled.exists() else None
+
+
+# SASS opcode classes of sass_mix, by the opcode's name before the first dot
+SASS_CLASSES = {
+    "LDS": ("LDS",),
+    "local (stack, spills)": ("LDL", "STL"),
+    "MUFU": ("MUFU",),
+    "FP32 add/mul/fma": ("FADD", "FMUL", "FFMA"),
+    "FP32 compare/select/minmax": ("FSETP", "FSEL", "FMNMX", "FSET"),
+    "integer": ("IADD3", "IMAD", "IMUL", "LOP3", "SHF", "LEA", "ISETP",
+                "IABS", "IMNMX", "SEL", "SHL", "SHR", "PRMT", "I2F", "F2I",
+                "FRND", "POPC", "FLO", "BREV", "VIADD", "VIMNMX", "I2FP",
+                "F2IP", "IDP", "BMSK", "SGXT"),
+    "branch/sync": ("BRA", "BRX", "JMP", "JMX", "CALL", "RET", "EXIT",
+                    "BSSY", "BSYNC", "WARPSYNC", "BAR", "BPT", "YIELD"),
+}
+
+
+def sass_mix(lib_path, patterns) -> dict | None:
+    """Static instruction counts, by SASS_CLASSES (and "other", "total"), of
+    the first function in the built library whose mangled name contains each
+    of ``patterns``, from one ``cuobjdump -sass``: {pattern: counts, or None
+    where no function matches}; None without cuobjdump."""
+    tool = cuobjdump_path()
+    if tool is None:
+        return None
+    text = subprocess.run([tool, "-sass", str(lib_path)], capture_output=True,
+                          text=True, check=True).stdout
+    mixes = dict.fromkeys(patterns)
+    counts = None
+    for line in text.splitlines():
+        if "Function :" in line:
+            counts = None
+            for pat in patterns:
+                if pat in line and mixes[pat] is None:
+                    counts = mixes[pat] = dict.fromkeys(
+                        (*SASS_CLASSES, "other", "total"), 0)
+            continue
+        if counts is None or "/*" not in line or ";" not in line:
+            continue
+        body = line.split("*/", 1)[1].strip()
+        if not body or body.startswith("/*"):
+            continue
+        words = body.split()
+        op = words[1] if words[0].startswith("@") else words[0]
+        op = op.split(".", 1)[0].rstrip(";")
+        cls = next((c for c, ops in SASS_CLASSES.items() if op in ops),
+                   "other")
+        counts[cls] += 1
+        counts["total"] += 1
+    return mixes

@@ -19,6 +19,8 @@ precision, as the kernel's float registers do.
 
 from __future__ import annotations
 
+import functools
+
 import numpy as np
 import torch
 
@@ -291,15 +293,35 @@ def ridged_mf(x, y, z, spectral_weights, lacunarity, offset, gain,
 NOISE_KINDS = ("simplex", "perlin", "iq")
 
 
-def noise_table(kind: str, device) -> torch.Tensor:
-    """The int32 lookup table the kernels stage for a noise kind on
-    ``device``: PERM[512] for simplex, the 1024-entry permutation for
-    perlin; iq reads none and gets PERM as a valid pointer."""
-    if kind == "perlin":
-        from .altnoise import perlin_perm_table
+def _paired(perm: np.ndarray) -> np.ndarray:
+    """perm[x] | perm[(x + 1) mod len] << 16: an entry with its successor
+    in one int32 word (every entry is below 2^16)."""
+    perm = perm.astype(np.int32)
+    return perm | (np.roll(perm, -1) << 16)
 
-        return perlin_perm_table(device, torch.int32)
-    return perm_table(device, torch.int32)
+
+@functools.lru_cache(maxsize=None)
+def kernel_noise_table(kind: str) -> np.ndarray:
+    """The int32 lookup table csrc/noise.cuh reads for a noise kind:
+    simplex [P2[512] | GI[512]] with P2 = PERM paired with its successor and
+    GI = PERM % 12; perlin the seed-94 permutation paired with its
+    successor (1024); iq reads none and gets the simplex table as a valid
+    pointer."""
+    if kind == "perlin":
+        from .altnoise import perlin_tables
+
+        return _paired(perlin_tables()[0])
+    return np.concatenate([_paired(PERM), PERM % 12]).astype(np.int32)
+
+
+def noise_table(kind: str, device) -> torch.Tensor:
+    """``kernel_noise_table(kind)`` as an int32 tensor on ``device``,
+    uploaded once per device."""
+    resolve_raw(kind)  # an unknown kind raises ValueError
+    if kind == "iq":
+        kind = "simplex"
+    return device_table(f"kernel_{kind}", kernel_noise_table(kind), device,
+                        torch.int32)
 
 
 def noise_probe_plain(points, octaves: int, persistence, scale,

@@ -61,11 +61,37 @@ def port_maps():
     return {n: gt.render_allsky_map(_scene(), n, device="cpu") for n in NSIDES}
 
 
+def _pallas_map_in_a_longer_list(scene, nside, n_rays):
+    """render_allsky_map(scene, nside, kernel="pallas") with the map's rays
+    marched in a list of ``n_rays`` (the rest repeat the last ray): each ray
+    is marched alone, so the map is the same, and a list of one length
+    reuses one compiled ray-list kernel. The directions and the luminance
+    are jallsky.render_allsky_map's."""
+    from gamer_tpu.post.healpix import npix, pix2vec_ring
+
+    n = npix(nside)
+    d = pix2vec_ring(nside, np.arange(n))
+    dirs = np.stack([d[:, 0], -d[:, 2], d[:, 1]], axis=-1)
+    dirs = np.concatenate([dirs, np.repeat(dirs[-1:], n_rays - n, axis=0)])
+    linear = np.asarray(render_dirs_pallas(scene, dirs))[:n]
+    return (linear.sum(axis=-1) / 3.0).astype(np.float64)
+
+
 @pytest.fixture(scope="module")
 def jax_maps():
-    """(nside, kernel) -> the JAX package's map, each built once."""
-    return {(n, k): jallsky.render_allsky_map(_scene(), n, kernel=k)
-            for n in NSIDES for k in ("pallas", "xla")}
+    """(nside, kernel) -> the JAX package's map, each built once; the
+    Pallas maps of the smaller nsides go through the largest one's compiled
+    ray-list kernel."""
+    top = max(NSIDES)
+    maps = {(n, "xla"): jallsky.render_allsky_map(_scene(), n, kernel="xla")
+            for n in NSIDES}
+    maps[top, "pallas"] = jallsky.render_allsky_map(_scene(), top,
+                                                    kernel="pallas")
+    for n in NSIDES:
+        if n != top:
+            maps[n, "pallas"] = _pallas_map_in_a_longer_list(
+                _scene(), n, 12 * top * top)
+    return maps
 
 
 @pytest.mark.parametrize("kernel", ["pallas", "xla"])

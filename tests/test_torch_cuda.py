@@ -253,6 +253,131 @@ def test_noise_probe_kind_matches_plain(cuda, kind):
         assert float(d[:, 0].mean()) < 1e-3
 
 
+# --- the persistent warp-tile launch: odd shapes, streams, occupancy -------
+
+# resident blocks of 256 threads per SM that csrc/march.cu's register budget
+# (MIN_BLOCKS) is chosen for
+MIN_BLOCKS = 3
+
+
+def _lsb_gate(got, want, kind):
+    post = (np.float32(1.0),) * 3
+    a = post_process(got.cpu(), *post).numpy().astype(np.int16)
+    b = post_process(want.cpu(), *post).numpy().astype(np.int16)
+    d = np.abs(a - b)
+    if kind == "iq":
+        return (float((d.max(-1) <= 2).mean()) >= 0.98
+                and float(d.mean()) <= 0.25)
+    return int(d.max()) <= 2
+
+
+def _odd_launch(form, kind, cuda):
+    """(kernel radiance, plain radiance on the card) of one launch form at
+    a shape that does not fill its tiles: a 100^2 still, a band of rows
+    80-127 of a 100-row frame, 3 frames of 100^2, 1000 rays."""
+    from gamer_tpu_torch.engine.allsky import allsky_dirs
+    from gamer_tpu_torch.engine.batch import _scene_groups
+    from gamer_tpu_torch.scene.cameracontrols import orbit_path
+
+    scene = _scene(presets.spiral(), 100, noise_kind=kind)
+    page, table, size, _ = cr.prepare(scene, cuda)
+    if form == "still":
+        return cr.march(page, table, size), cr.march_plain(page, table, size)
+    if form == "band":
+        return (cr.march_band(page, table, size, 48, 80),
+                cr.march_band_plain(page, table, size, 48, 80))
+    if form == "batch":
+        st, pages, _ = _scene_groups(
+            [dataclasses.replace(scene, camera=c)
+             for c in orbit_path(scene.camera, 3, horizontal_deg=90.0)])[0]
+        pages = torch.as_tensor(pages, device=cuda)
+        tab = cr.upload_table(cr._build_table(st, cr._build_layout(st)), cuda)
+        return (cr.march_batch(pages, tab, size),
+                cr.march_batch_plain(pages, tab, size))
+    page, table, _, _ = cr.prepare(_inside_scene(noise_kind=kind), cuda)
+    dirs = torch.as_tensor(allsky_dirs(16)[::3][:1000].copy(), device=cuda)
+    return (cr.march_rays(page, table, dirs),
+            cr.march_rays_plain(page, table, dirs))
+
+
+@pytest.mark.parametrize("kind", ["simplex", "perlin", "iq"])
+@pytest.mark.parametrize("form", ["still", "band", "batch", "rays"])
+def test_odd_shapes_match_plain(cuda, form, kind):
+    """Every launch form and kind where the last tiles run past the frame,
+    the band, the batch's frames or the ray list: within the kernel gates
+    of its plain version, and the band's rows past the frame are 0."""
+    got, want = _odd_launch(form, kind, cuda)
+    torch.cuda.synchronize()
+    assert got.shape == want.shape and bool(torch.isfinite(got).all())
+    assert float(got.sum()) > 0 and _lsb_gate(got, want, kind)
+    if form == "band":
+        assert float(got[20:].abs().max()) == 0.0
+
+
+def test_odd_shapes_are_the_still_bit_for_bit(cuda):
+    """At size 100 a band past the frame and each frame of a 3-frame batch
+    give the stills' radiance bit for bit; so do the first 1000 rays of a
+    128^2 still as a list (ray_grid's directions are the kernel's bits where
+    the half size is a power of two)."""
+    from gamer_tpu_torch.engine.batch import _scene_groups
+    from gamer_tpu_torch.ops.camera import ray_grid
+    from gamer_tpu_torch.scene.cameracontrols import orbit_path
+
+    page, table, size, _ = cr.prepare(_scene(presets.spiral(), 128), cuda)
+    still = cr.march(page, table, size).reshape(-1, 3)
+    dirs = ray_grid(size, page[cr.G_INV_VP:cr.G_INV_VP + 16].cpu().numpy(),
+                    0.0, device=cuda, rows=size).reshape(-1, 3)
+    assert torch.equal(cr.march_rays(page, table, dirs[:1000].contiguous()),
+                       still[:1000])
+    scene = _scene(presets.spiral(), 100)
+    page, table, size, _ = cr.prepare(scene, cuda)
+    still = cr.march(page, table, size)
+    assert torch.equal(cr.march_band(page, table, size, 48, 80)[:20],
+                       still[80:])
+    scenes = [dataclasses.replace(scene, camera=c)
+              for c in orbit_path(scene.camera, 3, horizontal_deg=90.0)]
+    st, pages, _ = _scene_groups(scenes)[0]
+    tab = cr.upload_table(cr._build_table(st, cr._build_layout(st)), cuda)
+    batch = cr.march_batch(torch.as_tensor(pages, device=cuda), tab, size)
+    for frame, s in zip(batch, scenes):
+        p, t, _, _ = cr.prepare(s, cuda)
+        assert torch.equal(frame, cr.march(p, t, size))
+
+
+def test_concurrent_launches_keep_their_own_counters(cuda):
+    """Two launches at once on two streams (a frame and a ray list), each
+    with its own tile counter: each result is bit-equal to a lone launch."""
+    from gamer_tpu_torch.engine.allsky import allsky_dirs
+
+    page, table, size, _ = cr.prepare(_scene(presets.spiral(), 256), cuda)
+    sky_page, sky_table, _, _ = cr.prepare(_inside_scene(), cuda)
+    dirs = torch.as_tensor(allsky_dirs(64), device=cuda)
+    lone_frame = cr.march(page, table, size)
+    lone_rays = cr.march_rays(sky_page, sky_table, dirs)
+    streams = [torch.cuda.Stream(cuda) for _ in range(2)]
+    for s in streams:
+        s.wait_stream(torch.cuda.current_stream(cuda))
+    with torch.cuda.stream(streams[0]):
+        frame = cr.march(page, table, size)
+    with torch.cuda.stream(streams[1]):
+        rays = cr.march_rays(sky_page, sky_table, dirs)
+    torch.cuda.synchronize()
+    assert torch.equal(frame, lone_frame) and torch.equal(rays, lone_rays)
+
+
+def test_occupancy_meets_the_register_budget(cuda):
+    """Both kernels of every kind hold at least MIN_BLOCKS blocks of 256
+    threads per SM, and a launch's grid is the card's resident blocks."""
+    for kind in range(len(cr.NOISE_KINDS)):
+        for rays in (False, True):
+            blocks, sms, warps = cr.occupancy(cuda, kind, rays)
+            assert warps == 8 and blocks >= MIN_BLOCKS
+            assert sms == torch.cuda.get_device_properties(
+                cuda).multi_processor_count
+            assert cr.persistent_grid(blocks, sms, 10 ** 6, warps) == \
+                blocks * sms
+
+
 def test_allsky_map_on_the_card(cuda):
     """render_allsky_map on the card (one ray-list launch) against the
     same map from the plain version."""
