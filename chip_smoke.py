@@ -12,9 +12,15 @@ HTTP on a loopback port. Each launch form and each noise kind is checked against
 version; the frames against each other (bands, batch frames and the ray
 list are bit-equal to the still frame), the spec oracle and the CLI
 commands (``render``, ``galaxy``, ``skybox``, ``dataset``, ``allsky``,
-``renderhpx``).
+``renderhpx``). Then the fit path: ``fit_scene_fd`` at 128x128 (each
+step's probe set is one ``march_batch`` launch, held to the plain
+version), ``fit_scene`` on the tensor and frozen marches at 128x128 and
+the scan march at 32x32 (step times and CUDA launches per step), each
+march's losses against the CPU's at 12x12, and the CLI ``fit ...
+march=fd`` on a PNG target.
 
     python3 chip_smoke.py
+    python3 chip_smoke.py --fit-only   # the build report and the fit path
 
 Needs one CUDA card and nvcc. Prints one line per phase; the line before
 the last is the card's name and power limit, the line before that the
@@ -34,7 +40,6 @@ import threading
 import time
 import urllib.error
 import urllib.request
-import zlib
 from pathlib import Path
 
 import numpy as np
@@ -83,6 +88,18 @@ ALLSKY_SIZE = 1024
 MESH_ENTRIES = 4
 SERVE_SIZE = 256
 SERVE_WAIT_S = 120.0
+# the fit path: fit_scene_fd's probes (K4), the autograd marches, CLI fit
+FIT_SIZE = 128
+FIT_STEPS = 3
+SCAN_SIZE = 32
+CHECK_SIZE = 12
+# the kernel's probe losses against the plain version's, and the card's
+# losses against the CPU's at CHECK_SIZE (relative)
+FIT_PROBE_RTOL = 1e-4
+FIT_CPU_RTOL = 1e-3
+LAUNCH_API = ("cudaLaunchKernel", "cudaLaunchKernelExC", "cuLaunchKernel",
+              "cuLaunchKernelEx")
+
 
 
 def log(msg: str) -> None:
@@ -195,24 +212,6 @@ def cuda_ms(fn, reps: int):
     return float(np.median(times)), out
 
 
-def decode_png(data: bytes) -> np.ndarray:
-    """Decode the CLI's 8-bit RGB PNG (filter type 0 rows)."""
-    check(data[:8] == b"\x89PNG\r\n\x1a\n", "not a PNG")
-    pos, idat, w, h = 8, b"", 0, 0
-    while pos < len(data):
-        n = int.from_bytes(data[pos:pos + 4], "big")
-        tag, body = data[pos + 4:pos + 8], data[pos + 8:pos + 8 + n]
-        if tag == b"IHDR":
-            w, h = int.from_bytes(body[:4], "big"), int.from_bytes(body[4:8], "big")
-            check(body[8:10] == b"\x08\x02", "PNG is not 8-bit RGB")
-        elif tag == b"IDAT":
-            idat += body
-        pos += 12 + n
-    raw = np.frombuffer(zlib.decompress(idat), np.uint8).reshape(h, 1 + 3 * w)
-    check(bool((raw[:, 0] == 0).all()), "unexpected PNG row filter")
-    return raw[:, 1:].reshape(h, w, 3)
-
-
 def report_build() -> None:
     """Build the kernels and print the toolchain, ptxas's register and spill
     report, and each march kernel's resident blocks per SM and static SASS
@@ -251,6 +250,238 @@ def report_build() -> None:
                "cuobjdump)"))
 
 
+def scaled(scene, field, factor, gp=False):
+    """A copy of a one-instance scene with ``field`` of every component (of
+    the galaxy parameters with ``gp``) scaled by ``factor``."""
+    import copy
+
+    s = copy.deepcopy(scene)
+    g = s.instances[0].galaxy
+    for obj in ([g.params] if gp else g.components):
+        setattr(obj, field, getattr(obj, field) * factor)
+    return s
+
+
+def step_clock():
+    """(on_step, times): on_step records the host clock after each step."""
+    times = []
+
+    def on_step(i, loss):
+        times.append(time.perf_counter())
+    return on_step, times
+
+
+def step_ms(t0, times):
+    """Median host ms of the steps after the first (the first one holds the
+    fit's setup), or of the first when it is the only one."""
+    edges = [t0] + times
+    d = np.diff(edges) * 1e3
+    return float(np.median(d[1:] if len(d) > 1 else d))
+
+
+def launches_per_step(run):
+    """CUDA kernel launches of the second step of ``run(on_step)`` (a fit
+    of two steps or more): torch.profiler traces from the end of step 0 to
+    the end of step 1 and its runtime launch calls are counted; None when
+    it traced none."""
+    from torch.profiler import ProfilerActivity, profile
+
+    prof = profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA])
+
+    def on_step(i, loss):
+        if i in (0, 1):
+            torch.cuda.synchronize()
+            (prof.start if i == 0 else prof.stop)()
+
+    run(on_step)
+    n = sum(e.name in LAUNCH_API for e in prof.events())
+    return n or None
+
+
+def fit_phases(card: str, dev):
+    """The fit path on the card; returns the fields of its kernel record
+    (march_batch launched by fit_scene_fd's probes)."""
+    import copy
+
+    import gamer_tpu_torch as gt
+    from gamer_tpu_torch import cli
+    from gamer_tpu_torch.engine import batch as tbatch
+    from gamer_tpu_torch.engine import cuda_render as cr
+    from gamer_tpu_torch.engine import fit as tfit
+    from gamer_tpu_torch.engine.diff import post_process_float
+    from gamer_tpu_torch.io.png import read_png, write_png
+    from gamer_tpu_torch.scene import gax
+
+    truth = spiral_scene(FIT_SIZE)
+    target = gt.render_scene(truth, device=dev)
+    tgt = torch.as_tensor(target, device=dev).float() / 255.0
+
+    def probe_losses(lin):
+        with torch.no_grad():
+            img = post_process_float(lin, torch.tensor(1.0, device=dev),
+                                     torch.tensor(1.0, device=dev),
+                                     torch.tensor(1.0, device=dev)) / 255.0
+            return torch.mean((img - tgt) ** 2, dim=(1, 2, 3)).cpu().numpy()
+
+    # --- fit_scene_fd: every step's 2K+1 probes are one K4 launch ----------
+    fd_start = scaled(truth, "winding_b", 1.15, gp=True)
+    seen = []
+    real_batch, real_plain = tbatch.render_batch_linear, cr.march_batch_plain
+    plain_calls = []
+
+    def spy_batch(scenes, device=dev, mesh=None):
+        seen.append(list(scenes))
+        return real_batch(scenes, device=device, mesh=mesh)
+
+    def spy_plain(*a, **k):
+        plain_calls.append(1)
+        return real_plain(*a, **k)
+
+    tbatch.render_batch_linear, cr.march_batch_plain = spy_batch, spy_plain
+    try:
+        cr.march_batch.launch_count = 0
+        on_step, times = step_clock()
+        t0 = time.perf_counter()
+        fd = tfit.fit_scene_fd(fd_start, target, steps=FIT_STEPS,
+                               device=dev, on_step=on_step)
+        torch.cuda.synchronize()
+        fd_launches = cr.march_batch.launch_count
+    finally:
+        tbatch.render_batch_linear, cr.march_batch_plain = real_batch, real_plain
+    fd_ms = step_ms(t0, times)
+    check(fd_launches == FIT_STEPS + 1 and len(seen) == FIT_STEPS + 1
+          and not plain_calls,
+          f"fit_scene_fd: {fd_launches} march_batch launches for "
+          f"{len(seen)} probe sets, {len(plain_calls)} plain calls")
+    check(all(np.isfinite(fd.losses)) and min(fd.losses[1:]) < fd.losses[0],
+          f"fit_scene_fd losses {fd.losses}")
+    fd_per_step = launches_per_step(lambda cb: tfit.fit_scene_fd(
+        fd_start, target, steps=2, device=dev, on_step=cb))
+
+    # the first probe set again, kernel against its plain version on the card
+    ((static, pages, _),) = tbatch._scene_groups(seen[0])
+    tab = cr.upload_table(cr._build_table(static, cr._build_layout(static)),
+                          dev)
+    pages_d = torch.as_tensor(pages, device=dev)
+    probe_k_ms, lin_k = cuda_ms(lambda: cr.march_batch(pages_d, tab,
+                                                       FIT_SIZE), 5)
+    # one plain run (~9 s a frame on the card) that also counts its work
+    probe_stats = {}
+    torch.cuda.synchronize()
+    t = time.perf_counter()
+    lin_p = cr.march_batch_plain(pages_d, tab, FIT_SIZE, stats=probe_stats)
+    torch.cuda.synchronize()
+    probe_plain_ms = (time.perf_counter() - t) * 1e3
+    probe_err = float((lin_k - lin_p).abs().max())
+    lk, lp = probe_losses(lin_k), probe_losses(lin_p)
+    rel = float(np.max(np.abs(lk - lp) / np.abs(lp)))
+    check(rel <= FIT_PROBE_RTOL and abs(lk[0] - fd.losses[0]) <= 1e-6 * lk[0],
+          f"fd probe losses: kernel {lk}, plain {lp}, fit {fd.losses[0]}")
+    probe_bound = march_bound(probe_stats, pages_d.numel() * 4
+                              + tab.numel() * 4 + 2048,
+                              pages_d.shape[0] * FIT_SIZE * FIT_SIZE * 12)
+    log(f"fit_scene_fd spiral {FIT_SIZE}^2 (winding_b x1.15, fields "
+        f"winding_b,winding_n, {FIT_STEPS} steps): {fd_launches} march_batch "
+        f"launches of {pages.shape[0]} frames, 0 plain calls; losses "
+        f"{[f'{x:.6g}' for x in fd.losses]}; first probe losses kernel vs "
+        f"plain on cuda max rel {rel:.3g} (limit {FIT_PROBE_RTOL:g}), linear "
+        f"max_abs_err {probe_err:.3g}")
+    log(f"timing [{card}] fit_scene_fd step at {FIT_SIZE}^2: {fd_ms:.3f} ms "
+        f"(host clock, median), {fd_per_step} CUDA launches per step; probe "
+        f"launch ({pages.shape[0]} frames) kernel {probe_k_ms:.3f} ms, plain "
+        f"on cuda {probe_plain_ms:.1f} ms (counting its work), bound "
+        f"{probe_bound[0]:.4f} ms by {probe_bound[1]} ({probe_bound[2]})")
+
+    # --- the autograd marches ----------------------------------------------
+    def autograd_fit(march, size, steps, **kw):
+        scene = spiral_scene(size)
+        tgt_img = gt.render_scene(scene, device=dev)
+        start = scaled(scene, "strength", 1.5)
+        on_step, times = step_clock()
+        torch.cuda.reset_peak_memory_stats()
+        t0 = time.perf_counter()
+        res = tfit.fit_scene(start, tgt_img, steps=steps, march=march,
+                             device=dev, on_step=on_step, **kw)
+        torch.cuda.synchronize()
+        peak = torch.cuda.max_memory_allocated() / 2 ** 30
+        check(all(np.isfinite(res.losses)) and res.losses[-1] < res.losses[0],
+              f"fit_scene march={march}: losses {res.losses}")
+        return res, step_ms(t0, times), peak, start, tgt_img
+
+    rows = {}
+    for march, size, steps in (("tensor", FIT_SIZE, FIT_STEPS),
+                               ("frozen", FIT_SIZE, FIT_STEPS),
+                               ("scan", SCAN_SIZE, 1)):
+        res, ms, peak, start, tgt_img = autograd_fit(march, size, steps)
+        if march == "scan":
+            # every trip issues the same ops: launches = a + b * trips,
+            # from two short trip counts
+            n = [launches_per_step(lambda cb, m=m: tfit.fit_scene(
+                start, tgt_img, steps=2, march="scan", device=dev,
+                max_steps=m, on_step=cb)) for m in (8, 16)]
+            trips = tfit.step_bound_for_scene(start)
+            per_step = (None if None in n
+                        else n[0] + (n[1] - n[0]) * (trips - 8) // 8)
+            how = f"a + b * {trips} trips from 8 and 16 trips: {n}"
+        else:
+            per_step = launches_per_step(lambda cb: tfit.fit_scene(
+                start, tgt_img, steps=2, march=march, device=dev,
+                on_step=cb))
+            how = "traced"
+        rows[march] = (ms, per_step)
+        log(f"timing [{card}] fit_scene march={march} step at {size}^2: "
+            f"{ms:.3f} ms (host clock, median), {per_step} CUDA launches per "
+            f"step ({how}), peak {peak:.2f} GiB; losses "
+            f"{[f'{x:.6g}' for x in res.losses]}")
+
+    # the card's loss trajectories against the CPU's at a small size
+    small = spiral_scene(CHECK_SIZE, is_preview=True)
+    small_tgt = gt.render_scene(small, device=dev)
+    for march in ("tensor", "frozen", "scan", "fd"):
+        steps = 1 if march == "scan" else 2
+        if march == "fd":
+            st = scaled(small, "winding_b", 1.15, gp=True)
+            runs = [tfit.fit_scene_fd(st, small_tgt, steps=steps, device=d)
+                    for d in (dev, "cpu")]
+        else:
+            st = scaled(small, "strength", 1.5)
+            runs = [tfit.fit_scene(st, small_tgt, steps=steps, march=march,
+                                   device=d) for d in (dev, "cpu")]
+        a, b = (np.asarray(r.losses) for r in runs)
+        rel = float(np.max(np.abs(a - b) / np.abs(b)))
+        same_way = bool(np.all(np.sign(np.diff(a)) == np.sign(np.diff(b))))
+        log(f"fit march={march} {CHECK_SIZE}^2, {steps} step(s): card losses "
+            f"{a.tolist()}, CPU {b.tolist()}: max rel {rel:.3g} (limit "
+            f"{FIT_CPU_RTOL:g}), moves the CPU's way: {same_way}")
+        check(rel <= FIT_CPU_RTOL and same_way,
+              f"march={march}: card {a} vs CPU {b}")
+
+    # --- the CLI fit, march=fd, on a PNG target ----------------------------
+    cli_scene = spiral_scene(64)
+    with tempfile.TemporaryDirectory() as tmp:
+        tmp = Path(tmp)
+        write_png(tmp / "target.png", gt.render_scene(cli_scene, device=dev))
+        g = copy.deepcopy(cli_scene.instances[0].galaxy)
+        g.params.winding_b *= 1.15
+        gax.save(g, tmp / "start.gax")
+        cr.march_batch.launch_count = 0
+        rc = cli.main(["fit", "0.5", "0", "0", "0", "0", "0", "0", "1", "0",
+                       "90", "1", "1", "1", "0.025", str(tmp / "start.gax"),
+                       str(tmp / "target.png"), str(tmp / "out.gax"), "2",
+                       "0.02", "winding_b", "march=fd"])
+        cli_launches = cr.march_batch.launch_count
+        fitted = gax.load(tmp / "out.gax")
+        check(rc == 0 and cli_launches == 3
+              and fitted.params.winding_b != g.params.winding_b
+              and read_png(tmp / "target.png").shape == (64, 64, 3),
+              f"cli fit: rc {rc}, {cli_launches} launches, winding_b "
+              f"{g.params.winding_b} -> {fitted.params.winding_b}")
+    log(f"cli fit march=fd 64^2 on a PNG target: {cli_launches} march_batch "
+        f"launches, winding_b {g.params.winding_b:.6g} -> "
+        f"{fitted.params.winding_b:.6g}")
+    return (fd_launches, probe_err, probe_k_ms, probe_plain_ms, probe_bound)
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: torch.cuda.is_available() is False; this run "
@@ -261,6 +492,7 @@ def main() -> int:
     from gamer_tpu_torch.engine import cuda_render as cr
     from gamer_tpu_torch.engine.render import pool_linear, post_process
     from gamer_tpu_torch.golden import golden_scene, load_oracle_golden
+    from gamer_tpu_torch.io.png import decode_png
     from gamer_tpu_torch.models import presets
     from gamer_tpu_torch.post.stars import (pad_star_rows, star_field_device,
                                             star_params)
@@ -292,6 +524,10 @@ def main() -> int:
 
     report_build()
     f32 = np.float32
+    if "--fit-only" in sys.argv[1:]:
+        # development: the build report and the fit phases alone
+        fit_phases(card, dev)
+        return 0
 
     # --- the kernel's noise device functions vs their plain versions -------
     # csrc/noise_probe.cu runs noise.cuh's raw/octave/ridged functions at
@@ -1558,6 +1794,12 @@ def main() -> int:
     check(not any(name.startswith("gamer-render") for name in left),
           f"service threads left behind: {left}")
 
+    # =======================================================================
+    # the fit path: fit_scene_fd (K4 probes), the autograd marches, CLI fit
+    # =======================================================================
+    (fit_launches, fit_err, fit_k_ms, fit_plain_ms,
+     fit_bound) = fit_phases(card, dev)
+
     for pkg in ("jax", "gamer_tpu"):
         check(pkg not in sys.modules, f"{pkg} was imported")
 
@@ -1596,6 +1838,10 @@ def main() -> int:
         entry("dirs_rowshard", "gamer_tpu/engine/pallas_render.py:1349",
               s3_launches["march_rays_rowshard"], s3_err, s3_k_ms,
               s3_plain_ms, sky_bound),
+        # fit_scene_fd's probe sets: one march_batch launch per step
+        entry("march_batch[fit_scene_fd]",
+              "gamer_tpu/engine/pallas_render.py:1294", fit_launches,
+              fit_err, fit_k_ms, fit_plain_ms, fit_bound),
     ]}))
     log(card)
     log(json.dumps({"ok": True, "device": {

@@ -1,6 +1,6 @@
 """Headless CLI for the port: the reference's positional commands
 (ConsoleRenderer parity, consolerenderer.cpp) and the JAX package's batch
-commands, as ``gamer_tpu.cli`` has them.
+and fit commands, as ``gamer_tpu.cli`` has them.
 
   python -m gamer_tpu_torch.cli <command> <parameters> [--device cuda|cpu]
 
@@ -45,6 +45,10 @@ Commands:
    renderhpx <fits file> <size> <outfile> <exposure> <gamma> <saturation>
    serve [port] [batch window s] [bands] [mesh] [maxbatch=N]
          [warm=<gax file>[:size,size...]]
+   fit <camera x y z> <target x y z> <up x y z> <fov> <exposure> <gamma>
+       <saturation> <ray step> <gax file> <target png> <out gax>
+       [steps] [lr] [field,field,...] [march=tensor|scan|frozen|fd]
+       [sweep=N] [ckpt=<file>] [multiscale]
 <method>: omp | thread | pallas (all three: the CUDA march kernel)
 """
 
@@ -400,6 +404,117 @@ def cmd_serve(argv, device) -> int:
     return 0
 
 
+def cmd_fit(argv, device) -> int:
+    """Galaxy fitting (inverse rendering, engine/fit.py): moves the named
+    parameter fields of <gax file> until its render from the given camera
+    matches <target png>, then writes the fitted galaxy to <out gax>.
+    march=tensor|scan|frozen runs fit_scene's autograd marches (a trailing
+    'multiscale' runs its resolution pyramid); march=fd runs fit_scene_fd,
+    central differences through the march kernel, with sweep=N its staged
+    global search. ckpt=FILE saves and resumes the optimizer state."""
+    ckpt = next((a[len("ckpt="):] for a in argv if a.startswith("ckpt=")),
+                None)
+    march = next((a[len("march="):] for a in argv if a.startswith("march=")),
+                 "tensor")
+    raw_sweep = next((a[len("sweep="):] for a in argv
+                      if a.startswith("sweep=")), None)
+    argv = [a for a in argv
+            if not (a.startswith("ckpt=") or a.startswith("march=")
+                    or a.startswith("sweep="))]
+    sweep = 0
+    if raw_sweep is not None:
+        try:
+            sweep = int(raw_sweep)
+        except ValueError:
+            print(f"bad sweep value {raw_sweep!r} (want an integer). Usage:")
+            print(USAGE)
+            return 1
+        if march != "fd":
+            print("fit: sweep= is the staged global search of march=fd")
+            return 1
+    if march not in ("tensor", "scan", "frozen", "fd"):
+        print(f"fit: unknown march {march!r} (tensor, scan, frozen or fd)")
+        return 1
+    multiscale = bool(argv) and argv[-1].lower() == "multiscale"
+    if multiscale:
+        argv = argv[:-1]
+    if not 18 <= len(argv) <= 21:
+        print(f"{len(argv)}\nIncorrect usage/parameters for fit. Usage:")
+        print(USAGE)
+        return 1
+    from .engine.fit import (
+        DEFAULT_FIT_FIELDS,
+        DEFAULT_SCENE_SCHEDULE,
+        fit_scene,
+        fit_scene_fd,
+        fit_scene_multiscale,
+    )
+    from .io.png import read_png
+
+    vals = [float(v) for v in argv[1:15]]
+    gax_file, target_file, out_file = argv[15], argv[16], argv[17]
+    steps = int(argv[18]) if len(argv) > 18 else 100
+    lr = float(argv[19]) if len(argv) > 19 else 2e-2
+    fields = (tuple(argv[20].split(",")) if len(argv) > 20
+              else DEFAULT_FIT_FIELDS)
+    if steps < 1:
+        print("fit: steps must be >= 1")
+        return 1
+    if march == "fd" and multiscale:
+        print("fit: march=fd has no multiscale ladder (FD probes are stable "
+              "at full octaves); drop 'multiscale'")
+        return 1
+
+    target = read_png(target_file)
+    if target.shape[0] != target.shape[1]:
+        print("fit: target image must be square")
+        return 1
+    # full-render sampling (not preview), as the galaxy command renders the
+    # target: a preview-mode fit would bake its coarser sampling into the
+    # fitted parameters
+    scene = Scene(
+        camera=CameraParams(camera=tuple(vals[0:3]), target=tuple(vals[3:6]),
+                            up=tuple(vals[6:9]), fov=vals[9]),
+        instances=[GalaxyInstance(galaxy=gax.load(gax_file))],
+        config=RenderConfig(size=target.shape[0], ray_step=vals[13],
+                            exposure=vals[10], gamma=vals[11],
+                            saturation=vals[12]),
+    )
+    mode = " [multiscale]" if multiscale else ""
+    print(f"Fitting {','.join(fields)} of {gax_file} to {target_file} "
+          f"({steps} steps, lr {lr}, march={march}){mode} on "
+          f"{_device_desc(device)} ...")
+    t0 = time.perf_counter()
+    total = steps * (len(DEFAULT_SCENE_SCHEDULE) if multiscale else 1)
+
+    def on_step(i, loss):
+        print(f"\r[ step {i + 1}/{total} ]  loss {loss:.6f} ", end="",
+              flush=True)
+
+    if march == "fd":
+        # the joint winding_b x scale grid when both families are fitted
+        groups = None
+        if sweep and "winding_b" in fields and "scale" in fields:
+            groups = (("winding_b",), ("scale",))
+        result = fit_scene_fd(scene, target, fields, steps=steps, lr=lr,
+                              sweep=sweep, sweep_groups=groups,
+                              on_step=on_step, checkpoint_path=ckpt,
+                              device=device)
+    elif multiscale:
+        result = fit_scene_multiscale(scene, target, fields, steps=steps,
+                                      lr=lr, on_step=on_step, march=march,
+                                      checkpoint_path=ckpt, device=device)
+    else:
+        result = fit_scene(scene, target, fields, steps=steps, lr=lr,
+                           on_step=on_step, march=march,
+                           checkpoint_path=ckpt, device=device)
+    print(f"\nloss {result.losses[0]:.6f} -> {result.losses[-1]:.6f} in "
+          f"{format_ms((time.perf_counter() - t0) * 1000.0)}")
+    gax.save(result.scene.instances[0].galaxy, out_file)
+    print(f"Saved fitted galaxy to {out_file}")
+    return 0
+
+
 def _device_desc(device: str) -> str:
     import torch
 
@@ -420,6 +535,7 @@ COMMANDS = {
     "allsky": cmd_allsky,
     "renderhpx": cmd_renderhpx,
     "serve": cmd_serve,
+    "fit": cmd_fit,
 }
 
 

@@ -58,6 +58,7 @@ from ..scene.schema import (
     CID_STARS_SMALL,
     Scene,
 )
+from .diff import conservative_step_bound
 from .render import abs_i32, hash3_i32, pool_linear, post_process
 from .scene_prep import COMP_FIELDS, SceneStatic, flatten_scene
 
@@ -249,28 +250,6 @@ def _check_march_cap(scene: Scene) -> None:
             "would truncate their camera-near segment. Use a larger "
             "min_ray_step or smaller ellipsoid axes.",
             RuntimeWarning, stacklevel=3)
-
-
-def conservative_step_bound(ray_step: float, min_step: float,
-                            max_axis: float = 1.0, slack: float = 1.15) -> int:
-    """A trip bound >= the march's trip count for any ray
-    (gamer_tpu.engine.diff.conservative_step_bound). The step is
-    clamp(dist*ray_step, min_step, 0.01) and a chord is <= 2*max(axis):
-    below d1 = min_step/ray_step the step is min_step, between d1 and
-    d2 = 0.01/ray_step it grows geometrically, beyond d2 it is 0.01."""
-    import math
-
-    chord = 2.0 * max_axis
-    d1 = min_step / ray_step
-    d2 = 0.01 / ray_step
-    trips = min(chord, 2.0 * d1) / min_step
-    rem = chord - min(chord, 2.0 * d1)
-    if rem > 0 and d2 > d1:
-        trips += 2.0 * math.log(d2 / d1) / ray_step
-        rem -= min(rem, 2.0 * (d2 - d1))
-    if rem > 0:
-        trips += rem / 0.01
-    return int(trips * slack) + 16
 
 
 # ---------------------------------------------------------------------------

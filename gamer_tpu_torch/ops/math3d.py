@@ -1,6 +1,6 @@
 """3-D math primitives with the reference's numeric conventions, as torch
-ops — the subset of ``gamer_tpu.ops.math3d`` the still-frame path uses,
-plus the minimax atan/atan2 the march kernel evaluates
+ops — the subset of ``gamer_tpu.ops.math3d`` the march paths use, plus the
+minimax atan/atan2 the march kernel evaluates
 (``gamer_tpu.ops.pallas_noise.atan_f32/atan2_f32``).
 
 Python scalars mixed into these ops are cast to the tensor's float32, so
@@ -80,3 +80,70 @@ def atan2_f32(y, x):
     # x == 0: +-pi/2 by y's sign; (0, 0) -> 0
     vert = torch.where(y > 0, PI / 2, torch.where(y < 0, -PI / 2, 0.0)).to(y.dtype)
     return torch.where(x == 0, vert, r)
+
+
+# ---------------------------------------------------------------------------
+# (..., 3) forms of the XLA march (gamer_tpu.engine.render) and its
+# differentiable twins: the same expressions as gamer_tpu.ops.math3d, with
+# its guards that keep reverse-mode derivatives finite on masked lanes
+# ---------------------------------------------------------------------------
+
+
+def norm3(v):
+    """Euclidean norm over the trailing axis of size 3. sqrt runs on a
+    positive stand-in for zero-norm lanes and 0 is selected back, so the
+    value is sqrt(dot(v, v)) everywhere and the derivative at v == 0 is 0,
+    not inf."""
+    n2 = dot3(v, v)
+    nz = n2 > 0
+    n = torch.sqrt(torch.where(nz, n2, 1.0))
+    return torch.where(nz, n, 0.0)
+
+
+def qt_smoothstep(edge0, edge1, x):
+    """Util::smoothstep; 0/0 -> NaN -> clamp -> 1 (the oracle's value). A
+    zero-width edge keeps that value but carries no derivative; the other
+    lanes divide by a guarded denominator."""
+    d = edge1 - edge0
+    nz = d != 0
+    t_safe = qt_clamp((x - edge0) / torch.where(nz, d, 1.0), 0.0, 1.0)
+    t_exact = qt_clamp((x - edge0) / d, 0.0, 1.0)
+    t = torch.where(nz, t_safe, t_exact.detach())
+    return t * t * (3.0 - 2.0 * t)
+
+
+def quat_rotate_v(q, v):
+    """``quat_rotate`` of (..., 3) vectors by (..., 4) quaternions
+    (w, x, y, z) on the trailing axes."""
+    return torch.stack(quat_rotate((q[..., 0], q[..., 1], q[..., 2],
+                                    q[..., 3]),
+                                   v[..., 0], v[..., 1], v[..., 2]), dim=-1)
+
+
+def quat_from_axis_angle_rad(axis, angle_rad):
+    """Quaternion (..., 4) of a turn by ``angle_rad`` about a unit axis (3,)."""
+    half = angle_rad * 0.5
+    s = torch.sin(half)
+    c = torch.cos(half)
+    return torch.stack([c, axis[0] * s, axis[1] * s, axis[2] * s], dim=-1)
+
+
+def intersect_ellipsoid(origin, direction, axis):
+    """Util::IntersectSphere (util.h:66-98) on the unit sphere scaled by
+    ``axis``: (hit, isp1, isp2, t0, t1) for rays origin + t * direction.
+    Missing rays take sqrt of a positive stand-in, so their masked lanes
+    have finite derivatives."""
+    inv = 1.0 / (axis * axis)
+    rd = direction * inv
+    ro = origin * inv
+    A = dot3(direction, rd)
+    B = 2.0 * dot3(direction, ro)
+    C = dot3(origin, ro) - 1.0
+    S = B * B - 4.0 * A * C
+    hit = S > 0.0
+    sq = torch.where(hit, torch.sqrt(torch.where(hit, S, 1.0)), 0.0)
+    t0 = (-B - sq) / (2.0 * A)
+    t1 = (-B + sq) / (2.0 * A)
+    isp1 = origin + direction * t0[..., None]
+    isp2 = origin + direction * t1[..., None]
+    return hit, isp1, isp2, t0, t1

@@ -562,3 +562,53 @@ def test_sharded_launches_on_several_cards(cuda):
         np.testing.assert_array_equal(jobs[-1].image, still)
     finally:
         svc.stop()
+
+
+def _fit_problem(size=16):
+    """A preview-sampled spiral, its frame as the target, and the spiral
+    with winding_b x1.15 (fd) or every strength x1.5 (autograd)."""
+    import copy
+
+    scene = _scene(presets.spiral(), size, is_preview=True)
+    target = gt.render_scene(scene, device="cpu")
+    fd_start = copy.deepcopy(scene)
+    fd_start.instances[0].galaxy.params.winding_b *= 1.15
+    ag_start = copy.deepcopy(scene)
+    for c in ag_start.instances[0].galaxy.components:
+        c.strength *= 1.5
+    return target, fd_start, ag_start
+
+
+def test_fit_scene_fd_on_the_card_matches_cpu(cuda):
+    """fit_scene_fd on the card: one march_batch launch per step plus the
+    last iterate's, never the plain version; its losses within relative
+    1e-3 of the CPU run's (the kernel is <= 2 LSB from its plain version,
+    and finite differences magnify that in the later steps)."""
+    from gamer_tpu_torch.engine import fit as tfit
+
+    target, start, _ = _fit_problem()
+    before = cr.march_batch.launch_count
+    real_plain = cr.march_batch_plain
+    cr.march_batch_plain = None  # a call to the plain version would raise
+    try:
+        card = tfit.fit_scene_fd(start, target, steps=2, device="cuda")
+    finally:
+        cr.march_batch_plain = real_plain
+    assert cr.march_batch.launch_count == before + 3
+    cpu = tfit.fit_scene_fd(start, target, steps=2, device="cpu")
+    np.testing.assert_allclose(card.losses, cpu.losses, rtol=1e-3, atol=0)
+
+
+def test_fit_scene_tensor_step_on_the_card_matches_cpu(cuda):
+    """One tensor-march fit step on the card: losses and the fitted
+    strengths within relative 1e-3 of the CPU's."""
+    from gamer_tpu_torch.engine import fit as tfit
+
+    target, _, start = _fit_problem()
+    card = tfit.fit_scene(start, target, steps=1, march="tensor",
+                          device="cuda")
+    cpu = tfit.fit_scene(start, target, steps=1, march="tensor",
+                         device="cpu")
+    np.testing.assert_allclose(card.losses, cpu.losses, rtol=1e-3, atol=0)
+    for a, b in zip(card.params[0]["comps"], cpu.params[0]["comps"]):
+        np.testing.assert_allclose(a["strength"], b["strength"], rtol=1e-3)
