@@ -17,10 +17,18 @@ step's probe set is one ``march_batch`` launch, held to the plain
 version), ``fit_scene`` on the tensor and frozen marches at 128x128 and
 the scan march at 32x32 (step times and CUDA launches per step), each
 march's losses against the CPU's at 12x12, and the CLI ``fit ...
-march=fd`` on a PNG target.
+march=fd`` on a PNG target. Then the fit families: ``fit_pose_fd`` at
+128x128 (each step's 7 probe frames one ``march_batch`` launch; the base
+frame and first +- pair of its first probe set held to the plain version
+on the card), ``fit_pose`` and ``fit_pose_multiscale``,
+``fit_scene_batch`` (K=4, tensor and frozen), ``fit_scene_multiview``
+(K=3), ``fit_joint`` (fd poses) and ``fit_joint_multiview`` (K=2) at
+64x64 (step times as medians of 3 untraced steps, CUDA launches per step,
+peak memory), four of them against the CPU at 12x12, ``POST /fit`` over
+HTTP, and the CLI ``fitpose ... fd`` and ``fitjoint ... pose=fd``.
 
     python3 chip_smoke.py
-    python3 chip_smoke.py --fit-only   # the build report and the fit path
+    python3 chip_smoke.py --fit-only   # the build report and the fit paths
 
 Needs one CUDA card and nvcc. Prints one line per phase; the line before
 the last is the card's name and power limit, the line before that the
@@ -90,7 +98,9 @@ SERVE_SIZE = 256
 SERVE_WAIT_S = 120.0
 # the fit path: fit_scene_fd's probes (K4), the autograd marches, CLI fit
 FIT_SIZE = 128
-FIT_STEPS = 3
+# five steps: step 0 holds the fit's setup and step 1 is traced, so a step
+# time is the median of the 3 steps after them
+FIT_STEPS = 5
 SCAN_SIZE = 32
 CHECK_SIZE = 12
 # the kernel's probe losses against the plain version's, and the card's
@@ -262,40 +272,74 @@ def scaled(scene, field, factor, gp=False):
     return s
 
 
-def step_clock():
-    """(on_step, times): on_step records the host clock after each step."""
-    times = []
-
-    def on_step(i, loss):
-        times.append(time.perf_counter())
-    return on_step, times
-
-
-def step_ms(t0, times):
-    """Median host ms of the steps after the first (the first one holds the
-    fit's setup), or of the first when it is the only one."""
-    edges = [t0] + times
-    d = np.diff(edges) * 1e3
-    return float(np.median(d[1:] if len(d) > 1 else d))
-
-
-def launches_per_step(run):
-    """CUDA kernel launches of the second step of ``run(on_step)`` (a fit
-    of two steps or more): torch.profiler traces from the end of step 0 to
-    the end of step 1 and its runtime launch calls are counted; None when
-    it traced none."""
+def cuda_profile():
+    """A torch.profiler session of the CUDA activity alone: a step of 10^5
+    launches would otherwise add ~10^6 CPU op events."""
     from torch.profiler import ProfilerActivity, profile
 
-    prof = profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA])
+    return profile(activities=[ProfilerActivity.CUDA])
+
+
+def launch_count(prof):
+    """The runtime launch calls a stopped profiler session recorded, None
+    when it recorded none. The raw records are read: building the
+    profiler's event tree costs ~30 us an event, 10 s for a traced step of
+    a batch fit."""
+    try:
+        names = [e.name() for e in prof.profiler.kineto_results.events()]
+    except AttributeError:  # a torch without the raw records
+        names = [e.name for e in prof.events()]
+    return sum(n in LAUNCH_API for n in names) or None
+
+
+def traced_fit(run, windows=((0, 1),)):
+    """Run ``run(on_step)`` once: the fit's result, {step: host ms} of
+    every step after the first (which holds the fit's setup) outside the
+    traced windows, the CUDA launches of each traced window {(a, b): n}
+    (from the end of step a to the end of step b, torch.profiler's runtime
+    launch calls; None when it traced none) and the peak device memory in
+    GiB. Every step ends in a sync, as a fit's loss comes to the host."""
+    starts = {a: b for a, b in windows}
+    traced = set()
+    for a, b in windows:
+        traced.update(range(a + 1, b + 1))
+    state = {"prof": None, "mark": 0.0}
+    steps = {}
+    counts = {}
 
     def on_step(i, loss):
-        if i in (0, 1):
-            torch.cuda.synchronize()
-            (prof.start if i == 0 else prof.stop)()
+        torch.cuda.synchronize()
+        steps[i] = (time.perf_counter() - state["mark"]) * 1e3
+        prof = state["prof"]
+        if prof is not None and i == prof[1]:
+            prof[0].stop()
+            counts[(prof[2], i)] = launch_count(prof[0])
+            state["prof"] = None
+        if i in starts:
+            p = cuda_profile()
+            p.start()
+            state["prof"] = (p, starts[i], i)
+        # the next step's clock starts after the profiler's own work
+        state["mark"] = time.perf_counter()
+        return None
 
-    run(on_step)
-    n = sum(e.name in LAUNCH_API for e in prof.events())
-    return n or None
+    torch.cuda.reset_peak_memory_stats()
+    state["mark"] = time.perf_counter()
+    res = run(on_step)
+    torch.cuda.synchronize()
+    if state["prof"] is not None:
+        state["prof"][0].stop()
+    peak = torch.cuda.max_memory_allocated() / 2 ** 30
+    ms = {i: d for i, d in steps.items() if i > 0 and i not in traced}
+    return res, ms, counts, peak
+
+
+def fmt_ms(ms, keep=None):
+    """The median of the step times ``ms`` ({step: ms}; only the steps in
+    ``keep`` when given), with how many steps it is the median of."""
+    vals = [d for i, d in ms.items() if keep is None or i in keep]
+    return (f"{float(np.median(vals)):.3f} ms (host clock, median of "
+            f"{len(vals)} untraced steps)") if vals else "not measured"
 
 
 def fit_phases(card: str, dev):
@@ -340,23 +384,17 @@ def fit_phases(card: str, dev):
     tbatch.render_batch_linear, cr.march_batch_plain = spy_batch, spy_plain
     try:
         cr.march_batch.launch_count = 0
-        on_step, times = step_clock()
-        t0 = time.perf_counter()
-        fd = tfit.fit_scene_fd(fd_start, target, steps=FIT_STEPS,
-                               device=dev, on_step=on_step)
-        torch.cuda.synchronize()
+        fd, fd_ms, fd_n, _ = traced_fit(lambda cb: tfit.fit_scene_fd(
+            fd_start, target, steps=FIT_STEPS, device=dev, on_step=cb))
         fd_launches = cr.march_batch.launch_count
     finally:
         tbatch.render_batch_linear, cr.march_batch_plain = real_batch, real_plain
-    fd_ms = step_ms(t0, times)
     check(fd_launches == FIT_STEPS + 1 and len(seen) == FIT_STEPS + 1
           and not plain_calls,
           f"fit_scene_fd: {fd_launches} march_batch launches for "
           f"{len(seen)} probe sets, {len(plain_calls)} plain calls")
     check(all(np.isfinite(fd.losses)) and min(fd.losses[1:]) < fd.losses[0],
           f"fit_scene_fd losses {fd.losses}")
-    fd_per_step = launches_per_step(lambda cb: tfit.fit_scene_fd(
-        fd_start, target, steps=2, device=dev, on_step=cb))
 
     # the first probe set again, kernel against its plain version on the card
     ((static, pages, _),) = tbatch._scene_groups(seen[0])
@@ -386,51 +424,44 @@ def fit_phases(card: str, dev):
         f"{[f'{x:.6g}' for x in fd.losses]}; first probe losses kernel vs "
         f"plain on cuda max rel {rel:.3g} (limit {FIT_PROBE_RTOL:g}), linear "
         f"max_abs_err {probe_err:.3g}")
-    log(f"timing [{card}] fit_scene_fd step at {FIT_SIZE}^2: {fd_ms:.3f} ms "
-        f"(host clock, median), {fd_per_step} CUDA launches per step; probe "
+    log(f"timing [{card}] fit_scene_fd step at {FIT_SIZE}^2: {fmt_ms(fd_ms)}"
+        f", {fd_n.get((0, 1))} CUDA launches per step (traced); probe "
         f"launch ({pages.shape[0]} frames) kernel {probe_k_ms:.3f} ms, plain "
         f"on cuda {probe_plain_ms:.1f} ms (counting its work), bound "
         f"{probe_bound[0]:.4f} ms by {probe_bound[1]} ({probe_bound[2]})")
 
     # --- the autograd marches ----------------------------------------------
-    def autograd_fit(march, size, steps, **kw):
+    for march, size in (("tensor", FIT_SIZE), ("frozen", FIT_SIZE),
+                        ("scan", SCAN_SIZE)):
         scene = spiral_scene(size)
         tgt_img = gt.render_scene(scene, device=dev)
         start = scaled(scene, "strength", 1.5)
-        on_step, times = step_clock()
-        torch.cuda.reset_peak_memory_stats()
-        t0 = time.perf_counter()
-        res = tfit.fit_scene(start, tgt_img, steps=steps, march=march,
-                             device=dev, on_step=on_step, **kw)
-        torch.cuda.synchronize()
-        peak = torch.cuda.max_memory_allocated() / 2 ** 30
-        check(all(np.isfinite(res.losses)) and res.losses[-1] < res.losses[0],
-              f"fit_scene march={march}: losses {res.losses}")
-        return res, step_ms(t0, times), peak, start, tgt_img
 
-    rows = {}
-    for march, size, steps in (("tensor", FIT_SIZE, FIT_STEPS),
-                               ("frozen", FIT_SIZE, FIT_STEPS),
-                               ("scan", SCAN_SIZE, 1)):
-        res, ms, peak, start, tgt_img = autograd_fit(march, size, steps)
+        def run(cb, steps=FIT_STEPS, march=march, **kw):
+            return tfit.fit_scene(start, tgt_img, steps=steps, march=march,
+                                  device=dev, on_step=cb, **kw)
+
         if march == "scan":
-            # every trip issues the same ops: launches = a + b * trips,
-            # from two short trip counts
-            n = [launches_per_step(lambda cb, m=m: tfit.fit_scene(
-                start, tgt_img, steps=2, march="scan", device=dev,
-                max_steps=m, on_step=cb)) for m in (8, 16)]
+            # one step of ~40 s, its setup included; every trip issues the
+            # same ops: launches = a + b * trips, from two short trip counts
+            t0 = time.perf_counter()
+            res, _, _, peak = traced_fit(lambda cb: run(cb, steps=1),
+                                         windows=())
+            ms = f"{(time.perf_counter() - t0) * 1e3:.3f} ms (host clock, " \
+                 f"1 step with the fit's setup)"
+            n = [traced_fit(lambda cb, m=m: run(cb, steps=2, max_steps=m))[2]
+                 .get((0, 1)) for m in (8, 16)]
             trips = tfit.step_bound_for_scene(start)
             per_step = (None if None in n
                         else n[0] + (n[1] - n[0]) * (trips - 8) // 8)
             how = f"a + b * {trips} trips from 8 and 16 trips: {n}"
         else:
-            per_step = launches_per_step(lambda cb: tfit.fit_scene(
-                start, tgt_img, steps=2, march=march, device=dev,
-                on_step=cb))
-            how = "traced"
-        rows[march] = (ms, per_step)
+            res, step_times, n, peak = traced_fit(run)
+            ms, per_step, how = fmt_ms(step_times), n.get((0, 1)), "traced"
+        check(all(np.isfinite(res.losses)) and res.losses[-1] < res.losses[0],
+              f"fit_scene march={march}: losses {res.losses}")
         log(f"timing [{card}] fit_scene march={march} step at {size}^2: "
-            f"{ms:.3f} ms (host clock, median), {per_step} CUDA launches per "
+            f"{ms}, {per_step} CUDA launches per "
             f"step ({how}), peak {peak:.2f} GiB; losses "
             f"{[f'{x:.6g}' for x in res.losses]}")
 
@@ -482,6 +513,382 @@ def fit_phases(card: str, dev):
     return (fd_launches, probe_err, probe_k_ms, probe_plain_ms, probe_bound)
 
 
+# the fit families: pose, pose-fd, multiscale pose, batch, multi-view, joint
+POSE_SIZE = 64
+POSE_START = (0.52, 0.01, 0.0)
+BATCH_K = 4
+# frames of fit_pose_fd's first 128^2 probe set held to the plain version
+PROBE_CHECK_FRAMES = 3
+MVIEW_K = 3
+
+
+def fit_family_phases(card: str, dev):
+    """The pose, batch, multi-view and joint fits on the card; returns the
+    fields of the march_batch[fit_pose_fd] kernel record."""
+    import base64
+    import copy
+
+    import gamer_tpu_torch as gt
+    from gamer_tpu_torch import cli
+    from gamer_tpu_torch.engine import batch as tbatch
+    from gamer_tpu_torch.engine import cuda_render as cr
+    from gamer_tpu_torch.engine import fit as tfit
+    from gamer_tpu_torch.io.png import encode_png, write_png
+    from gamer_tpu_torch.scene import gax
+    from gamer_tpu_torch.scene.cameracontrols import orbit_path
+    from gamer_tpu_torch.serve import serve
+
+    t_phase = time.perf_counter()
+
+    def moved(scene, cam=POSE_START):
+        return dataclasses.replace(scene, camera=dataclasses.replace(
+            scene.camera, camera=cam))
+
+    def check_fit(name, losses):
+        a = np.asarray(losses, np.float64)
+        check(bool(np.all(np.isfinite(a))) and a.min() < a.flat[0],
+              f"{name}: losses {a.tolist()}")
+
+    # --- fit_pose_fd at 128^2: every step's 7 probes are one K4 launch ------
+    truth = spiral_scene(FIT_SIZE)
+    target = gt.render_scene(truth, device=dev)
+    start = moved(truth)
+    seen, plain_calls = [], []
+    real_batch, real_plain = tbatch.render_batch_linear, cr.march_batch_plain
+
+    def spy_batch(scenes, device=dev, mesh=None):
+        seen.append(list(scenes))
+        return real_batch(scenes, device=device, mesh=mesh)
+
+    def spy_plain(*a, **k):
+        plain_calls.append(1)
+        return real_plain(*a, **k)
+
+    tbatch.render_batch_linear, cr.march_batch_plain = spy_batch, spy_plain
+    try:
+        # the main path's counts: 0 just before it, read just after
+        for fn in (cr.march, cr.march_band, cr.march_batch, cr.march_rays):
+            fn.launch_count = 0
+        pfd, pfd_ms, pfd_n, pfd_peak = traced_fit(
+            lambda cb: tfit.fit_pose_fd(start, target, steps=FIT_STEPS,
+                                        device=dev, on_step=cb))
+        torch.cuda.synchronize()
+        pfd_launches = cr.march_batch.launch_count
+        others = (cr.march.launch_count + cr.march_band.launch_count
+                  + cr.march_rays.launch_count)
+    finally:
+        tbatch.render_batch_linear, cr.march_batch_plain = real_batch, real_plain
+    check(pfd_launches == FIT_STEPS + 1
+          and [len(x) for x in seen] == [7] * (FIT_STEPS + 1)
+          and not plain_calls and others == 0,
+          f"fit_pose_fd: {pfd_launches} march_batch launches for probe sets "
+          f"{seen}, {len(plain_calls)} plain calls, {others} other launches")
+    check_fit("fit_pose_fd", pfd.losses)
+    check(pfd.scene.camera.camera != start.camera.camera,
+          "fit_pose_fd did not move the camera")
+    log(f"fit_pose_fd spiral {FIT_SIZE}^2 (camera from {POSE_START}, full "
+        f"octaves, {FIT_STEPS} steps): {pfd_launches} march_batch launches "
+        f"of 7 frames, 0 plain calls; losses "
+        f"{[f'{x:.6g}' for x in pfd.losses]}; camera -> "
+        f"{[round(v, 5) for v in pfd.scene.camera.camera]}")
+    log(f"timing [{card}] fit_pose_fd step at {FIT_SIZE}^2: {fmt_ms(pfd_ms)}, "
+        f"{pfd_n.get((0, 1))} CUDA launches per step (traced), peak "
+        f"{pfd_peak:.2f} GiB")
+    # the main path's first probe set again: the whole launch timed alone,
+    # and its base frame and first +- pair held to the plain version on the
+    # card (~11 s a frame of small launches)
+    ((static, pages, _),) = tbatch._scene_groups(seen[0])
+    tab = cr.upload_table(cr._build_table(static, cr._build_layout(static)),
+                          dev)
+    big_pages = torch.as_tensor(pages, device=dev)
+    big_k_ms, _ = cuda_ms(lambda: cr.march_batch(big_pages, tab, FIT_SIZE),
+                          5)
+    pages_d = big_pages[:PROBE_CHECK_FRAMES]
+    probe_k_ms, lin_k = cuda_ms(lambda: cr.march_batch(pages_d, tab,
+                                                       FIT_SIZE), 5)
+    probe_stats = {}
+    torch.cuda.synchronize()
+    t = time.perf_counter()
+    lin_p = cr.march_batch_plain(pages_d, tab, FIT_SIZE, stats=probe_stats)
+    torch.cuda.synchronize()
+    probe_plain_ms = (time.perf_counter() - t) * 1e3
+    probe_err = float((lin_k - lin_p).abs().max())
+    # the fit's own loss of a probe batch (normalized MSE, on the card)
+    losses_of = tfit._batch_losses(truth.config,
+                                   np.asarray(target, np.float32) / 255.0,
+                                   1, True)
+    lk, lp = losses_of(lin_k), losses_of(lin_p)
+    rel = float(np.max(np.abs(lk - lp) / np.abs(lp)))
+    check(rel <= FIT_PROBE_RTOL
+          and abs(lk[0] - pfd.losses[0]) <= 1e-6 * lk[0],
+          f"fit_pose_fd probes: kernel {lk}, plain {lp}, fit "
+          f"{pfd.losses[0]}")
+    probe_bound = march_bound(probe_stats, pages_d.numel() * 4
+                              + tab.numel() * 4 + 2048,
+                              pages_d.shape[0] * FIT_SIZE ** 2 * 12)
+    log(f"fit_pose_fd {FIT_SIZE}^2 first probe set, frames 0-"
+        f"{PROBE_CHECK_FRAMES - 1} (the base pose and camera.x +- eps) "
+        f"kernel vs plain on cuda: losses max rel {rel:.3g} (limit "
+        f"{FIT_PROBE_RTOL:g}), linear max_abs_err {probe_err:.3g}")
+    log(f"timing [{card}] fit_pose_fd probe launch at {FIT_SIZE}^2 (CUDA "
+        f"events, median of 5): 7 frames {big_k_ms:.3f} ms; "
+        f"{PROBE_CHECK_FRAMES} frames kernel {probe_k_ms:.3f} ms, plain on "
+        f"cuda {probe_plain_ms:.1f} ms (counting its work), bound "
+        f"{probe_bound[0]:.4f} ms by {probe_bound[1]} ({probe_bound[2]})")
+
+    # --- fit_pose (tensor march, LOD 3) and the multiscale ladder at 64^2 ---
+    ptruth = spiral_scene(POSE_SIZE)
+    ptarget = gt.render_scene(ptruth, device=dev)
+    lod3 = dataclasses.replace(moved(ptruth), config=dataclasses.replace(
+        ptruth.config, noise_octaves=3))
+    pose, pose_ms, pose_n, pose_peak = traced_fit(
+        lambda cb: tfit.fit_pose(lod3, ptarget, ("camera",), steps=FIT_STEPS,
+                                 lr=1e-2, device=dev, on_step=cb))
+    check_fit("fit_pose", pose.losses)
+    log(f"timing [{card}] fit_pose march=tensor LOD 3 step at {POSE_SIZE}^2: "
+        f"{fmt_ms(pose_ms)}, {pose_n.get((0, 1))} CUDA launches per step "
+        f"(traced), peak {pose_peak:.2f} GiB; losses "
+        f"{[f'{x:.6g}' for x in pose.losses]}")
+    t0 = time.perf_counter()
+    ladder, _, lad_n, lad_peak = traced_fit(
+        lambda cb: tfit.fit_pose_multiscale(moved(ptruth), ptarget, steps=1,
+                                            device=dev, on_step=cb))
+    lad_ms = (time.perf_counter() - t0) * 1e3
+    check(all(np.isfinite(ladder.losses)) and len(ladder.losses) == 6
+          and ladder.scene.config.noise_octaves is None,
+          f"fit_pose_multiscale: losses {ladder.losses}")
+    log(f"timing [{card}] fit_pose_multiscale at {POSE_SIZE}^2, 1 step a rung "
+        f"over {tfit.DEFAULT_POSE_SCHEDULE}: the ladder {lad_ms:.3f} ms (host "
+        f"clock, one reading: 3 rungs' setups, steps and final evaluations), "
+        f"{lad_n.get((0, 1))} CUDA launches from the end of rung 1's step to "
+        f"the end of rung 2's (rung 1's final evaluation, rung 2's setup and "
+        f"step; traced), peak {lad_peak:.2f} GiB; losses "
+        f"{[f'{x:.6g}' for x in ladder.losses]}")
+
+    # --- fit_scene_batch K=4 and fit_scene_multiview K=3 at 64^2 ------------
+    factors = (0.6, 0.8, 1.2, 1.4)[:BATCH_K]
+    btargets = np.stack([gt.render_scene(scaled(ptruth, "strength", f),
+                                         device=dev) for f in factors])
+    template = scaled(ptruth, "strength", 1.5)
+    starts = [scaled(ptruth, "strength", 1.5 * f) for f in factors]
+    how = {"tensor": "per-scene starts",
+           "frozen": "one template, one frozen field set"}
+    for march, scenes in (("tensor", starts), ("frozen", template)):
+        res, b_ms, b_n, b_peak = traced_fit(
+            lambda cb: tfit.fit_scene_batch(
+                scenes, btargets, steps=FIT_STEPS, march=march, device=dev,
+                on_step=cb))
+        # each scene's best iterate (the one the fit returns) beats its
+        # start: a scene that starts near its target may overshoot later
+        check(res.losses.shape == (FIT_STEPS + 1, BATCH_K)
+              and bool(np.all(res.losses.min(axis=0) < res.losses[0])),
+              f"fit_scene_batch march={march}: losses {res.losses.tolist()}")
+        log(f"timing [{card}] fit_scene_batch K={BATCH_K} march={march} "
+            f"({how[march]}) "
+            f"step at {POSE_SIZE}^2: {fmt_ms(b_ms)}, {b_n.get((0, 1))} CUDA "
+            f"launches per step (traced), peak {b_peak:.2f} GiB; first/last "
+            f"losses {res.losses[0].tolist()} / {res.losses[-1].tolist()}")
+    cams = orbit_path(ptruth.camera, MVIEW_K, 120.0)
+    vtargets = np.stack([gt.render_scene(dataclasses.replace(ptruth,
+                                                             camera=c),
+                                         device=dev) for c in cams])
+    mv, mv_ms, mv_n, mv_peak = traced_fit(
+        lambda cb: tfit.fit_scene_multiview(
+            template, vtargets, cams, steps=FIT_STEPS, march="frozen",
+            device=dev, on_step=cb))
+    check_fit("fit_scene_multiview", mv.losses)
+    log(f"timing [{card}] fit_scene_multiview K={MVIEW_K} march=frozen step "
+        f"at {POSE_SIZE}^2: {fmt_ms(mv_ms)}, {mv_n.get((0, 1))} CUDA launches "
+        f"per step (traced), peak {mv_peak:.2f} GiB; losses "
+        f"{[f'{x:.6g}' for x in mv.losses]}")
+
+    # --- fit_joint (pose fd) and fit_joint_multiview K=2, one round ---------
+    # each block's first step holds its setup and its second is traced
+    P = FIT_STEPS
+    jstart = moved(scaled(ptruth, "strength", 1.5))
+    cr.march_batch.launch_count = 0
+    joint, j_ms, j_n, j_peak = traced_fit(
+        lambda cb: tfit.fit_joint(jstart, ptarget, ("strength",), rounds=1,
+                                  pose_steps=P, scene_steps=P,
+                                  pose_method="fd", march="frozen",
+                                  device=dev, on_step=cb),
+        windows=((0, 1), (P, P + 1)))
+    j_launches = cr.march_batch.launch_count
+    check(all(np.isfinite(joint.losses)) and j_launches == P + 1
+          and joint.scene.camera.camera != jstart.camera.camera,
+          f"fit_joint: {j_launches} march_batch launches, losses "
+          f"{joint.losses}")
+    log(f"timing [{card}] fit_joint pose_method=fd at {POSE_SIZE}^2 (1 "
+        f"round: {P} fd pose steps, {P} frozen scene steps): a pose step "
+        f"{fmt_ms(j_ms, range(2, P))}, a scene step "
+        f"{fmt_ms(j_ms, range(P + 2, 2 * P))}; CUDA launches a pose step "
+        f"{j_n.get((0, 1))}, a scene step {j_n.get((P, P + 1))} (traced), "
+        f"{j_launches} march_batch launches, peak {j_peak:.2f} GiB")
+    mcams = cams[:2]
+    mstarts = [dataclasses.replace(c, camera=tuple(
+        v + d for v, d in zip(c.camera, (0.015, 0.01, -0.01)))) for c in mcams]
+    cr.march_batch.launch_count = 0
+    jmv, jmv_ms, jmv_n, jmv_peak = traced_fit(
+        lambda cb: tfit.fit_joint_multiview(
+            template, vtargets[:2], mstarts, ("strength",), rounds=1,
+            pose_steps=P, scene_steps=P, march="frozen", device=dev,
+            on_step=cb),
+        windows=((0, 1), (2 * P, 2 * P + 1)))
+    jmv_launches = cr.march_batch.launch_count
+    check(all(np.isfinite(jmv.losses)) and jmv_launches == 2 * (P + 1)
+          and all(a.camera != b.camera for a, b in zip(jmv.cameras, mstarts)),
+          f"fit_joint_multiview: {jmv_launches} march_batch launches, losses "
+          f"{jmv.losses}")
+    log(f"timing [{card}] fit_joint_multiview K=2 at {POSE_SIZE}^2 (1 round: "
+        f"{P} fd pose steps a view, {P} frozen scene steps): a pose step "
+        f"{fmt_ms(jmv_ms, [*range(2, P), *range(P + 1, 2 * P)])}, a scene "
+        f"step {fmt_ms(jmv_ms, range(2 * P + 2, 3 * P))}; CUDA launches a "
+        f"pose step {jmv_n.get((0, 1))}, a scene step "
+        f"{jmv_n.get((2 * P, 2 * P + 1))} (traced), {jmv_launches} "
+        f"march_batch launches, peak {jmv_peak:.2f} GiB")
+
+    # --- the card's trajectories against the CPU's at 12^2 ------------------
+    c_truth = spiral_scene(CHECK_SIZE, is_preview=True, noise_octaves=2)
+    c_target = gt.render_scene(c_truth, device=dev)
+    c_cams = [c_truth.camera, dataclasses.replace(c_truth.camera,
+                                                  camera=(0.0, 0.0, 0.5))]
+    c_views = np.stack([gt.render_scene(dataclasses.replace(c_truth,
+                                                            camera=c),
+                                        device=dev) for c in c_cams])
+    c_btargets = np.stack([gt.render_scene(scaled(c_truth, "strength", f),
+                                           device=dev) for f in (0.8, 1.2)])
+    c_weak = scaled(c_truth, "strength", 1.5)
+    runs = {
+        "fit_pose": lambda d: tfit.fit_pose(
+            moved(c_truth), c_target, ("camera",), steps=2, lr=1e-2,
+            device=d).losses,
+        # one step: a step is 7 frames of the plain march on the CPU
+        "fit_pose_fd": lambda d: tfit.fit_pose_fd(
+            moved(c_truth), c_target, steps=1, device=d).losses,
+        "fit_scene_batch": lambda d: tfit.fit_scene_batch(
+            [c_weak, scaled(c_weak, "strength", 0.8)], c_btargets,
+            ("strength",), steps=2, lr=5e-2, device=d).losses,
+        "fit_scene_multiview": lambda d: tfit.fit_scene_multiview(
+            c_weak, c_views, c_cams, ("strength",), steps=2, lr=5e-2,
+            march="frozen", device=d).losses,
+    }
+    for name, run in runs.items():
+        a, b = (np.asarray(run(d), np.float64) for d in (dev, "cpu"))
+        rel = float(np.max(np.abs(a - b) / np.abs(b)))
+        same_way = bool(np.all(np.sign(np.diff(a, axis=0))
+                               == np.sign(np.diff(b, axis=0))))
+        log(f"{name} {CHECK_SIZE}^2, {len(a) - 1} step(s): card losses "
+            f"{a.tolist()}, CPU "
+            f"{b.tolist()}: max rel {rel:.3g} (limit {FIT_CPU_RTOL:g}), moves "
+            f"the CPU's way: {same_way}")
+        check(rel <= FIT_CPU_RTOL and same_way, f"{name}: card {a} vs CPU {b}")
+    # the camera chain on the card: a pose fit's first loss (normalize off)
+    # is fit_scene's at the same pose, bit for bit
+    a0, b0 = (r.losses[0] for r in (
+        tfit.fit_pose(moved(c_truth), c_target, ("camera",), steps=0,
+                      normalize=False, device=dev),
+        tfit.fit_scene(moved(c_truth), c_target, ("strength",), steps=0,
+                       march="tensor", device=dev)))
+    log(f"fit_pose first loss {a0!r} vs fit_scene's {b0!r} at the same pose "
+        f"on cuda {CHECK_SIZE}^2: bit-equal {a0 == b0}")
+    check(a0 == b0, f"fit_pose first loss {a0!r} vs fit_scene's {b0!r}")
+
+    # --- POST /fit over HTTP: an fd pose job and a frozen scene job ---------
+    httpd = serve(port=0, poll=False, batch_window_s=0.0)
+    http_thread = threading.Thread(target=httpd.serve_forever, daemon=True)
+    http_thread.start()
+    base = f"http://127.0.0.1:{httpd.server_address[1]}"
+
+    def http(path, data=None, method=None):
+        if data is not None:
+            data = json.dumps(data).encode()
+        req = urllib.request.Request(base + path, data=data, method=method)
+        with urllib.request.urlopen(req, timeout=SERVE_WAIT_S) as r:
+            return r.status, r.read()
+
+    try:
+        png = base64.b64encode(encode_png(ptarget)).decode()
+        from gamer_tpu_torch.scene.schema import scene_to_dict
+
+        jobs = {
+            "fd": {"scene": scene_to_dict(moved(ptruth)), "target_png": png,
+                   "steps": 2, "lr": 1e-2, "pose": "fd"},
+            "frozen": {"scene": scene_to_dict(scaled(ptruth, "strength",
+                                                     1.5)),
+                       "target_png": png, "steps": 2, "lr": 5e-2,
+                       "fields": ["strength"], "march": "frozen"},
+        }
+        results = {}
+        cr.march_batch.launch_count = 0
+        for name, payload in jobs.items():
+            status, body = http("/fit", payload)
+            jid = json.loads(body)["job"]
+            check(status == 202, f"POST /fit {name}: {status}")
+            info = json.loads(http(f"/job/{jid}?wait=60")[1])
+            check(info["state"] == "done", f"/fit {name}: {info}")
+            results[name] = json.loads(http(f"/job/{jid}/result.json")[1])
+            _, img = http(f"/job/{jid}/image.png")
+            check(img[:8] == b"\x89PNG\r\n\x1a\n", f"/fit {name} image")
+        http_launches = cr.march_batch.launch_count
+        fd_lib = tfit.fit_pose_fd(moved(ptruth), ptarget, steps=2, lr=1e-2,
+                                  device=dev)
+        check(http_launches == 3
+              and set(results["fd"]) == {"scene", "losses", "fit_fields",
+                                         "pose"}
+              and results["fd"]["losses"] == [float(v) for v in fd_lib.losses]
+              and set(results["frozen"]) == {"scene", "losses", "fit_fields"}
+              and results["frozen"]["losses"][-1]
+              < results["frozen"]["losses"][0],
+              f"/fit: {http_launches} march_batch launches; fd losses "
+              f"{results['fd']['losses']} against the library's "
+              f"{fd_lib.losses}; keys {sorted(results['fd'])}, "
+              f"{sorted(results['frozen'])}; frozen losses "
+              f"{results['frozen']['losses']}")
+    finally:
+        httpd.shutdown()
+        httpd.server_close()
+        httpd.service.stop()
+        http_thread.join(SERVE_WAIT_S)
+    check(not http_thread.is_alive(), "the HTTP thread did not stop")
+    log(f"http POST /fit: fd pose job ({http_launches} march_batch launches, "
+        f"losses equal "
+        f"to the library call's {results['fd']['losses']}) and a frozen "
+        f"scene job (losses {results['frozen']['losses']}); result.json and "
+        f"image.png served")
+
+    # --- the CLI fitpose ... fd and fitjoint ... pose=fd at 64^2 ------------
+    with tempfile.TemporaryDirectory() as tmp:
+        tmp = Path(tmp)
+        write_png(tmp / "target.png", ptarget)
+        g = copy.deepcopy(ptruth.instances[0].galaxy)
+        for c in g.components:
+            c.strength *= 1.5
+        gax.save(g, tmp / "start.gax")
+        args = [str(v) for v in POSE_START] + ["0", "0", "0", "0", "1", "0",
+                                               "90", "1", "1", "1", "0.025",
+                                               str(tmp / "start.gax"),
+                                               str(tmp / "target.png")]
+        cr.march_batch.launch_count = 0
+        rc1 = cli.main(["fitpose", *args, str(tmp / "pose.json"), "2",
+                        "0.01", "fd"])
+        n1 = cr.march_batch.launch_count
+        rc2 = cli.main(["fitjoint", *args, str(tmp / "joint.json"), "1", "2",
+                        "2", "pose=fd", "fields=strength"])
+        n2 = cr.march_batch.launch_count - n1
+        pose_json = json.loads((tmp / "pose.json").read_text())
+        fitted = gax.load(tmp / "joint.gax")
+        check(rc1 == 0 and rc2 == 0 and n1 == 3 and n2 == 3
+              and pose_json["camera"]["camera"] != list(POSE_START)
+              and fitted.components[1].strength != g.components[1].strength,
+              f"cli fitpose/fitjoint: rc {rc1} {rc2}, launches {n1} {n2}")
+    log(f"cli fitpose ... fd and fitjoint ... pose=fd at {POSE_SIZE}^2: "
+        f"{n1} and {n2} march_batch launches; camera -> "
+        f"{pose_json['camera']['camera']}")
+    log(f"fit families phase: {time.perf_counter() - t_phase:.1f} s (host "
+        f"clock)")
+    return (pfd_launches, probe_err, probe_k_ms, probe_plain_ms, probe_bound)
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: torch.cuda.is_available() is False; this run "
@@ -527,6 +934,7 @@ def main() -> int:
     if "--fit-only" in sys.argv[1:]:
         # development: the build report and the fit phases alone
         fit_phases(card, dev)
+        fit_family_phases(card, dev)
         return 0
 
     # --- the kernel's noise device functions vs their plain versions -------
@@ -1700,9 +2108,9 @@ def main() -> int:
               and float(metrics["gamer_request_seconds_count"]) == 1
               and float(metrics["gamer_healthy"]) == 1,
               f"/metrics: {metrics}")
-        check("item 10" in json.loads(http("/fit", {"scene": {}},
-                                           expect=501))["error"],
-              "/fit does not name the roadmap item")
+        check("target image" in json.loads(http(
+            "/fit", {"scene": scene_to_dict(serve_scene)},
+            expect=400))["error"], "/fit without a target was not a 400")
         # DELETE aborts a job queued behind a long one
         long_id = json.loads(http("/render", scene_to_dict(spiral_scene(1024)),
                                   expect=202))["job"]
@@ -1717,8 +2125,9 @@ def main() -> int:
         http("/render", {"instances": ["not a galaxy"]}, expect=400)
         log(f"http on {base}: /healthz names {health['device']}; POST "
             f"/render, long-poll and image.png give the library frame; "
-            f"/metrics parses ({len(metrics)} samples); POST /fit answers "
-            f"501; DELETE aborts a queued job; a bad payload answers 400")
+            f"/metrics parses ({len(metrics)} samples); POST /fit without a "
+            f"target answers 400; DELETE aborts a queued job; a bad payload "
+            f"answers 400")
     finally:
         httpd.shutdown()
         httpd.server_close()
@@ -1799,6 +2208,9 @@ def main() -> int:
     # =======================================================================
     (fit_launches, fit_err, fit_k_ms, fit_plain_ms,
      fit_bound) = fit_phases(card, dev)
+    # the pose, batch, multi-view and joint fits (fit_pose_fd's probes: K4)
+    (pfd_launches, pfd_err, pfd_k_ms, pfd_plain_ms,
+     pfd_bound) = fit_family_phases(card, dev)
 
     for pkg in ("jax", "gamer_tpu"):
         check(pkg not in sys.modules, f"{pkg} was imported")
@@ -1842,6 +2254,10 @@ def main() -> int:
         entry("march_batch[fit_scene_fd]",
               "gamer_tpu/engine/pallas_render.py:1294", fit_launches,
               fit_err, fit_k_ms, fit_plain_ms, fit_bound),
+        # fit_pose_fd's probe sets: one march_batch launch per step
+        entry("march_batch[fit_pose_fd]",
+              "gamer_tpu/engine/pallas_render.py:1294", pfd_launches,
+              pfd_err, pfd_k_ms, pfd_plain_ms, pfd_bound),
     ]}))
     log(card)
     log(json.dumps({"ok": True, "device": {

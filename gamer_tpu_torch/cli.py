@@ -1,6 +1,7 @@
 """Headless CLI for the port: the reference's positional commands
 (ConsoleRenderer parity, consolerenderer.cpp) and the JAX package's batch
-and fit commands, as ``gamer_tpu.cli`` has them.
+and fit commands (``fit``, ``fitpose``, ``fitjoint``), as ``gamer_tpu.cli``
+has them.
 
   python -m gamer_tpu_torch.cli <command> <parameters> [--device cuda|cpu]
 
@@ -27,6 +28,7 @@ from .scene.schema import (
     Scene,
     _to_dict,
     scene_from_dict,
+    scene_to_dict,
 )
 from .utils.timers import ScopedTimer, format_ms
 
@@ -49,6 +51,15 @@ Commands:
        <saturation> <ray step> <gax file> <target png> <out gax>
        [steps] [lr] [field,field,...] [march=tensor|scan|frozen|fd]
        [sweep=N] [ckpt=<file>] [multiscale]
+   fitpose <camera x y z> <target x y z> <up x y z> <fov> <exposure> <gamma>
+       <saturation> <ray step> <gax file> <target png> <out scene.json>
+       [steps=80] [lr=0.01] [noise LOD=3 | multiscale | fd] [ckpt=<file>]
+   fitjoint <camera x y z> <target x y z> <up x y z> <fov> <exposure> <gamma>
+       <saturation> <ray step> <gax file> <target png> <out scene.json>
+       [rounds=2] [posesteps=30] [scenesteps=60] [fields=strength,r0,z0]
+       [ckpt=<file>] [march=frozen] [pose=multiscale|fd]  (an unknown camera
+       AND unknown parameters: alternating pose and parameter blocks; also
+       writes the fitted galaxy as <out>.gax)
 <method>: omp | thread | pallas (all three: the CUDA march kernel)
 """
 
@@ -404,6 +415,49 @@ def cmd_serve(argv, device) -> int:
     return 0
 
 
+def _fit_args(argv, command: str):
+    """The 14 numbers, three paths and optional tail of a fit command's
+    positional arguments, or None after printing the usage."""
+    if not 18 <= len(argv) <= 21:
+        print(f"{len(argv)}\nIncorrect usage/parameters for {command}. "
+              "Usage:")
+        print(USAGE)
+        return None
+    return ([float(v) for v in argv[1:15]], argv[15], argv[16], argv[17],
+            argv[18:])
+
+
+def _posed_scene(vals, gax_file: str, size: int, **cfg) -> Scene:
+    return Scene(
+        camera=CameraParams(camera=tuple(vals[0:3]), target=tuple(vals[3:6]),
+                            up=tuple(vals[6:9]), fov=vals[9]),
+        instances=[GalaxyInstance(galaxy=gax.load(gax_file))],
+        config=RenderConfig(size=size, ray_step=vals[13], exposure=vals[10],
+                            gamma=vals[11], saturation=vals[12], **cfg),
+    )
+
+
+def _step_printer(total: int):
+    def on_step(i, loss):
+        print(f"\r[ step {i + 1}/{total} ]  loss {loss:.6f} ", end="",
+              flush=True)
+    return on_step
+
+
+def _save_fitted_scene(result, out_file: str, t0: float) -> str:
+    """Print the fit's summary and write its scene dict as JSON; returns
+    the path written (``out_file``, with .json appended if missing)."""
+    cam = result.scene.camera
+    print(f"\nloss {result.losses[0]:.6f} -> {min(result.losses):.6f} in "
+          f"{format_ms((time.perf_counter() - t0) * 1000.0)}")
+    print(f"fitted camera: ({cam.camera[0]:.4f}, {cam.camera[1]:.4f}, "
+          f"{cam.camera[2]:.4f})")
+    out = out_file if out_file.endswith(".json") else out_file + ".json"
+    with open(out, "w") as fh:
+        json.dump(scene_to_dict(result.scene), fh, indent=2)
+    return out
+
+
 def cmd_fit(argv, device) -> int:
     """Galaxy fitting (inverse rendering, engine/fit.py): moves the named
     parameter fields of <gax file> until its render from the given camera
@@ -438,9 +492,8 @@ def cmd_fit(argv, device) -> int:
     multiscale = bool(argv) and argv[-1].lower() == "multiscale"
     if multiscale:
         argv = argv[:-1]
-    if not 18 <= len(argv) <= 21:
-        print(f"{len(argv)}\nIncorrect usage/parameters for fit. Usage:")
-        print(USAGE)
+    args = _fit_args(argv, "fit")
+    if args is None:
         return 1
     from .engine.fit import (
         DEFAULT_FIT_FIELDS,
@@ -451,12 +504,10 @@ def cmd_fit(argv, device) -> int:
     )
     from .io.png import read_png
 
-    vals = [float(v) for v in argv[1:15]]
-    gax_file, target_file, out_file = argv[15], argv[16], argv[17]
-    steps = int(argv[18]) if len(argv) > 18 else 100
-    lr = float(argv[19]) if len(argv) > 19 else 2e-2
-    fields = (tuple(argv[20].split(",")) if len(argv) > 20
-              else DEFAULT_FIT_FIELDS)
+    vals, gax_file, target_file, out_file, rest = args
+    steps = int(rest[0]) if len(rest) > 0 else 100
+    lr = float(rest[1]) if len(rest) > 1 else 2e-2
+    fields = tuple(rest[2].split(",")) if len(rest) > 2 else DEFAULT_FIT_FIELDS
     if steps < 1:
         print("fit: steps must be >= 1")
         return 1
@@ -472,25 +523,14 @@ def cmd_fit(argv, device) -> int:
     # full-render sampling (not preview), as the galaxy command renders the
     # target: a preview-mode fit would bake its coarser sampling into the
     # fitted parameters
-    scene = Scene(
-        camera=CameraParams(camera=tuple(vals[0:3]), target=tuple(vals[3:6]),
-                            up=tuple(vals[6:9]), fov=vals[9]),
-        instances=[GalaxyInstance(galaxy=gax.load(gax_file))],
-        config=RenderConfig(size=target.shape[0], ray_step=vals[13],
-                            exposure=vals[10], gamma=vals[11],
-                            saturation=vals[12]),
-    )
+    scene = _posed_scene(vals, gax_file, target.shape[0])
     mode = " [multiscale]" if multiscale else ""
     print(f"Fitting {','.join(fields)} of {gax_file} to {target_file} "
           f"({steps} steps, lr {lr}, march={march}){mode} on "
           f"{_device_desc(device)} ...")
     t0 = time.perf_counter()
-    total = steps * (len(DEFAULT_SCENE_SCHEDULE) if multiscale else 1)
-
-    def on_step(i, loss):
-        print(f"\r[ step {i + 1}/{total} ]  loss {loss:.6f} ", end="",
-              flush=True)
-
+    on_step = _step_printer(
+        steps * (len(DEFAULT_SCENE_SCHEDULE) if multiscale else 1))
     if march == "fd":
         # the joint winding_b x scale grid when both families are fitted
         groups = None
@@ -515,6 +555,136 @@ def cmd_fit(argv, device) -> int:
     return 0
 
 
+def cmd_fitpose(argv, device) -> int:
+    """Camera-pose refinement (engine/fit.py): refine the given camera
+    toward the pose that produced <target png>, holding the galaxy, and
+    write the fitted scene dict to <out scene.json>. The default fits at
+    noise LOD 3 (fit_pose: full-octave noise drowns the pose gradient);
+    'multiscale' runs fit_pose_multiscale's LOD ladder and 'fd'
+    fit_pose_fd, central differences through the march kernel at full
+    quality. ckpt=FILE saves and resumes the optimizer state."""
+    ckpt = next((a[len("ckpt="):] for a in argv if a.startswith("ckpt=")),
+                None)
+    argv = [a for a in argv if not a.startswith("ckpt=")]
+    args = _fit_args(argv, "fitpose")
+    if args is None:
+        return 1
+    from .engine.fit import (
+        DEFAULT_POSE_SCHEDULE,
+        fit_pose,
+        fit_pose_fd,
+        fit_pose_multiscale,
+    )
+    from .io.png import read_png
+
+    vals, gax_file, target_file, out_file, rest = args
+    steps = int(rest[0]) if len(rest) > 0 else 80
+    lr = float(rest[1]) if len(rest) > 1 else 1e-2
+    lod_arg = rest[2] if len(rest) > 2 else "3"
+    multiscale = lod_arg.lower() == "multiscale"
+    use_fd = lod_arg.lower() == "fd"
+    lod = 3 if multiscale or use_fd else int(lod_arg)
+    if steps < 1:
+        print("fitpose: steps must be >= 1")
+        return 1
+
+    target = read_png(target_file)
+    if target.shape[0] != target.shape[1]:
+        print("fitpose: target image must be square")
+        return 1
+    scene = _posed_scene(vals, gax_file, target.shape[0], is_preview=True,
+                         noise_octaves=None if multiscale or use_fd else lod)
+    if use_fd:
+        print(f"Refining camera pose toward {target_file} ({steps} FD steps "
+              f"at full quality, lr {lr}) on {_device_desc(device)} ...")
+        t0 = time.perf_counter()
+        result = fit_pose_fd(scene, target, ("camera",), steps=steps, lr=lr,
+                             on_step=_step_printer(steps),
+                             checkpoint_path=ckpt, device=device)
+    elif multiscale:
+        total = steps * len(DEFAULT_POSE_SCHEDULE)
+        print(f"Refining camera pose toward {target_file} ({steps} "
+              f"steps/rung over LOD schedule "
+              f"{[s[0] or 'exact' for s in DEFAULT_POSE_SCHEDULE]}, lr {lr}) "
+              f"on {_device_desc(device)} ...")
+        t0 = time.perf_counter()
+        result = fit_pose_multiscale(scene, target, ("camera",), steps=steps,
+                                     lr=lr, on_step=_step_printer(total),
+                                     checkpoint_path=ckpt, device=device)
+    else:
+        print(f"Refining camera pose toward {target_file} ({steps} steps, "
+              f"lr {lr}, noise LOD {lod}) on {_device_desc(device)} ...")
+        t0 = time.perf_counter()
+        result = fit_pose(scene, target, ("camera",), steps=steps, lr=lr,
+                          on_step=_step_printer(steps), checkpoint_path=ckpt,
+                          device=device)
+    out = _save_fitted_scene(result, out_file, t0)
+    print(f"Saved fitted scene to {out}")
+    return 0
+
+
+def cmd_fitjoint(argv, device) -> int:
+    """Joint camera + parameter fitting (engine/fit.fit_joint): an image
+    whose camera AND galaxy parameters are both unknown; block-coordinate
+    descent alternating pose blocks (pose=multiscale: the LOD ladder;
+    pose=fd: central differences through the march kernel) and parameter
+    blocks (march=). Writes the fitted scene dict to <out scene.json> and
+    the fitted galaxy to <out>.gax."""
+    ckpt = next((a[len("ckpt="):] for a in argv if a.startswith("ckpt=")),
+                None)
+    march = next((a[len("march="):] for a in argv if a.startswith("march=")),
+                 "frozen")
+    pose_method = next((a[len("pose="):] for a in argv
+                        if a.startswith("pose=")), "multiscale")
+    fields_arg = next((a[len("fields="):] for a in argv
+                       if a.startswith("fields=")), None)
+    argv = [a for a in argv
+            if not (a.startswith("ckpt=") or a.startswith("march=")
+                    or a.startswith("pose=") or a.startswith("fields="))]
+    args = _fit_args(argv, "fitjoint")
+    if args is None:
+        return 1
+    from .engine.fit import (
+        DEFAULT_FIT_FIELDS,
+        DEFAULT_POSE_SCHEDULE,
+        fit_joint,
+    )
+    from .io.png import read_png
+
+    vals, gax_file, target_file, out_file, rest = args
+    rounds = int(rest[0]) if len(rest) > 0 else 2
+    pose_steps = int(rest[1]) if len(rest) > 1 else 30
+    scene_steps = int(rest[2]) if len(rest) > 2 else 60
+    fields = tuple(fields_arg.split(",")) if fields_arg else DEFAULT_FIT_FIELDS
+    if rounds < 1 or pose_steps < 1 or scene_steps < 1:
+        print("fitjoint: rounds/posesteps/scenesteps must be >= 1")
+        return 1
+
+    target = read_png(target_file)
+    if target.shape[0] != target.shape[1]:
+        print("fitjoint: target image must be square")
+        return 1
+    scene = _posed_scene(vals, gax_file, target.shape[0])
+    pose_block = (pose_steps * len(DEFAULT_POSE_SCHEDULE)
+                  if pose_method == "multiscale" else pose_steps)
+    print(f"Jointly fitting camera + {','.join(fields)} of {gax_file} to "
+          f"{target_file} ({rounds} rounds, {pose_steps} pose + "
+          f"{scene_steps} scene steps/round, march={march}, "
+          f"pose={pose_method}) on {_device_desc(device)} ...")
+    t0 = time.perf_counter()
+    result = fit_joint(scene, target, fields, rounds=rounds,
+                       pose_steps=pose_steps, scene_steps=scene_steps,
+                       march=march, pose_method=pose_method,
+                       on_step=_step_printer(rounds * (pose_block
+                                                       + scene_steps)),
+                       checkpoint_path=ckpt, device=device)
+    out = _save_fitted_scene(result, out_file, t0)
+    gax_out = out[:-len(".json")] + ".gax"
+    gax.save(result.scene.instances[0].galaxy, gax_out)
+    print(f"Saved fitted scene to {out} and fitted galaxy to {gax_out}")
+    return 0
+
+
 def _device_desc(device: str) -> str:
     import torch
 
@@ -536,6 +706,8 @@ COMMANDS = {
     "renderhpx": cmd_renderhpx,
     "serve": cmd_serve,
     "fit": cmd_fit,
+    "fitpose": cmd_fitpose,
+    "fitjoint": cmd_fitjoint,
 }
 
 

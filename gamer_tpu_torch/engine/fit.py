@@ -1,8 +1,9 @@
-"""Galaxy fitting (inverse rendering): the scene-parameter fits of
-``gamer_tpu.engine.fit`` in torch.
+"""Galaxy fitting (inverse rendering): the fits of ``gamer_tpu.engine.fit``
+in torch.
 
 Given a target image and a starting scene, the fits move selected galaxy
-parameters until the scene's render matches the target.
+parameters, the camera pose, or both, until the scene's render matches the
+target.
 
 - ``fit_scene`` runs Adam on gradients taken through a differentiable
   march (``march=``): "tensor" (engine/tensor_march.py, the default),
@@ -11,13 +12,20 @@ parameters until the scene's render matches the target.
   ``check_frozen_fields``), or "scan" (engine/diff.py, bit-equal in value
   to the XLA march; its gradients follow the sequential linearization,
   which the winding fields need).
-- ``fit_scene_multiscale`` runs fit_scene down a resolution pyramid.
-- ``fit_scene_fd`` takes central differences instead: each step renders
-  the current scene and a +h / -h probe per fitted scalar as one batch
-  (``engine.batch.render_batch_linear``: one launch of the march kernel on
-  the card) and steps Adam on the host. It is the path for the chaotic
-  structure fields (winding_b, scale, ks) whose autograd gradients read
-  noise.
+- ``fit_scene_multiscale`` runs fit_scene down a resolution pyramid;
+  ``fit_scene_batch`` fits K scenes of one structure to K targets in one
+  optimization; ``fit_scene_multiview`` fits one galaxy to K posed views.
+- ``fit_pose`` refines the camera through the differentiable camera chain
+  (``ops.camera.inv_view_projection_tensor``), ``fit_pose_multiscale``
+  down a noise-LOD ladder; ``fit_joint`` and ``fit_joint_multiview``
+  alternate pose blocks and parameter blocks for an unknown camera (or K
+  unknown cameras) and unknown parameters.
+- ``fit_scene_fd`` and ``fit_pose_fd`` take central differences instead:
+  each step renders the current scene and a +h / -h probe per fitted
+  scalar as one batch (``engine.batch.render_batch_linear``: one launch of
+  the march kernel on the card) and steps Adam on the host. They are the
+  paths for the chaotic structure fields (winding_b, scale, ks) and for
+  poses at full octaves, whose autograd gradients read noise.
 
 The scene structure stays fixed during a fit; only numeric leaves move.
 Which leaves move is chosen by field name over flatten_scene's params
@@ -25,7 +33,9 @@ Which leaves move is chosen by field name over flatten_scene's params
 with hard domain limits are projected after every step.
 ``apply_fit_to_scene`` writes fitted leaves back into a copy of the Scene.
 Every fit takes ``device=`` (the card unless the caller asks for the CPU)
-and checkpoints that a rerun resumes bit for bit.
+and checkpoints that a rerun resumes bit for bit. ``mesh=`` on the
+autograd fits (pixel rows, the batch or view axis over devices) is not
+ported and raises; the FD fits pass it to the batched launch.
 """
 
 from __future__ import annotations
@@ -33,6 +43,7 @@ from __future__ import annotations
 import copy
 import dataclasses
 import hashlib
+import math
 import os
 import warnings
 from dataclasses import dataclass, field
@@ -41,7 +52,12 @@ from typing import Callable, List, Optional, Sequence, Tuple
 import numpy as np
 import torch
 
-from ..ops.camera import inv_view_projection, ray_grid_xla
+from ..ops.camera import (
+    inv_view_projection,
+    inv_view_projection_batch,
+    inv_view_projection_tensor,
+    ray_grid_xla,
+)
 from ..scene.schema import Scene
 from ..scene.spectra import BUILTIN_SPECTRA
 from ..utils.tree import (
@@ -203,8 +219,8 @@ class Adam:
 
 def _optimize(loss_fn, params, mask, *, steps, lr, optimizer, on_step,
               project_fn=None, checkpoint_path=None, checkpoint_every=1,
-              fingerprint="", captures=()):
-    """The masked Adam loop of fit_scene.
+              fingerprint="", batch: int = 0, captures=()):
+    """The masked Adam loop of every autograd fit.
 
     - Gradients are made finite (nan_to_num) and masked to the fitted
       leaves; only those leaves record gradients.
@@ -215,6 +231,12 @@ def _optimize(loss_fn, params, mask, *, steps, lr, optimizer, on_step,
     - ``on_step(i, loss)`` returning False stops after the current step.
     - ``checkpoint_path`` saves (params, optimizer state, losses) every
       ``checkpoint_every`` steps and at the last one, and resumes from it.
+    - ``batch`` = K > 0: ``loss_fn`` returns a (K,) per-scene loss vector
+      (fit_scene_batch). The gradient descends its SUM, whose gradient in
+      scene k's leaves is scene k's own (a mean's 1/K would bend the Adam
+      trajectories of scenes near their minimum); every leaf carries a
+      leading K axis, each loss is a (K,) array, and the best iterate is
+      kept per scene, as K independent fits would.
     - ``captures`` are large tensors the loss reads (the frozen noise
       fields), passed as ``loss_fn(p, *captures)``, detached.
     - Returns (best_params, losses): each step's loss belongs to the params
@@ -230,13 +252,18 @@ def _optimize(loss_fn, params, mask, *, steps, lr, optimizer, on_step,
     opt_state = opt.init(params)
     caps = tuple(captures)
     masks = [float(m) for m in tree_leaves(mask)]
+    dev = tree_leaves(params)[0].device
+
+    def host(loss):
+        return loss.cpu().numpy() if batch else float(loss)
 
     def step_fn(p, s):
         live = [leaf.detach().requires_grad_(m != 0.0)
                 for leaf, m in zip(tree_leaves(p), masks)]
         loss = loss_fn(tree_unflatten_like(p, live), *caps)
+        total = loss.sum() if batch else loss
         wrt = [leaf for leaf in live if leaf.requires_grad]
-        got = iter(torch.autograd.grad(loss, wrt, allow_unused=True)
+        got = iter(torch.autograd.grad(total, wrt, allow_unused=True)
                    if wrt else ())
         grads = []
         for leaf, m in zip(live, masks):
@@ -248,18 +275,35 @@ def _optimize(loss_fn, params, mask, *, steps, lr, optimizer, on_step,
             new_p = tree_map(lambda leaf, u, r: leaf + u * r, p, updates, rel)
             if project_fn is not None:
                 new_p = project_fn(new_p)
-        return new_p, s, float(loss.detach())
+        return new_p, s, host(loss.detach())
 
-    losses: List[float] = []
+    def improve(loss_now, params_now):
+        """Fold one iterate into the running (best_loss, best_params)."""
+        nonlocal best_loss, best_params
+        if not batch:
+            if loss_now < best_loss:
+                best_loss, best_params = loss_now, params_now
+            return
+        imp = np.asarray(loss_now) < np.asarray(best_loss)
+        if imp.any():
+            sel = torch.as_tensor(imp, device=dev)
+            best_params = tree_map(
+                lambda b, c: torch.where(
+                    sel.reshape(imp.shape + (1,) * (c.dim() - 1)), c, b),
+                best_params, params_now)
+            best_loss = np.where(imp, np.asarray(loss_now),
+                                 np.asarray(best_loss))
+
+    losses: List = []
     best_params = params
-    best_loss = np.inf
+    best_loss = np.full((batch,), np.inf) if batch else np.inf
     start = 0
     if checkpoint_path:
         resumed = _ckpt_load(checkpoint_path, fingerprint, params, opt_state,
                              best_params)
         if resumed is not None:
             start, params, opt_state, losses, bl, best_params = resumed
-            best_loss = float(bl)
+            best_loss = np.asarray(bl) if batch else float(bl)
             if start > steps:
                 raise ValueError(
                     f"checkpoint {checkpoint_path} already holds {start} "
@@ -269,8 +313,7 @@ def _optimize(loss_fn, params, mask, *, steps, lr, optimizer, on_step,
     for i in range(start, steps):
         new_params, opt_state, loss = step_fn(params, opt_state)
         losses.append(loss)
-        if loss < best_loss:
-            best_loss, best_params = loss, params
+        improve(loss, params)
         params = new_params
         if checkpoint_path and ((i + 1) % max(1, checkpoint_every) == 0
                                 or i + 1 == steps):
@@ -281,11 +324,24 @@ def _optimize(loss_fn, params, mask, *, steps, lr, optimizer, on_step,
             break
     # the last iterate's loss was not seen by the loop
     with torch.no_grad():
-        final = float(loss_fn(params, *caps))
+        final = host(loss_fn(params, *caps))
     losses.append(final)
-    if final < best_loss:
-        best_params = params
+    improve(final, params)
     return best_params, losses
+
+
+def _block_callback(on_step, base: int, state: dict):
+    """A block's on_step: the global index ``base + i``; a False from the
+    caller's on_step is remembered in ``state["aborted"]``."""
+    if on_step is None:
+        return None
+
+    def cb(i, loss):
+        r = on_step(base + i, loss)
+        if r is False:
+            state["aborted"] = True
+        return r
+    return cb
 
 
 def _fit_fingerprint(kind: str, fit_fields, lr, march, size, params,
@@ -349,8 +405,11 @@ def _march_fn(march: str):
         return render_rays_tensor
     if march == "frozen":
         raise ValueError(
-            "march='frozen' takes fixed cameras and a per-call noise "
-            "precompute (fit_scene, fit_scene_multiscale)")
+            "march='frozen' is only supported by fit_scene / "
+            "fit_scene_multiscale / fit_scene_batch / fit_scene_multiview "
+            "(fixed cameras, per-call noise precompute); fit_pose moves "
+            "the camera, which moves every noise input — use "
+            "march='tensor' there")
     raise ValueError(
         f"unknown march backend {march!r}; use 'scan', 'tensor' or 'frozen'")
 
@@ -375,6 +434,69 @@ def _check_march_fields(march: str, fit_fields) -> None:
 
 def _f32(v, device):
     return torch.as_tensor(np.asarray(v, np.float32), device=device)
+
+
+def _no_mesh(mesh, who: str) -> None:
+    if mesh is not None:
+        raise NotImplementedError(
+            f"{who}(mesh=...) is not ported: data parallelism of the "
+            f"autograd fits (pixel rows, the batch axis, the view axis) is "
+            f"queued in ROADMAP.md §1 item 2")
+
+
+def _image_model(scene: Scene, size: int, pool: int, dev,
+                 normalize: bool = False):
+    """The differentiable forward model's image end, shared by the autograd
+    fits: (ss, prep, image_loss). ``prep(img)`` box-averages by ``pool``
+    (and with ``normalize`` divides by the mean); ``image_loss(linear,
+    target_prepped)`` pools the ss^2 rays per pixel in linear space, runs
+    the float post chain and returns the MSE in [0, 1] image space."""
+    ss, linear_pooled = _ss_setup(scene, size)
+    cfg = scene.config
+    ex, ga, sa = (_f32(cfg.exposure, dev), _f32(cfg.gamma, dev),
+                  _f32(cfg.saturation, dev))
+
+    def prep(img):
+        if pool > 1:
+            o = size // pool
+            img = img.reshape(o, pool, o, pool, 3).mean(dim=(1, 3))
+        if normalize:
+            img = img / (torch.mean(img) + 1e-6)
+        return img
+
+    def image_loss(linear, target_prepped):
+        img = post_process_float(linear_pooled(linear), ex, ga,
+                                 sa) / const(linear, 255.0)
+        return torch.mean((prep(img) - target_prepped) ** 2)
+
+    return ss, prep, image_loss
+
+
+def _trip_bound(scenes, max_steps, fit_fields) -> int:
+    """The march's trip bound for a fit of ``scenes`` (one forward model):
+    ``max_steps``, or the largest step_bound_for_scene of them, with 2x
+    axis headroom when "axis" is fitted (the bound is fixed, but the chord
+    grows with the fitted axis)."""
+    if max_steps is not None:
+        return max_steps
+    cfg = scenes[0].config
+    bound = max(step_bound_for_scene(sc) for sc in scenes)
+    if "axis" in fit_fields:
+        max_axis = max((max(gi.galaxy.params.axis)
+                        for sc in scenes for gi in sc.instances), default=1.0)
+        bound = conservative_step_bound(cfg.ray_step, cfg.min_ray_step,
+                                        2.0 * max_axis)
+    return bound
+
+
+def _frozen_march():
+    from .tensor_march import (
+        check_frozen_fields,
+        precompute_frozen,
+        render_rays_tensor_frozen,
+    )
+
+    return check_frozen_fields, precompute_frozen, render_rays_tensor_frozen
 
 
 def fit_scene(
@@ -407,15 +529,12 @@ def fit_scene(
     ``checkpoint_path`` saves the optimizer state every
     ``checkpoint_every`` steps and resumes from it when the file exists; a
     checkpoint of a different setup is rejected. ``mesh`` (pixel-row data
-    parallelism) is not ported yet and raises.
+    parallelism) is not ported yet and raises (ROADMAP.md §1 item 2).
 
     Returns a FitResult whose scene is a deep copy with the fitted values
     written back.
     """
-    if mesh is not None:
-        raise NotImplementedError(
-            "fit_scene(mesh=...) is not ported: pixel-row data parallelism "
-            "of the fits is queued in ROADMAP.md §1")
+    _no_mesh(mesh, "fit_scene")
     dev = _device(device)
     target = np.asarray(target_image, np.float32) / 255.0
     size = target.shape[0]
@@ -426,15 +545,8 @@ def fit_scene(
             f"target size {size} != scene.config.size {scene.config.size}")
     if pool < 1 or size % pool != 0:
         raise ValueError(f"pool {pool} must divide the size {size}")
-    ss, _linear_pooled = _ss_setup(scene, size)
-
-    def _pooled(img):
-        if pool > 1:
-            o = size // pool
-            img = img.reshape(o, pool, o, pool, 3).mean(dim=(1, 3))
-        return img
-
-    target_pooled = _pooled(torch.as_tensor(target, device=dev))
+    ss, prep, image_loss = _image_model(scene, size, pool, dev)
+    target_pooled = prep(torch.as_tensor(target, device=dev))
 
     cfg = scene.config
     static, params0 = flatten_scene(scene)
@@ -444,38 +556,20 @@ def fit_scene(
         np.asarray(scene.camera.camera, np.float32), scene.camera.target,
         scene.camera.up, scene.camera.fov), dev)
     dirs = ray_grid_xla(size * ss, inv_vp)
-    if max_steps is not None:
-        trip_bound = max_steps
-    else:
-        trip_bound = step_bound_for_scene(scene)
-        if "axis" in fit_fields:
-            # the trip bound is fixed but the chord scales with the fitted
-            # axis: reserve 2x headroom
-            max_axis = max((max(gi.galaxy.params.axis)
-                            for gi in scene.instances), default=1.0)
-            trip_bound = conservative_step_bound(
-                cfg.ray_step, cfg.min_ray_step, 2.0 * max_axis)
+    trip_bound = _trip_bound([scene], max_steps, fit_fields)
     rs, ms = _f32(cfg.ray_step, dev), _f32(cfg.min_ray_step, dev)
-    ex, ga, sa = (_f32(cfg.exposure, dev), _f32(cfg.gamma, dev),
-                  _f32(cfg.saturation, dev))
 
     _check_march_fields(march, fit_fields)
     if march == "frozen":
         # the noise fields once: check_frozen_fields rejects every fitted
         # field that feeds them
-        from .tensor_march import (
-            check_frozen_fields,
-            precompute_frozen,
-            render_rays_tensor_frozen,
-        )
-
-        check_frozen_fields(static, fit_fields)
-        captures = (precompute_frozen(static, params, dirs, camera, rs, ms,
-                                      trip_bound),)
+        check_frozen, precompute, frozen_fn = _frozen_march()
+        check_frozen(static, fit_fields)
+        captures = (precompute(static, params, dirs, camera, rs, ms,
+                               trip_bound),)
 
         def march_fn(p, fz):
-            return render_rays_tensor_frozen(static, p, dirs, camera, rs, ms,
-                                             trip_bound, fz)
+            return frozen_fn(static, p, dirs, camera, rs, ms, trip_bound, fz)
     else:
         _march = _march_fn(march)
         captures = ()
@@ -484,9 +578,8 @@ def fit_scene(
             return _march(static, p, dirs, camera, rs, ms, trip_bound)
 
     def loss_fn(p, *cap):
-        linear = _linear_pooled(march_fn(p, cap[0] if cap else None))
-        img = post_process_float(linear, ex, ga, sa) / const(linear, 255.0)
-        return torch.mean((_pooled(img) - target_pooled) ** 2)
+        return image_loss(march_fn(p, cap[0] if cap else None),
+                          target_pooled)
 
     mask = _fit_mask(params, fit_fields)
     # project the start too: a field on a singular value (inner == 0)
@@ -547,7 +640,7 @@ def fit_scene_multiscale(
     all_losses: List[float] = []
     result: Optional[FitResult] = None
     base = 0
-    aborted = False
+    state = {"aborted": False}
     for s in schedule:
         s = int(s)
         while s > 1 and size % s:
@@ -557,17 +650,10 @@ def fit_scene_multiscale(
                        if s > 1 else target)
         rung_scene = dataclasses.replace(
             current, config=dataclasses.replace(current.config, size=rsize))
-        rung_cb = None
-        if on_step is not None:
-            def rung_cb(i, loss, b=base):
-                nonlocal aborted
-                r = on_step(b + i, loss)
-                if r is False:
-                    aborted = True
-                return r
         result = fit_scene(
             rung_scene, rung_target, fit_fields, steps=steps, lr=lr,
-            max_steps=max_steps, optimizer=optimizer, on_step=rung_cb,
+            max_steps=max_steps, optimizer=optimizer,
+            on_step=_block_callback(on_step, base, state),
             march=march, mesh=mesh,
             checkpoint_path=(f"{checkpoint_path}.rung{base // steps}"
                              if checkpoint_path else None),
@@ -575,13 +661,659 @@ def fit_scene_multiscale(
         current = result.scene
         all_losses.extend(result.losses)
         base += steps
-        if aborted:
+        if state["aborted"]:
             break
     final_scene = dataclasses.replace(
         result.scene, config=dataclasses.replace(result.scene.config,
                                                  size=size))
     return FitResult(scene=final_scene, params=result.params,
                      losses=all_losses, fit_fields=tuple(fit_fields))
+
+
+def _batch_losses(cfg, target: np.ndarray, pool: int, normalize: bool):
+    """The fd fits' loss of every frame of a probe batch, computed on the
+    batch's device: ``losses_of(linear (B, S, S, 3)) -> (B,)`` float64 on
+    the host, the MSE against ``target`` ((S, S, 3) in [0, 1]) after the
+    post chain, ``pool`` and, with ``normalize``, division by the mean."""
+    size = target.shape[0]
+    tprep = target
+    if pool > 1:
+        o = size // pool
+        tprep = tprep.reshape(o, pool, o, pool, 3).mean(axis=(1, 3))
+    if normalize:
+        tprep = tprep / (tprep.mean() + 1e-6)
+    knobs = {}  # the post knobs and target on the output's device
+
+    def losses_of(linear) -> np.ndarray:
+        d = linear.device
+        if d not in knobs:
+            knobs[d] = (_f32(cfg.exposure, d), _f32(cfg.gamma, d),
+                        _f32(cfg.saturation, d),
+                        torch.as_tensor(tprep, device=d))
+        ex, ga, sa, tp = knobs[d]
+        with torch.no_grad():
+            img = post_process_float(linear, ex, ga, sa) / const(linear,
+                                                                 255.0)
+            if pool > 1:
+                o = size // pool
+                img = img.reshape(-1, o, pool, o, pool, 3).mean(dim=(2, 4))
+            if normalize:
+                img = img / (torch.mean(img, dim=(1, 2, 3), keepdim=True)
+                             + 1e-6)
+            out = torch.mean((img - tp) ** 2, dim=(1, 2, 3))
+        return out.cpu().numpy().astype(np.float64)
+
+    return losses_of
+
+
+def _host_adam(g, m, v, t: int, lr: float):
+    """One step of the fd fits' host Adam: (update, m, v, t) from the
+    gradient ``g``, with float32 moments (the checkpointed state)."""
+    b1, b2, aeps = 0.9, 0.999, 1e-8
+    t += 1
+    m = (b1 * m + (1 - b1) * g).astype(np.float32)
+    v = (b2 * v + (1 - b2) * g * g).astype(np.float32)
+    upd = lr * (m / (1 - b1 ** t)) / (np.sqrt(v / (1 - b2 ** t)) + aeps)
+    return upd, m, v, t
+
+
+@dataclass
+class BatchFitResult:
+    """Outcome of fit_scene_batch: K fitted scenes and per-scene traces."""
+
+    scenes: List[Scene]     # K deep copies with fitted values written back
+    params: object          # stacked params (leading K axis), numpy
+    losses: "np.ndarray"    # (steps+1, K) per-scene loss trace
+    fit_fields: Tuple[str, ...] = ()
+
+
+def fit_scene_batch(
+    scenes,
+    target_images,
+    fit_fields: Sequence[str] = DEFAULT_FIT_FIELDS,
+    *,
+    steps: int = 100,
+    lr: float = 2e-2,
+    max_steps: Optional[int] = None,
+    optimizer=None,
+    on_step: Optional[Callable[[int, object], None]] = None,
+    march: str = "tensor",
+    pool: int = 1,
+    mesh=None,
+    checkpoint_path: Optional[str] = None,
+    checkpoint_every: int = 10,
+    device="cuda",
+) -> BatchFitResult:
+    """Fit K independent scenes to K targets in one optimization, on
+    ``device``: parameters gain a leading K axis, the loss is the (K,)
+    vector of per-scene losses, gradients descend its sum (whose gradient
+    in scene k's leaves is scene k's own), Adam runs elementwise and the
+    best iterate is kept per scene. Each scene's trajectory is the one its
+    standalone fit_scene gives: the forward model loops over the K scenes,
+    each slicing its leaves out of the stacked ones, so scene k's graph is
+    exactly fit_scene's (K times the launches of one fit).
+
+    ``scenes``: one template Scene (every fit starts from the same values;
+    with march='frozen' one noise field set then serves all K) or K Scenes
+    of one structure, camera pose and render config (each starts from its
+    own values and gets its own frozen fields). ``target_images``: (K, N,
+    N, 3) in [0, 255]. ``on_step(i, losses)`` sees the (K,) losses.
+    ``mesh`` (the batch axis over devices) is not ported yet and raises
+    (ROADMAP.md §1 item 2). Checkpoints resume the whole batch bit for
+    bit."""
+    _no_mesh(mesh, "fit_scene_batch")
+    dev = _device(device)
+    if hasattr(scenes, "instances"):
+        scene_list = None
+        template = scenes
+    else:
+        scene_list = list(scenes)
+        if not scene_list:
+            raise ValueError("fit_scene_batch needs at least one scene")
+        template = scene_list[0]
+
+    targets = np.asarray(target_images, np.float32)
+    if targets.ndim != 4 or targets.shape[-1] != 3 \
+            or targets.shape[1] != targets.shape[2]:
+        raise ValueError(
+            f"target_images must be (K, N, N, 3), got {targets.shape}")
+    K = targets.shape[0]
+    size = targets.shape[1]
+    if size != template.config.size:
+        raise ValueError(
+            f"target size {size} != scene.config.size {template.config.size}")
+    if scene_list is not None and len(scene_list) != K:
+        raise ValueError(
+            f"{len(scene_list)} scenes but {K} targets")
+    if pool < 1 or size % pool != 0:
+        raise ValueError(f"pool {pool} must divide the size {size}")
+    ss, prep, image_loss = _image_model(template, size, pool, dev)
+    _check_march_fields(march, fit_fields)
+
+    cfg = template.config
+    static, params0 = flatten_scene(template)
+    if scene_list is None:
+        stacked = tree_map(lambda leaf: np.repeat(np.asarray(leaf)[None], K,
+                                                  axis=0), params0)
+    else:
+        flats = []
+        for k, sc in enumerate(scene_list):
+            st_k, p_k = flatten_scene(sc)
+            if st_k != static:
+                raise ValueError(
+                    f"scene {k} has a different compiled structure than "
+                    f"scene 0 — fit_scene_batch requires one structure "
+                    f"(same components/arms/LOD/dither) across the batch")
+            cam, cam0 = sc.camera, template.camera
+            if (tuple(cam.camera) != tuple(cam0.camera)
+                    or tuple(cam.target) != tuple(cam0.target)
+                    or tuple(cam.up) != tuple(cam0.up)
+                    or cam.fov != cam0.fov):
+                raise ValueError(
+                    f"scene {k} has a different camera pose — the batch "
+                    f"shares one ray grid; fit poses with fit_pose")
+            for fld in ("size", "ray_step", "min_ray_step", "exposure",
+                        "gamma", "saturation", "supersample"):
+                if getattr(sc.config, fld) != getattr(template.config, fld):
+                    raise ValueError(
+                        f"scene {k} has config.{fld}="
+                        f"{getattr(sc.config, fld)!r} but scene 0 has "
+                        f"{getattr(template.config, fld)!r} — the batch "
+                        f"shares ONE forward model (ray grid, march step, "
+                        f"post chain), so render configs must match")
+            flats.append(p_k)
+        stacked = tree_map(lambda *leaves: np.stack([np.asarray(v)
+                                                     for v in leaves]),
+                           *flats)
+    params = params_to_torch(stacked, dev)
+    # per-scene pooled targets: scene k's is the one its fit_scene pools
+    targets_pooled = [prep(torch.as_tensor(targets[k] / 255.0, device=dev))
+                      for k in range(K)]
+
+    camera = _f32(template.camera.camera, dev)
+    inv_vp = _f32(inv_view_projection(
+        np.asarray(template.camera.camera, np.float32),
+        template.camera.target, template.camera.up, template.camera.fov),
+        dev)
+    dirs = ray_grid_xla(size * ss, inv_vp)
+    # the bound over EVERY scene's geometry: a member whose axes exceed the
+    # template's would otherwise march with too few trips
+    trip_bound = _trip_bound(scene_list or [template], max_steps, fit_fields)
+    rs, ms = _f32(cfg.ray_step, dev), _f32(cfg.min_ray_step, dev)
+
+    def scene_k(p, k):
+        return tree_map(lambda leaf: leaf[k], p)
+
+    if march == "frozen":
+        check_frozen, precompute, frozen_fn = _frozen_march()
+        check_frozen(static, fit_fields)
+        if scene_list is None:
+            # one template: the K starts are equal, so ONE field set serves
+            # every scene instead of K x the precompute memory
+            shared = precompute(static, params_to_torch(params0, dev), dirs,
+                                camera, rs, ms, trip_bound)
+            captures = ((shared,) * K,)
+        else:
+            # the fields depend on each scene's starting values
+            captures = (tuple(precompute(static, scene_k(params, k), dirs,
+                                         camera, rs, ms, trip_bound)
+                              for k in range(K)),)
+
+        def march_scene(p, fz):
+            return frozen_fn(static, p, dirs, camera, rs, ms, trip_bound, fz)
+    else:
+        _march = _march_fn(march)
+        captures = ()
+
+        def march_scene(p, fz):
+            return _march(static, p, dirs, camera, rs, ms, trip_bound)
+
+    def loss_fn(p, *cap):
+        return torch.stack([
+            image_loss(march_scene(scene_k(p, k), cap[0][k] if cap else None),
+                       targets_pooled[k])
+            for k in range(K)])
+
+    mask = _fit_mask(params, fit_fields)
+    params = _project_bounds(params, fit_fields)
+    best_params, losses = _optimize(
+        loss_fn, params, mask, steps=steps, lr=lr, optimizer=optimizer,
+        on_step=on_step,
+        project_fn=lambda p: _project_bounds(p, fit_fields),
+        checkpoint_path=checkpoint_path, checkpoint_every=checkpoint_every,
+        fingerprint=_fit_fingerprint(
+            "batch", fit_fields, lr, march, size, params, targets,
+            extra=(f"pool{pool}|lod{cfg.noise_octaves}|K{K}"
+                   + (f"|ss{ss}" if ss > 1 else "")),
+            aux=(template.camera.camera, template.camera.target,
+                 template.camera.up, template.camera.fov, cfg.ray_step,
+                 cfg.min_ray_step, cfg.exposure, cfg.gamma, cfg.saturation,
+                 trip_bound)),
+        batch=K,
+        captures=captures,
+    )
+    fitted = tree_map(_to_numpy, best_params)
+    base_scenes = scene_list if scene_list is not None else [template] * K
+    return BatchFitResult(
+        scenes=[apply_fit_to_scene(base_scenes[k],
+                                   tree_map(lambda leaf: leaf[k], fitted),
+                                   fit_fields) for k in range(K)],
+        params=fitted,
+        losses=np.stack([np.asarray(v) for v in losses]),
+        fit_fields=tuple(fit_fields),
+    )
+
+
+def fit_scene_multiview(
+    scene: Scene,
+    targets,
+    cameras: Sequence,
+    fit_fields: Sequence[str] = DEFAULT_FIT_FIELDS,
+    *,
+    steps: int = 100,
+    lr: float = 2e-2,
+    max_steps: Optional[int] = None,
+    optimizer=None,
+    on_step: Optional[Callable[[int, float], None]] = None,
+    pool: int = 1,
+    march: str = "tensor",
+    mesh=None,
+    checkpoint_path: Optional[str] = None,
+    checkpoint_every: int = 10,
+    device="cuda",
+) -> FitResult:
+    """Fit ONE galaxy's parameters against K views of it at once, on
+    ``device``. ``targets``: (K, size, size, 3) renders of the galaxy from
+    the K known poses ``cameras`` (CameraParams, held fixed). The loss is
+    the mean of the per-view MSEs, so gradients triangulate the 3-D
+    structure that one view cannot separate (a thicker disk from a
+    brighter one). The forward model loops over the views, each with its
+    own ray grid and camera origin (and with march='frozen' its own noise
+    fields). The scene's own camera is not a view unless passed in
+    ``cameras``. ``pool``, ``march`` and checkpoints are as in fit_scene;
+    ``mesh`` (the view axis over devices) is not ported yet and raises
+    (ROADMAP.md §1 item 2)."""
+    _no_mesh(mesh, "fit_scene_multiview")
+    dev = _device(device)
+    targets = np.asarray(targets, np.float32) / 255.0
+    size = int(scene.config.size)
+    if targets.ndim != 4 or targets.shape[1:] != (size, size, 3):
+        raise ValueError(
+            f"targets must be (K, {size}, {size}, 3), got {targets.shape}")
+    K = int(targets.shape[0])
+    cameras = list(cameras)
+    if len(cameras) != K:
+        raise ValueError(
+            f"{K} target views but {len(cameras)} cameras")
+    if pool < 1 or size % pool != 0:
+        raise ValueError(f"pool {pool} must divide the size {size}")
+    ss, prep, image_loss = _image_model(scene, size, pool, dev)
+    targets_pooled = [prep(torch.as_tensor(targets[v], device=dev))
+                      for v in range(K)]
+
+    cfg = scene.config
+    static, params0 = flatten_scene(scene)
+    params = params_to_torch(params0, dev)
+    inv_vps = inv_view_projection_batch(
+        np.asarray([c.camera for c in cameras], np.float32),
+        np.asarray([c.target for c in cameras], np.float32),
+        np.asarray([c.up for c in cameras], np.float32),
+        np.asarray([c.fov for c in cameras], np.float32))
+    dirs = [ray_grid_xla(size * ss, _f32(m, dev)) for m in inv_vps]
+    cam_pos = [_f32(c.camera, dev) for c in cameras]
+    trip_bound = _trip_bound([scene], max_steps, fit_fields)
+    rs, ms = _f32(cfg.ray_step, dev), _f32(cfg.min_ray_step, dev)
+
+    _check_march_fields(march, fit_fields)
+    if march == "frozen":
+        # per-view frozen noise: each view has its own rays and origin
+        check_frozen, precompute, frozen_fn = _frozen_march()
+        check_frozen(static, fit_fields)
+        captures = (tuple(precompute(static, params, dirs[v], cam_pos[v], rs,
+                                     ms, trip_bound) for v in range(K)),)
+
+        def march_view(p, v, fz):
+            return frozen_fn(static, p, dirs[v], cam_pos[v], rs, ms,
+                             trip_bound, fz)
+    else:
+        _march = _march_fn(march)
+        captures = ()
+
+        def march_view(p, v, fz):
+            return _march(static, p, dirs[v], cam_pos[v], rs, ms, trip_bound)
+
+    def loss_fn(p, *cap):
+        return torch.mean(torch.stack([
+            image_loss(march_view(p, v, cap[0][v] if cap else None),
+                       targets_pooled[v])
+            for v in range(K)]))
+
+    mask = _fit_mask(params, fit_fields)
+    params = _project_bounds(params, fit_fields)
+    best_params, losses = _optimize(
+        loss_fn, params, mask, steps=steps, lr=lr, optimizer=optimizer,
+        on_step=on_step,
+        project_fn=lambda p: _project_bounds(p, fit_fields),
+        checkpoint_path=checkpoint_path, checkpoint_every=checkpoint_every,
+        fingerprint=_fit_fingerprint(
+            "mview", fit_fields, lr, march, size, params, targets,
+            extra=(f"pool{pool}|lod{cfg.noise_octaves}|K{K}"
+                   + (f"|ss{ss}" if ss > 1 else "")),
+            aux=(tuple((c.camera, c.target, c.up, c.fov) for c in cameras),
+                 cfg.ray_step, cfg.min_ray_step, cfg.exposure, cfg.gamma,
+                 cfg.saturation, trip_bound)),
+        captures=captures,
+    )
+    fitted = tree_map(_to_numpy, best_params)
+    return FitResult(scene=apply_fit_to_scene(scene, fitted, fit_fields),
+                     params=fitted, losses=losses,
+                     fit_fields=tuple(fit_fields))
+
+
+POSE_FITTABLE = ("camera", "target", "fov")
+
+
+def _check_pose_fields(fit_fields) -> set:
+    wanted = set(fit_fields)
+    unknown = wanted - set(POSE_FITTABLE)
+    if unknown:
+        raise ValueError(
+            f"unknown pose fields {sorted(unknown)}; "
+            f"fittable: {POSE_FITTABLE}")
+    return wanted
+
+
+def _posed(scene, pose) -> Scene:
+    """A deep copy of ``scene`` with the camera, target and fov of the pose
+    dict ``pose`` (the up vector is kept)."""
+    new_scene = copy.deepcopy(scene)
+    new_scene.camera.camera = tuple(float(v) for v in pose["camera"])
+    new_scene.camera.target = tuple(float(v) for v in pose["target"])
+    new_scene.camera.fov = float(pose["fov"])
+    return new_scene
+
+
+def fit_pose(
+    scene: Scene,
+    target_image,
+    fit_fields: Sequence[str] = ("camera", "target"),
+    *,
+    steps: int = 100,
+    lr: float = 2e-2,
+    max_steps: Optional[int] = None,
+    optimizer=None,
+    on_step: Optional[Callable[[int, float], None]] = None,
+    normalize: bool = True,
+    pool: int = 1,
+    march: str = "tensor",
+    mesh=None,
+    checkpoint_path: Optional[str] = None,
+    checkpoint_every: int = 10,
+    device="cuda",
+) -> FitResult:
+    """Refine the camera pose toward the one that produced ``target_image``,
+    on ``device``, holding the galaxy fixed.
+
+    The whole camera chain is differentiable
+    (``ops.camera.inv_view_projection_tensor`` and ``ray_grid_xla``), so
+    gradients flow target pixels -> post -> march -> ray grid -> view
+    matrix -> camera / target / fov; the 4x4 chain runs on the host on
+    every device, so a pose fit's loss at a pose is fit_scene's bit for
+    bit. The up vector stays fixed. Returns a
+    FitResult whose scene carries the fitted camera; ``params`` is the
+    fitted pose dict. ``march`` is 'tensor' or 'scan': a pose moves every
+    noise input, so 'frozen' is rejected.
+
+    Local refinement, with two cautions: full-octave noise decorrelates
+    under millimetre camera moves, so fit at a noise LOD
+    (``scene.config.noise_octaves`` of 2-4; fit_pose_multiscale and
+    fit_pose_fd need none); and fov and camera distance trade against each
+    other (dolly zoom), so fit ("camera",) alone when fov is known.
+    ``normalize`` (default on) compares mean-normalized images, so a
+    brightness offset between an LOD render and a full-quality target does
+    not pull the pose; ``pool`` box-averages both images first.
+    Checkpoints resume bit for bit; ``mesh`` (pixel rows over devices) is
+    not ported yet and raises (ROADMAP.md §1 item 2).
+    """
+    _no_mesh(mesh, "fit_pose")
+    wanted = _check_pose_fields(fit_fields)
+    dev = _device(device)
+    target = np.asarray(target_image, np.float32) / 255.0
+    size = target.shape[0]
+    if target.shape != (size, size, 3) or size != scene.config.size:
+        raise ValueError(
+            f"target must be ({scene.config.size}, {scene.config.size}, 3), "
+            f"got {target.shape}")
+    if pool < 1 or size % pool != 0:
+        raise ValueError(f"pool {pool} must divide the size {size}")
+    ss, prep, image_loss = _image_model(scene, size, pool, dev, normalize)
+    target_prepped = prep(torch.as_tensor(target, device=dev))
+
+    cfg = scene.config
+    static, gal_params = flatten_scene(scene)
+    gal = params_to_torch(gal_params, dev)
+    host = torch.device("cpu")
+    up = _f32(scene.camera.up, host)
+    pose = {"camera": _f32(scene.camera.camera, dev),
+            "target": _f32(scene.camera.target, dev),
+            "fov": _f32(scene.camera.fov, dev)}
+    trip_bound = (max_steps if max_steps is not None
+                  else step_bound_for_scene(scene))
+    rs, ms = _f32(cfg.ray_step, dev), _f32(cfg.min_ray_step, dev)
+    march_fn = _march_fn(march)
+
+    def loss_fn(p):
+        # the 4x4 chain runs on the host, as fit_scene's host matrix does,
+        # so a pose fit sees the same bits on the card as fit_scene; the
+        # gradient crosses the copies
+        inv_vp = inv_view_projection_tensor(
+            p["camera"].to(host), p["target"].to(host), up,
+            p["fov"].to(host)).to(dev)
+        dirs = ray_grid_xla(size * ss, inv_vp)
+        return image_loss(march_fn(static, gal, dirs, p["camera"], rs, ms,
+                                   trip_bound), target_prepped)
+
+    mask = {k: 1.0 if k in wanted else 0.0 for k in pose}
+
+    def project(p):
+        # constrain only fitted fields: clipping an unfitted fov would move
+        # a parameter the caller asked to hold
+        if "fov" in wanted:
+            p = dict(p, fov=torch.clamp(p["fov"], 5.0, 170.0))
+        return p
+
+    best_pose, losses = _optimize(
+        loss_fn, pose, mask, steps=steps, lr=lr, optimizer=optimizer,
+        on_step=on_step, project_fn=project,
+        checkpoint_path=checkpoint_path, checkpoint_every=checkpoint_every,
+        fingerprint=_fit_fingerprint(
+            "pose", fit_fields, lr, march, size,
+            # the held galaxy IS the pose loss surface: a checkpoint of
+            # another .gax must not resume
+            {"pose": pose, "galaxy": gal_params}, target,
+            extra=(f"pool{pool}|lod{cfg.noise_octaves}"
+                   f"|norm{int(normalize)}"
+                   + (f"|ss{ss}" if ss > 1 else "")),
+            aux=(scene.camera.up, cfg.ray_step, cfg.min_ray_step,
+                 cfg.exposure, cfg.gamma, cfg.saturation, trip_bound)),
+    )
+    fitted = tree_map(_to_numpy, best_pose)
+    return FitResult(scene=_posed(scene, fitted), params=fitted,
+                     losses=losses, fit_fields=tuple(fit_fields))
+
+
+def fit_pose_fd(
+    scene: Scene,
+    target_image,
+    fit_fields: Sequence[str] = ("camera",),
+    *,
+    steps: int = 60,
+    lr: float = 1e-2,
+    eps: float = 1.0,
+    on_step: Optional[Callable[[int, float], None]] = None,
+    normalize: bool = True,
+    pool: int = 1,
+    mesh=None,
+    checkpoint_path: Optional[str] = None,
+    checkpoint_every: int = 10,
+    device="cuda",
+) -> FitResult:
+    """Pose refinement by central differences through the march kernel, on
+    ``device`` (or with its probe frames spread over ``mesh``).
+
+    Every fitted pose scalar is probed at +-eps where eps is ONE PIXEL of
+    image motion (``eps`` scales it): far above the noise correlation
+    length, so the difference reads the slope of the structure's alignment
+    rather than the noise, at full octaves and with no differentiable
+    march. The current pose and its 2K probes render as one
+    ``render_batch_linear`` call (one K4 launch on the card: 7 frames for
+    the camera alone); their losses are computed on the device and only
+    the 2K+1 numbers come back. Host Adam (float32 moments, float64 pose
+    scalars) steps with relative steps max(|θ0|, 0.1). Checkpoints resume
+    bit for bit (the moments are in the file).
+    """
+    from .batch import render_batch_linear
+
+    wanted = _check_pose_fields(fit_fields)
+    dev = _device(device) if mesh is None else None
+    target = np.asarray(target_image, np.float32) / 255.0
+    size = target.shape[0]
+    if target.shape != (size, size, 3) or size != scene.config.size:
+        raise ValueError(
+            f"target must be ({scene.config.size}, {scene.config.size}, 3), "
+            f"got {target.shape}")
+    if pool < 1 or size % pool != 0:
+        raise ValueError(f"pool {pool} must divide the size {size}")
+
+    cfg = scene.config
+    # all persisted state is float32, which the checkpoint round-trips
+    # exactly, so a resumed run replays the uninterrupted one bit for bit
+    pose = {
+        "camera": np.asarray(scene.camera.camera, np.float32),
+        "target": np.asarray(scene.camera.target, np.float32),
+        "fov": np.asarray(float(scene.camera.fov), np.float32),
+    }
+    # a fixed probe order: the fingerprint and the gradient layout key on it
+    dims = [(f_, i) for f_, n in (("camera", 3), ("target", 3), ("fov", 1))
+            if f_ in wanted for i in range(n)]
+    K = len(dims)
+
+    # eps = one pixel of image motion: a transverse move of
+    # dist * (2 tan(fov/2) / size) for positions, 2 * (2 tan(fov/2) / size)
+    # of field angle for fov (one pixel of edge zoom)
+    dist = float(np.linalg.norm(pose["camera"] - pose["target"]))
+    px_angle = 2.0 * math.tan(math.radians(float(pose["fov"])) / 2.0) / size
+    eps_pos = float(eps) * max(dist, 1e-3) * px_angle
+    eps_fov = float(eps) * math.degrees(2.0 * px_angle)
+
+    def _eps(field_name: str) -> float:
+        return eps_fov if field_name == "fov" else eps_pos
+
+    losses_of = _batch_losses(cfg, target, pool, normalize)
+
+    def probe_scenes(p):
+        cams = [p]
+        for field_name, i in dims:
+            for sgn in (1.0, -1.0):
+                q = {k: v.copy() for k, v in p.items()}
+                if field_name == "fov":
+                    q["fov"] = q["fov"] + sgn * eps_fov
+                else:
+                    q[field_name][i] += sgn * eps_pos
+                cams.append(q)
+        return [dataclasses.replace(scene, camera=dataclasses.replace(
+            scene.camera,
+            camera=tuple(float(v) for v in q["camera"]),
+            target=tuple(float(v) for v in q["target"]),
+            fov=float(q["fov"]))) for q in cams]
+
+    def render(p):
+        return losses_of(render_batch_linear(probe_scenes(p), device=dev,
+                                             mesh=mesh))
+
+    def project(p):
+        if "fov" in wanted:
+            p["fov"] = np.asarray(np.clip(p["fov"], 5.0, 170.0), np.float32)
+        return p
+
+    def _theta(p):
+        return np.array([float(p[f_]) if f_ == "fov" else p[f_][i]
+                         for f_, i in dims], np.float64)
+
+    # host Adam with relative steps (pose scalars span ~0.01..90)
+    rel = np.maximum(np.abs(_theta(pose)), 0.1)
+    m = np.zeros(K, np.float32)
+    v = np.zeros(K, np.float32)
+    t = 0
+
+    _, gal_params = flatten_scene(scene)
+    fingerprint = _fit_fingerprint(
+        "posefd", fit_fields, lr, "fd", size,
+        {"pose": pose, "galaxy": gal_params}, target,
+        extra=(f"pool{pool}|norm{int(normalize)}"
+               f"|eps{eps_pos:g},{eps_fov:g}|ss{cfg.supersample}"),
+        aux=(scene.camera.up, cfg.ray_step, cfg.min_ray_step,
+             cfg.exposure, cfg.gamma, cfg.saturation))
+
+    losses: List[float] = []
+    best_loss = np.inf
+    best_pose = {k: np.asarray(v_).copy() for k, v_ in pose.items()}
+    start = 0
+    if checkpoint_path:
+        resumed = _ckpt_load(checkpoint_path, fingerprint, pose,
+                             {"m": m, "t": np.int64(t), "v": v}, best_pose)
+        if resumed is not None:
+            start, pose_j, opt_j, losses, bl, best_j = resumed
+            pose = {k: np.array(v_, np.float32) for k, v_ in pose_j.items()}
+            m = np.array(opt_j["m"], np.float32)
+            v = np.array(opt_j["v"], np.float32)
+            t = int(opt_j["t"])
+            best_loss = float(bl)
+            best_pose = {k: np.array(v_, np.float32)
+                         for k, v_ in best_j.items()}
+            if start > steps:
+                raise ValueError(
+                    f"checkpoint {checkpoint_path} already holds {start} "
+                    f"steps but only {steps} were requested — increase "
+                    f"steps to extend the run, or delete the checkpoint "
+                    f"to start over")
+
+    aborted = False
+    for i in range(start, steps):
+        L = render(pose)
+        losses.append(float(L[0]))
+        if L[0] < best_loss:
+            best_loss = float(L[0])
+            best_pose = {k: v_.copy() for k, v_ in pose.items()}
+        g = np.array([(L[1 + 2 * k] - L[2 + 2 * k]) / (2.0 * _eps(dims[k][0]))
+                      for k in range(K)])
+        g = np.nan_to_num(g)
+        upd, m, v, t = _host_adam(g, m, v, t, lr)
+        theta = _theta(pose) - upd * rel
+        for k, (f_, ax) in enumerate(dims):
+            if f_ == "fov":
+                pose["fov"] = np.asarray(theta[k], np.float32)
+            else:
+                pose[f_][ax] = np.float32(theta[k])
+        pose = project(pose)
+        if checkpoint_path and ((i + 1) % max(1, checkpoint_every) == 0
+                                or i + 1 == steps):
+            _ckpt_save(checkpoint_path, fingerprint, i + 1, pose,
+                       {"m": m, "t": np.int64(t), "v": v}, losses,
+                       best_loss, best_pose)
+        if on_step is not None and on_step(i, losses[-1]) is False:
+            aborted = True
+            break
+    if not aborted:
+        # the last iterate's loss, from a batch of the same shape
+        L = render(pose)
+        losses.append(float(L[0]))
+        if L[0] < best_loss:
+            best_pose = {k: v_.copy() for k, v_ in pose.items()}
+
+    fitted = {k: np.asarray(v_, np.float32) for k, v_ in best_pose.items()}
+    return FitResult(scene=_posed(scene, fitted), params=fitted,
+                     losses=losses, fit_fields=tuple(fit_fields))
 
 
 # vector-valued fittable leaves and their lengths (every other is a scalar)
@@ -721,33 +1453,7 @@ def fit_scene_fd(
             _set(p, d, v)
         return p
 
-    # the loss of every frame of a batch, on the device
-    tprep = target
-    if pool > 1:
-        o = size // pool
-        tprep = tprep.reshape(o, pool, o, pool, 3).mean(axis=(1, 3))
-    if normalize:
-        tprep = tprep / (tprep.mean() + 1e-6)
-    knobs = {}  # the post knobs and target on the output's device
-
-    def losses_of(linear) -> np.ndarray:
-        d = linear.device
-        if d not in knobs:
-            knobs[d] = (_f32(cfg.exposure, d), _f32(cfg.gamma, d),
-                        _f32(cfg.saturation, d),
-                        torch.as_tensor(tprep, device=d))
-        ex, ga, sa, tp = knobs[d]
-        with torch.no_grad():
-            img = post_process_float(linear, ex, ga, sa) / const(linear,
-                                                                 255.0)
-            if pool > 1:
-                o = size // pool
-                img = img.reshape(-1, o, pool, o, pool, 3).mean(dim=(2, 4))
-            if normalize:
-                img = img / (torch.mean(img, dim=(1, 2, 3), keepdim=True)
-                             + 1e-6)
-            out = torch.mean((img - tp) ** 2, dim=(1, 2, 3))
-        return out.cpu().numpy().astype(np.float64)
+    losses_of = _batch_losses(cfg, target, pool, normalize)
 
     def render(scenes):
         return losses_of(render_batch_linear(scenes, device=dev, mesh=mesh))
@@ -776,7 +1482,6 @@ def fit_scene_fd(
     m = np.zeros(K, np.float32)
     v = np.zeros(K, np.float32)
     t = 0
-    b1, b2, aeps = 0.9, 0.999, 1e-8
 
     fingerprint = _fit_fingerprint(
         "scenefd", fit_fields, lr, "fd", size, params0, target,
@@ -877,10 +1582,7 @@ def fit_scene_fd(
         with np.errstate(divide="ignore", invalid="ignore"):
             g = np.where(spreads > 0, (L[1::2] - L[2::2]) / spreads, 0.0)
         g = np.nan_to_num(g)
-        t += 1
-        m = (b1 * m + (1 - b1) * g).astype(np.float32)
-        v = (b2 * v + (1 - b2) * g * g).astype(np.float32)
-        upd = lr * (m / (1 - b1 ** t)) / (np.sqrt(v / (1 - b2 ** t)) + aeps)
+        upd, m, v, t = _host_adam(g, m, v, t, lr)
         theta = theta - upd * rel
         theta = np.array([_clamp(d, th) for d, th in zip(dims, theta)],
                          np.float64)
@@ -905,6 +1607,274 @@ def fit_scene_fd(
     return FitResult(scene=apply_fit_to_scene(scene, fitted, fit_fields),
                      params=fitted, losses=losses,
                      fit_fields=tuple(fit_fields))
+
+
+# (noise LOD, loss pool) rungs of the default pose ladder: coarse noise and
+# a pooled loss first (a wide, smooth basin), then sharper rungs; LOD 0 is
+# the exact full-octave rung
+DEFAULT_POSE_SCHEDULE = ((3, 4), (5, 2), (0, 1))
+
+
+def fit_pose_multiscale(
+    scene: Scene,
+    target_image,
+    fit_fields: Sequence[str] = ("camera",),
+    *,
+    steps: int = 40,
+    lr: float = 1e-2,
+    schedule: Sequence[Tuple[int, int]] = DEFAULT_POSE_SCHEDULE,
+    max_steps: Optional[int] = None,
+    optimizer=None,
+    on_step: Optional[Callable[[int, float], None]] = None,
+    normalize: bool = True,
+    march: str = "tensor",
+    mesh=None,
+    checkpoint_path: Optional[str] = None,
+    checkpoint_every: int = 10,
+    device="cuda",
+) -> FitResult:
+    """fit_pose down a ladder of (noise LOD, loss pool) rungs, in one call,
+    each rung starting from the previous rung's pose: coarse, pooled rungs
+    align the gross structure across large displacements, the exact rung
+    (LOD 0) removes the LOD's bias. ``steps`` applies per rung, and each
+    rung has its own checkpoint file (``<checkpoint_path>.rung<n>``);
+    ``on_step`` sees a global step index, and an abort inside a rung stops
+    the ladder. The returned scene keeps the caller's noise_octaves. CLI:
+    ``fitpose ... multiscale``."""
+    _no_mesh(mesh, "fit_pose_multiscale")
+    if not schedule:
+        raise ValueError("schedule must have at least one (lod, pool) rung")
+    size = int(scene.config.size)
+    current = scene
+    all_losses: List[float] = []
+    result: Optional[FitResult] = None
+    base = 0
+    state = {"aborted": False}
+    for lod, pool in schedule:
+        pool = int(pool)
+        while pool > 1 and size % pool:
+            pool -= 1  # the pool must divide the frame
+        # LOD 0 in a schedule is the exact rung: noise_octaves=None
+        rung_scene = dataclasses.replace(
+            current, config=dataclasses.replace(
+                current.config,
+                noise_octaves=int(lod) if int(lod) >= 1 else None))
+        result = fit_pose(
+            rung_scene, target_image, fit_fields, steps=steps, lr=lr,
+            max_steps=max_steps, optimizer=optimizer,
+            on_step=_block_callback(on_step, base, state),
+            normalize=normalize, pool=pool, march=march,
+            # a finished rung's file already holds step == steps, so a
+            # restarted ladder skips it
+            checkpoint_path=(f"{checkpoint_path}.rung{base // steps}"
+                             if checkpoint_path else None),
+            checkpoint_every=checkpoint_every, device=device)
+        current = result.scene
+        all_losses.extend(result.losses)
+        base += steps
+        if state["aborted"]:
+            break
+    final_scene = dataclasses.replace(
+        result.scene, config=dataclasses.replace(
+            result.scene.config, noise_octaves=scene.config.noise_octaves))
+    return FitResult(scene=final_scene, params=result.params,
+                     losses=all_losses, fit_fields=tuple(fit_fields))
+
+
+def fit_joint(
+    scene: Scene,
+    target_image,
+    scene_fields: Sequence[str] = DEFAULT_FIT_FIELDS,
+    *,
+    rounds: int = 2,
+    pose_steps: int = 30,
+    scene_steps: int = 60,
+    pose_lr: float = 1e-2,
+    scene_lr: float = 2e-2,
+    pose_schedule: Sequence[Tuple[int, int]] = DEFAULT_POSE_SCHEDULE,
+    pose_method: str = "multiscale",
+    march: str = "frozen",
+    optimizer=None,
+    on_step: Optional[Callable[[int, float], None]] = None,
+    normalize: bool = True,
+    mesh=None,
+    checkpoint_path: Optional[str] = None,
+    checkpoint_every: int = 10,
+    device="cuda",
+) -> FitResult:
+    """An unknown camera AND unknown galaxy parameters, in one call, on
+    ``device``: block-coordinate descent. Each round runs (a) a pose block
+    holding the galaxy, fit_pose_multiscale over ``pose_schedule``
+    (``pose_method='multiscale'``) or one fit_pose_fd run through the
+    march kernel (``'fd'``), with ``normalize`` making it blind to the
+    not-yet-fitted brightness; then (b) fit_scene at the fitted pose,
+    holding it (``march='frozen'`` is valid inside the block, whose camera
+    is fixed; the fields are frozen anew each round). A truly joint
+    gradient step is ill-conditioned: pose gradients need a noise LOD,
+    brightness gradients are biased at one.
+
+    ``on_step(i, loss)`` sees a global index over rounds * (pose block +
+    scene_steps) steps and may return False to stop every later block.
+    ``checkpoint_path`` writes per-block files (``.r<k>.pose``,
+    ``.r<k>.scene``); a finished block is skipped on restart. Returns a
+    FitResult whose scene carries both fits and whose ``params`` is
+    {"pose": pose dict, "scene": params}. ``mesh`` is not ported yet and
+    raises (ROADMAP.md §1 item 2)."""
+    _no_mesh(mesh, "fit_joint")
+    if rounds < 1:
+        raise ValueError(f"rounds must be >= 1, got {rounds}")
+    if pose_method not in ("multiscale", "fd"):
+        raise ValueError(
+            f"unknown pose_method {pose_method!r}; use 'multiscale' or 'fd'")
+    _check_march_fields(march if march != "frozen" else "tensor",
+                        scene_fields)  # frozen is checked per block
+    pose_block = (pose_steps * len(pose_schedule)
+                  if pose_method == "multiscale" else pose_steps)
+    current = scene
+    all_losses: List[float] = []
+    pose_params = None
+    scene_params = None
+    base = 0
+    state = {"aborted": False}
+    for r in range(rounds):
+        pose_ckpt = f"{checkpoint_path}.r{r}.pose" if checkpoint_path else None
+        if pose_method == "fd":
+            pres = fit_pose_fd(
+                current, target_image, ("camera",), steps=pose_steps,
+                lr=pose_lr, on_step=_block_callback(on_step, base, state),
+                normalize=normalize, checkpoint_path=pose_ckpt,
+                checkpoint_every=checkpoint_every, device=device)
+        else:
+            pres = fit_pose_multiscale(
+                current, target_image, ("camera",), steps=pose_steps,
+                lr=pose_lr, schedule=pose_schedule, optimizer=optimizer,
+                on_step=_block_callback(on_step, base, state),
+                normalize=normalize, march="tensor",
+                checkpoint_path=pose_ckpt,
+                checkpoint_every=checkpoint_every, device=device)
+        current = pres.scene
+        pose_params = pres.params
+        all_losses.extend(pres.losses)
+        base += pose_block
+        if state["aborted"]:
+            break
+        sres = fit_scene(
+            current, target_image, scene_fields, steps=scene_steps,
+            lr=scene_lr, optimizer=optimizer,
+            on_step=_block_callback(on_step, base, state), march=march,
+            checkpoint_path=(f"{checkpoint_path}.r{r}.scene"
+                             if checkpoint_path else None),
+            checkpoint_every=checkpoint_every, device=device)
+        current = sres.scene
+        scene_params = sres.params
+        all_losses.extend(sres.losses)
+        base += scene_steps
+        if state["aborted"]:
+            break
+    return FitResult(
+        scene=current,
+        params={"pose": pose_params, "scene": scene_params},
+        losses=all_losses,
+        fit_fields=("camera",) + tuple(scene_fields),
+    )
+
+
+@dataclass
+class JointMultiviewResult:
+    """Outcome of fit_joint_multiview: the fitted scene and the per-view
+    cameras."""
+
+    scene: Scene                # fitted galaxy (the scene's own camera)
+    cameras: List               # fitted per-view CameraParams
+    params: object              # {"poses": [...], "scene": params}
+    losses: List[float] = field(default_factory=list)
+    fit_fields: Tuple[str, ...] = ()
+
+
+def fit_joint_multiview(
+    scene: Scene,
+    targets,
+    cameras: Sequence,
+    scene_fields: Sequence[str] = DEFAULT_FIT_FIELDS,
+    *,
+    rounds: int = 2,
+    pose_steps: int = 30,
+    scene_steps: int = 60,
+    pose_lr: float = 1e-2,
+    scene_lr: float = 2e-2,
+    march: str = "frozen",
+    on_step: Optional[Callable[[int, float], None]] = None,
+    normalize: bool = True,
+    mesh=None,
+    checkpoint_path: Optional[str] = None,
+    checkpoint_every: int = 10,
+    device="cuda",
+) -> JointMultiviewResult:
+    """K views with unknown per-view cameras AND shared unknown galaxy
+    parameters, in one call, on ``device``. Each round refines every
+    view's camera by one fit_pose_fd run against its own target (K4 probe
+    launches, galaxy held), then fits the galaxy by one
+    fit_scene_multiview block at the K refined poses (``march='frozen'``
+    is valid there; the fields are frozen anew each round). ``cameras``
+    are the K starting guesses, each within fit_pose_fd's secant basin
+    (tens of pixels of image motion); ``targets`` is (K, size, size, 3).
+    ``on_step`` sees a global index over rounds * (K * pose_steps +
+    scene_steps); ``checkpoint_path`` writes per-block files
+    (``.r<k>.pose<v>``, ``.r<k>.scene``), a finished block skipped on
+    restart. ``mesh`` is not ported yet and raises (ROADMAP.md §1 item
+    2)."""
+    _no_mesh(mesh, "fit_joint_multiview")
+    if rounds < 1:
+        raise ValueError(f"rounds must be >= 1, got {rounds}")
+    targets = np.asarray(targets)
+    K = len(list(cameras))
+    if targets.shape[0] != K:
+        raise ValueError(
+            f"{targets.shape[0]} targets for {K} cameras")
+    cams = list(cameras)
+    current = scene
+    all_losses: List[float] = []
+    scene_params = None
+    base = 0
+    state = {"aborted": False}
+    for r in range(rounds):
+        for v in range(K):
+            pres = fit_pose_fd(
+                dataclasses.replace(current, camera=cams[v]), targets[v],
+                ("camera",), steps=pose_steps, lr=pose_lr,
+                on_step=_block_callback(on_step, base, state),
+                normalize=normalize,
+                checkpoint_path=(f"{checkpoint_path}.r{r}.pose{v}"
+                                 if checkpoint_path else None),
+                checkpoint_every=checkpoint_every, device=device)
+            cams[v] = pres.scene.camera
+            all_losses.extend(pres.losses)
+            base += pose_steps
+            if state["aborted"]:
+                break
+        if state["aborted"]:
+            break
+        sres = fit_scene_multiview(
+            current, targets, cams, scene_fields, steps=scene_steps,
+            lr=scene_lr, on_step=_block_callback(on_step, base, state),
+            march=march,
+            checkpoint_path=(f"{checkpoint_path}.r{r}.scene"
+                             if checkpoint_path else None),
+            checkpoint_every=checkpoint_every, device=device)
+        current = sres.scene
+        scene_params = sres.params
+        all_losses.extend(sres.losses)
+        base += scene_steps
+        if state["aborted"]:
+            break
+    return JointMultiviewResult(
+        scene=current, cameras=cams,
+        params={"poses": [{"camera": c.camera, "target": c.target,
+                           "fov": c.fov} for c in cams],
+                "scene": scene_params},
+        losses=all_losses,
+        fit_fields=("camera",) + tuple(scene_fields),
+    )
 
 
 def apply_fit_to_scene(scene: Scene, params, fit_fields: Sequence[str]) -> Scene:

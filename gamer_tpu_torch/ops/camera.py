@@ -19,15 +19,23 @@ import numpy as np
 import torch
 
 from .math3d import dot3
+from .noise import device_table
 
 
-def inv_view_projection(camera, target, up, fov_deg, near=1.0, far=100.0):
+def const(x, c: float):
+    """``c`` as a 0-d tensor of ``x``'s dtype on its device (made once per
+    device), as ``engine.render.const``."""
+    return device_table(f"const:{float(c)!r}", float(c), x.device, x.dtype)
+
+
+def inv_view_projection_tensor(camera, target, up, fov_deg, near=1.0,
+                               far=100.0):
     """Closed-form (perspective(fov,1,near,far) @ lookAt(target, camera, up))^-1
-    as a (4, 4) float32 numpy array, computed on the host in float32."""
-    f = torch.float32
-    camera = torch.as_tensor(np.asarray(camera, np.float32), dtype=f)
-    target = torch.as_tensor(np.asarray(target, np.float32), dtype=f)
-    up = torch.as_tensor(np.asarray(up, np.float32), dtype=f)
+    as a (4, 4) float32 tensor, differentiable in every input: camera,
+    target and up are (3,) float32 tensors and fov_deg a 0-d float32 tensor,
+    all on one device. The fits of the camera pose take gradients through
+    it; ``inv_view_projection`` is this function on the host."""
+    f = camera.dtype
 
     # lookAt(eye=target, center=camera, up) basis (Qt convention, reversed)
     eye, center = target, camera
@@ -38,28 +46,42 @@ def inv_view_projection(camera, target, up, fov_deg, near=1.0, far=100.0):
     upv = torch.linalg.cross(side, fwd)
 
     # V^-1 = [[side upv -fwd] (columns), eye; 0 0 0 1]
-    vinv = torch.zeros(4, 4, dtype=f)
-    vinv[:3, 0] = side
-    vinv[:3, 1] = upv
-    vinv[:3, 2] = -fwd
-    vinv[:3, 3] = eye
-    vinv[3, 3] = 1.0
+    zero = torch.zeros((), dtype=f, device=camera.device)
+    one = torch.ones((), dtype=f, device=camera.device)
+    vinv = torch.stack([
+        torch.stack([side[r], upv[r], -fwd[r], eye[r]]) for r in range(3)
+    ] + [torch.stack([zero, zero, zero, one])])
 
     # P^-1 for perspective(fov, aspect=1, near, far):
     #   P^-1 = [[1/c,0,0,0],[0,1/c,0,0],[0,0,0,-1],[0,0,1/m23,m22/m23]]
-    radians = torch.tensor(np.float32(fov_deg) / np.float32(2.0), dtype=f) \
-        * (np.pi / 180.0)
+    # (fov / 2 and 1 / cotan divide by float32 tensors: on CUDA a division
+    # by a Python scalar becomes a multiply by its reciprocal)
+    radians = (fov_deg / const(fov_deg, 2.0)) * (np.pi / 180.0)
     cotan = torch.cos(radians) / torch.sin(radians)
     clip = far - near
     m22 = -(near + far) / clip
     m23 = -(2.0 * near * far) / clip
-    pinv = torch.zeros(4, 4, dtype=f)
-    pinv[0, 0] = 1.0 / cotan
-    pinv[1, 1] = 1.0 / cotan
-    pinv[2, 3] = -1.0
-    pinv[3, 2] = 1.0 / m23
-    pinv[3, 3] = m22 / m23
-    return (vinv @ pinv).numpy()
+    inv_c = const(cotan, 1.0) / cotan
+    pinv = torch.stack([
+        torch.stack([inv_c, zero, zero, zero]),
+        torch.stack([zero, inv_c, zero, zero]),
+        torch.stack([zero, zero, zero, -one]),
+        torch.stack([zero, zero, const(zero, 1.0 / m23),
+                     const(zero, m22 / m23)]),
+    ])
+    return torch.matmul(vinv, pinv)
+
+
+def inv_view_projection(camera, target, up, fov_deg, near=1.0, far=100.0):
+    """Closed-form (perspective(fov,1,near,far) @ lookAt(target, camera, up))^-1
+    as a (4, 4) float32 numpy array, computed on the host in float32
+    (``inv_view_projection_tensor`` on CPU tensors)."""
+    def t(v):
+        return torch.as_tensor(np.asarray(v, np.float32), dtype=torch.float32)
+
+    return inv_view_projection_tensor(t(camera), t(target), t(up),
+                                      t(np.float32(fov_deg)), near,
+                                      far).numpy()
 
 
 def inv_view_projection_batch(cameras, targets, ups, fov_degs) -> np.ndarray:

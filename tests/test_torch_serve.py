@@ -1,8 +1,10 @@
 """The port's render service on the CPU (``device="cpu"``, the plain
 march): the analogs of tests/test_serve.py on ``presets.spiral()``: job
 lifecycle, cross-request batching, the padding rule, abort, failure
-isolation, the pipeline, a mesh, animations, warm jobs, the HTTP surface
-and the CLI ``serve``; and the port's service against
+isolation, the pipeline, a mesh, animations, warm jobs, fit jobs (every
+mode of submit_fit and submit_fit_multiview, each held bit for bit to its
+library call, and abort between steps), the HTTP surface and the CLI
+``serve``; and the port's service against
 ``gamer_tpu.serve.RenderService`` on the same scene dicts.
 
 Tolerances: images served by the port equal the port's direct renders
@@ -427,12 +429,198 @@ def test_submit_rejects_invalid_payload(service):
     assert svc.metrics["jobs_submitted"] == 0
 
 
-def test_fit_is_not_ported(service, scene):
+def _fit_scene():
+    """The fit jobs' scene: the default galaxy's bulge at 8^2 with preview
+    sampling. The service is the subject: an fd pose step renders 7 probe
+    frames through the plain march, ~0.05 s a frame for this scene and
+    ~4 s for the spiral at full sampling."""
+    return gt.Scene(
+        camera=gt.CameraParams(camera=(0.5, 0, 0), target=(0, 0, 0),
+                               up=(0, 1, 0), fov=90.0),
+        instances=[gt.GalaxyInstance(galaxy=gt.default_galaxy(1))],
+        config=gt.RenderConfig(size=8, ray_step=0.025, is_preview=True))
+
+
+def _fit_problem(strength=0.5, cam=(0.53, 0.01, 0.0)):
+    """(scene, its target, a start with the galaxy's strengths scaled, a
+    start with the camera moved)."""
+    scene = _fit_scene()
+    target = gt.render_scene(scene, device="cpu")
+    weak = copy.deepcopy(scene)
+    for c in weak.instances[0].galaxy.components:
+        c.strength *= strength
+    moved = dataclasses.replace(
+        scene, camera=dataclasses.replace(scene.camera, camera=cam))
+    return scene, target, weak, moved
+
+
+def _assert_fit_result(job, lib, keys):
+    """A finished fit job holds the library call's result, bit for bit:
+    the result dict's keys, its losses and scene, and a render of the
+    fitted scene as the image."""
+    res = job.result
+    assert set(res) == keys
+    assert res["losses"] == [float(v) for v in lib.losses]
+    assert res["fit_fields"] == list(lib.fit_fields)
+    assert res["scene"] == scene_to_dict(lib.scene)
+    np.testing.assert_array_equal(
+        job.image, gt.render_scene(lib.scene, device="cpu"))
+    assert job.progress == 1.0
+
+
+FIT_KEYS = {"scene", "losses", "fit_fields"}  # gamer_tpu/serve.py:1078-1099
+
+
+@pytest.mark.parametrize("pose", [False, True, "fd", "joint"])
+def test_submit_fit_runs_each_fit(service, pose):
+    """submit_fit runs fit_scene (pose=False), fit_pose (True), fit_pose_fd
+    ("fd") and fit_joint ("joint") on the worker, and the job carries the
+    library call's result (tests/test_serve.py:481-560)."""
+    from gamer_tpu_torch.engine import fit as tfit
+
+    _, target, weak, moved = _fit_problem()
+    svc = service()
+    cpu = dict(device="cpu")
+    if pose is False:
+        jid = svc.submit_fit(weak, target, ("strength",), steps=2, lr=5e-2,
+                             march="frozen")
+        lib = tfit.fit_scene(weak, target, ("strength",), steps=2, lr=5e-2,
+                             march="frozen", **cpu)
+        keys = FIT_KEYS
+    elif pose is True:
+        jid = svc.submit_fit(moved, target, steps=2, lr=1e-2, pose=True)
+        lib = tfit.fit_pose(moved, target, ("camera",), steps=2, lr=1e-2,
+                            **cpu)
+        keys = FIT_KEYS | {"pose"}
+    elif pose == "fd":
+        jid = svc.submit_fit(moved, target, steps=2, lr=1e-2, pose="fd")
+        lib = tfit.fit_pose_fd(moved, target, ("camera",), steps=2, lr=1e-2,
+                               **cpu)
+        keys = FIT_KEYS | {"pose"}
+    else:
+        start = dataclasses.replace(weak, camera=moved.camera)
+        jid = svc.submit_fit(start, target, ("strength",), steps=1,
+                             lr=5e-2, pose="joint", march="frozen",
+                             rounds=1, pose_steps=1, pose_method="fd")
+        lib = tfit.fit_joint(start, target, ("strength",), rounds=1,
+                             pose_steps=1, scene_steps=1, scene_lr=5e-2,
+                             pose_method="fd", march="frozen", **cpu)
+        keys = FIT_KEYS | {"pose"}
+    job = _done(svc, jid)
+    _assert_fit_result(job, lib, keys)
+    if pose:
+        got = job.result["pose"]
+        assert got["camera"] == list(job.result["scene"]["camera"]["camera"])
+        assert isinstance(got["fov"], float)
+        assert got["camera"] != list(moved.camera.camera)
+    assert svc.metrics["frames_rendered"] == 1
+    assert svc.metrics["render_seconds"] > 0
+
+
+def test_submit_fit_validation(service):
+    """Bad fit requests raise at submission (HTTP 400), before any worker
+    time, with JAX's messages."""
+    scene, target, weak, _ = _fit_problem()
     svc = service(autostart=False)
-    with pytest.raises(NotImplementedError, match="item 10"):
-        svc.submit_fit(scene, np.zeros((8, 8, 3), np.uint8))
-    with pytest.raises(NotImplementedError, match="item 10"):
-        svc.submit_fit_multiview(scene, [])
+    bad = [
+        (dict(fit_fields=("orientation",)), "unknown fit fields"),
+        (dict(target_image=np.zeros((4, 4, 3), np.uint8)), "target image"),
+        (dict(march="warp"), "march"),
+        (dict(fit_fields=("scale",), march="frozen"), "frozen"),
+        (dict(fit_fields=("camera",), pose=True, march="frozen"), "frozen"),
+        (dict(fit_fields=("up",), pose=True), "unknown pose fit fields"),
+        (dict(pose="joint", multiscale=True), "multiscale"),
+        (dict(pose="fd", multiscale=True), "multiscale"),
+        (dict(pose="joint", rounds=0), "rounds"),
+        (dict(pose="maybe"), "pose"),
+        (dict(pose_method="lbfgs"), "pose_method"),
+        (dict(steps=0), "steps"),
+    ]
+    for kw, match in bad:
+        kw = {"target_image": target, "fit_fields": ("strength",), **kw}
+        with pytest.raises(ValueError, match=match):
+            svc.submit_fit(weak, steps=kw.pop("steps", 1), **kw)
+    assert svc.metrics["jobs_submitted"] == 0
+
+
+@pytest.mark.parametrize("joint", [False, True], ids=["views", "joint"])
+def test_submit_fit_multiview(service, joint):
+    """submit_fit_multiview runs fit_scene_multiview (poses held), or with
+    pose="joint" fit_joint_multiview (the result carries the K fitted
+    cameras); the views are given as pose dicts with PNG or array
+    targets."""
+    import base64
+
+    from gamer_tpu_torch.engine import fit as tfit
+    from gamer_tpu_torch.io.png import encode_png
+
+    scene, _, weak, _ = _fit_problem()
+    cams = [scene.camera,
+            dataclasses.replace(scene.camera, camera=(0.0, 0.0, 0.5))]
+    targets = np.stack([gt.render_scene(dataclasses.replace(scene, camera=c),
+                                        device="cpu") for c in cams])
+    starts = ([dataclasses.replace(c, camera=tuple(
+        v + d for v, d in zip(c.camera, (0.02, 0.01, 0.0)))) for c in cams]
+        if joint else cams)
+    views = [{"camera": list(c.camera), "target": list(c.target),
+              "up": list(c.up), "fov": c.fov,
+              "target_png": base64.b64encode(encode_png(t)).decode()
+              if k == 0 else t}
+             for k, (c, t) in enumerate(zip(starts, targets))]
+    svc = service()
+    cpu = dict(device="cpu")
+    if joint:
+        jid = svc.submit_fit_multiview(weak, views, ("strength",), steps=1,
+                                       lr=5e-2, march="frozen", pose="joint",
+                                       rounds=1, pose_steps=1)
+        lib = tfit.fit_joint_multiview(weak, targets, starts, ("strength",),
+                                       rounds=1, pose_steps=1, scene_steps=1,
+                                       scene_lr=5e-2, march="frozen", **cpu)
+        keys = FIT_KEYS | {"poses"}
+    else:
+        jid = svc.submit_fit_multiview(weak, views, ("strength",), steps=2,
+                                       lr=5e-2, march="frozen")
+        lib = tfit.fit_scene_multiview(weak, targets, cams, ("strength",),
+                                       steps=2, lr=5e-2, march="frozen",
+                                       **cpu)
+        keys = FIT_KEYS
+    job = _done(svc, jid)
+    _assert_fit_result(job, lib, keys)
+    if joint:
+        assert job.result["poses"] == lib.params["poses"]
+        assert len(job.result["poses"]) == 2
+    with pytest.raises(ValueError, match="non-empty"):
+        svc.submit_fit_multiview(weak, [])
+    with pytest.raises(ValueError, match="view 0: target"):
+        svc.submit_fit_multiview(weak, [dict(views[1], target_png=np.zeros(
+            (4, 4, 3), np.uint8))])
+    with pytest.raises(ValueError, match="bad camera pose"):
+        svc.submit_fit_multiview(weak, [{"target_png": targets[0]}])
+    with pytest.raises(ValueError, match="pose="):
+        svc.submit_fit_multiview(weak, views, pose=True)
+
+
+def test_fit_job_abort_between_steps(service):
+    """abort() stops a running fit after the current step; the job keeps
+    the best fit so far as its result and image, and queued renders are
+    served between the fit's steps."""
+    scene, target, weak, _ = _fit_problem()
+    svc = service()
+    jid = svc.submit_fit(weak, target, ("strength",), steps=100_000,
+                         lr=5e-2, march="frozen")
+    job = svc.jobs[jid]
+    deadline = time.time() + WAIT
+    while job.progress == 0.0 and time.time() < deadline:
+        time.sleep(0.01)
+    rid = svc.submit(scene)  # served between two steps of the fit
+    assert svc.wait(rid, timeout=WAIT).state == DONE
+    assert job.state == "running"
+    svc.abort(jid)
+    job = svc.wait(jid, timeout=WAIT)
+    assert job.state == ABORTED
+    assert 2 <= len(job.result["losses"]) < 100_000
+    assert job.image.shape == (8, 8, 3)
+    assert svc.metrics["worker_preemptions"] >= 1
 
 
 def test_finished_job_eviction(service, scene):
@@ -568,10 +756,10 @@ def test_http_surface(http, scene):
     assert _poll_done(http, fid)["frames"] == 2
     assert http(f"/job/{fid}/animation.gif")[:6] in (b"GIF87a", b"GIF89a")
 
-    # /fit is not ported: 501 naming the roadmap item
+    # a fit without a target answers 400 (test_http_fit runs fits)
     err = json.loads(http("/fit", {"scene": scene_to_dict(scene)},
-                          expect=501))["error"]
-    assert "item 10" in err
+                          expect=400))["error"]
+    assert "target image" in err
 
     # bad submissions and lookups
     http("/render", b"not json", expect=400)
@@ -584,6 +772,72 @@ def test_http_surface(http, scene):
     http(f"/job/{jid}?wait=1&until=never", expect=400)
     http("/job/999", method="DELETE", expect=404)
     assert json.loads(http(f"/job/{jid}", method="DELETE"))["state"] == "done"
+
+
+def test_http_fit(http):
+    """POST /fit over HTTP: an fd pose job and a frozen scene job with
+    base64 PNG targets, their result.json (JAX's keys) equal to the
+    library calls, image.png the render of the fitted scene; a multi-view
+    job; DELETE stops a running fit between steps; bad fits answer 400."""
+    import base64
+
+    from gamer_tpu_torch.engine import fit as tfit
+    from gamer_tpu_torch.io.png import decode_png, encode_png
+
+    _, target, weak, moved = _fit_problem()
+    png = base64.b64encode(encode_png(target)).decode()
+    jobs = {
+        "fd": (dict(scene=scene_to_dict(moved), target_png=png, steps=2,
+                    lr=1e-2, pose="fd"),
+               tfit.fit_pose_fd(moved, target, ("camera",), steps=2,
+                                lr=1e-2, device="cpu"),
+               FIT_KEYS | {"pose"}),
+        "frozen": (dict(scene=scene_to_dict(weak), target_png=png, steps=2,
+                        lr=5e-2, fields=["strength"], march="frozen"),
+                   tfit.fit_scene(weak, target, ("strength",), steps=2,
+                                  lr=5e-2, march="frozen", device="cpu"),
+                   FIT_KEYS),
+    }
+    for name, (payload, lib, keys) in jobs.items():
+        jid = json.loads(http("/fit", payload, expect=202))["job"]
+        assert _poll_done(http, jid)["state"] == "done", name
+        res = json.loads(http(f"/job/{jid}/result.json"))
+        assert set(res) == keys, name
+        assert res["losses"] == [float(v) for v in lib.losses], name
+        assert res["scene"] == json.loads(json.dumps(scene_to_dict(
+            lib.scene))), name
+        np.testing.assert_array_equal(
+            decode_png(http(f"/job/{jid}/image.png")),
+            gt.render_scene(lib.scene, device="cpu"))
+
+    views = [{"camera": [0.5, 0, 0], "target_png": png},
+             {"camera": [0.5, 0, 0], "target_png": png}]
+    jid = json.loads(http("/fit", {"scene": scene_to_dict(weak),
+                                   "views": views, "fields": ["strength"],
+                                   "steps": 1, "march": "frozen"},
+                          expect=202))["job"]
+    assert _poll_done(http, jid)["state"] == "done"
+    assert set(json.loads(http(f"/job/{jid}/result.json"))) == FIT_KEYS
+
+    # DELETE aborts a running fit between steps
+    jid = json.loads(http("/fit", {"scene": scene_to_dict(weak),
+                                   "target_png": png, "steps": 100000,
+                                   "fields": ["strength"],
+                                   "march": "frozen"}, expect=202))["job"]
+    job = http.service.jobs[jid]
+    deadline = time.time() + WAIT
+    while job.progress == 0.0 and time.time() < deadline:
+        time.sleep(0.01)
+    http(f"/job/{jid}", method="DELETE")
+    assert _poll_done(http, jid)["state"] == "aborted"
+    assert len(json.loads(http(f"/job/{jid}/result.json"))["losses"]) >= 2
+
+    for bad in ({"scene": scene_to_dict(weak)},  # no target
+                {"scene": scene_to_dict(weak), "target_png": png,
+                 "march": "warp"},
+                {"scene": scene_to_dict(weak), "views": views,
+                 "pose": "fd"}):
+        assert "Error" in json.loads(http("/fit", bad, expect=400))["error"]
 
 
 def test_http_delete_aborts_a_queued_job_and_429(http, scene):
