@@ -25,10 +25,23 @@ on the card), ``fit_pose`` and ``fit_pose_multiscale``,
 (K=3), ``fit_joint`` (fd poses) and ``fit_joint_multiview`` (K=2) at
 64x64 (step times as medians of 3 untraced steps, CUDA launches per step,
 peak memory), four of them against the CPU at 12x12, ``POST /fit`` over
-HTTP, and the CLI ``fitpose ... fd`` and ``fitjoint ... pose=fd``.
+HTTP, and the CLI ``fitpose ... fd`` and ``fitjoint ... pose=fd``. Then
+the autograd fits with ``mesh=`` on a mesh that names the card 4 or 2
+times, each beside the same fit unsharded (step times, CUDA launches,
+peak memory; losses within JAX's tolerances for its own sharded fits,
+the batch bit-equal; one sharded SGD step's losses and summed gradient
+against CPU entries and one entry at 12x12), and the XLA-form surfaces:
+the march's CUDA-graph loop against the eager loop, bit for bit;
+``render_scene_sharded(method="xla")`` at 512x512 on 4 entries (bit-equal
+to the unsharded XLA-form frame, within 3 LSB of the kernel's),
+``render_allsky_map(kernel="xla")`` at nside 512 against K6's map,
+``queue.render_progressive`` in 16 chunks (ticks, an abort after chunk 4,
+the finished frame) and the CLI ``galaxy xla|sharded|oracle`` and
+``skybox xla``.
 
     python3 chip_smoke.py
-    python3 chip_smoke.py --fit-only   # the build report and the fit paths
+    python3 chip_smoke.py --fit-only   # the build report, the fit paths,
+                                       # the sharded fits, the XLA surfaces
 
 Needs one CUDA card and nvcc. Prints one line per phase; the line before
 the last is the card's name and power limit, the line before that the
@@ -342,9 +355,11 @@ def fmt_ms(ms, keep=None):
             f"{len(vals)} untraced steps)") if vals else "not measured"
 
 
-def fit_phases(card: str, dev):
+def fit_phases(card: str, dev, keep: dict):
     """The fit path on the card; returns the fields of its kernel record
-    (march_batch launched by fit_scene_fd's probes)."""
+    (march_batch launched by fit_scene_fd's probes). The tensor and frozen
+    fits' inputs, results and readings go into ``keep`` for the sharded
+    fits (``mesh_fit_phases``)."""
     import copy
 
     import gamer_tpu_torch as gt
@@ -458,6 +473,9 @@ def fit_phases(card: str, dev):
         else:
             res, step_times, n, peak = traced_fit(run)
             ms, per_step, how = fmt_ms(step_times), n.get((0, 1)), "traced"
+            keep[f"fit_scene {march}"] = dict(
+                scene=scene, target=tgt_img, start=start, res=res,
+                ms=step_times, launches=per_step, peak=peak)
         check(all(np.isfinite(res.losses)) and res.losses[-1] < res.losses[0],
               f"fit_scene march={march}: losses {res.losses}")
         log(f"timing [{card}] fit_scene march={march} step at {size}^2: "
@@ -522,9 +540,11 @@ PROBE_CHECK_FRAMES = 3
 MVIEW_K = 3
 
 
-def fit_family_phases(card: str, dev):
+def fit_family_phases(card: str, dev, keep: dict):
     """The pose, batch, multi-view and joint fits on the card; returns the
-    fields of the march_batch[fit_pose_fd] kernel record."""
+    fields of the march_batch[fit_pose_fd] kernel record. The fit_pose,
+    frozen batch and fit_joint runs go into ``keep`` for the sharded
+    fits."""
     import base64
     import copy
 
@@ -645,6 +665,9 @@ def fit_family_phases(card: str, dev):
         lambda cb: tfit.fit_pose(lod3, ptarget, ("camera",), steps=FIT_STEPS,
                                  lr=1e-2, device=dev, on_step=cb))
     check_fit("fit_pose", pose.losses)
+    keep["fit_pose"] = dict(scene=lod3, truth=ptruth, target=ptarget,
+                            res=pose, ms=pose_ms, launches=pose_n.get((0, 1)),
+                            peak=pose_peak)
     log(f"timing [{card}] fit_pose march=tensor LOD 3 step at {POSE_SIZE}^2: "
         f"{fmt_ms(pose_ms)}, {pose_n.get((0, 1))} CUDA launches per step "
         f"(traced), peak {pose_peak:.2f} GiB; losses "
@@ -683,6 +706,10 @@ def fit_family_phases(card: str, dev):
         check(res.losses.shape == (FIT_STEPS + 1, BATCH_K)
               and bool(np.all(res.losses.min(axis=0) < res.losses[0])),
               f"fit_scene_batch march={march}: losses {res.losses.tolist()}")
+        keep[f"fit_scene_batch {march}"] = dict(
+            scenes=scenes, targets=btargets, res=res, ms=b_ms,
+            truths=[scaled(ptruth, "strength", f) for f in factors],
+            launches=b_n.get((0, 1)), peak=b_peak)
         log(f"timing [{card}] fit_scene_batch K={BATCH_K} march={march} "
             f"({how[march]}) "
             f"step at {POSE_SIZE}^2: {fmt_ms(b_ms)}, {b_n.get((0, 1))} CUDA "
@@ -714,6 +741,8 @@ def fit_family_phases(card: str, dev):
                                   device=dev, on_step=cb),
         windows=((0, 1), (P, P + 1)))
     j_launches = cr.march_batch.launch_count
+    keep["fit_joint"] = dict(scene=jstart, target=ptarget, res=joint,
+                             ms=j_ms, launches=j_n, peak=j_peak)
     check(all(np.isfinite(joint.losses)) and j_launches == P + 1
           and joint.scene.camera.camera != jstart.camera.camera,
           f"fit_joint: {j_launches} march_batch launches, losses "
@@ -889,6 +918,408 @@ def fit_family_phases(card: str, dev):
     return (pfd_launches, probe_err, probe_k_ms, probe_plain_ms, probe_bound)
 
 
+# the sharded autograd fits: cases on Mesh([card] * n), beside the same fit
+# unsharded; JAX's tolerances for its own sharded fits (tests/test_fit.py:
+# 582, 615, 1091); the batch axis is bit-equal
+MESH_FIT_RTOL = {"fit_scene": 2e-3, "fit_pose": 5e-3, "fit_joint": 2e-3,
+                 "fit_scene_multiview": 5e-5}
+MESH_MVIEW_K = 4
+# one SGD step's summed gradient on a mesh against one entry, relative to
+# each leaf's largest element (tests/test_torch_fit_mesh.py's limit)
+MESH_GRAD_RTOL = 1e-5
+
+
+def _rel(a, b) -> float:
+    """max |a - b| / |b| over the elements, inf where b is 0 and a is not."""
+    a, b = (np.asarray(v, np.float64).ravel() for v in (a, b))
+    nz = b != 0
+    if np.any(a[~nz] != 0):
+        return float("inf")
+    return float(np.max(np.abs(a[nz] - b[nz]) / np.abs(b[nz]), initial=0.0))
+
+
+class SGDProbe:
+    """Plain SGD (params += -lr * g) in the fits' ``Adam`` interface that
+    keeps each step's gradient as the fit's loop passes it (summed over
+    the mesh's entries, made finite and masked)."""
+
+    def __init__(self, lr):
+        self.lr, self.grads = lr, []
+
+    def init(self, params):
+        return ()
+
+    def update(self, grads, state, params=None):
+        from gamer_tpu_torch.utils.tree import tree_leaves, tree_map
+
+        self.grads.append([g.detach().cpu().numpy().copy()
+                           for g in tree_leaves(grads)])
+        return tree_map(lambda g: g * -self.lr, grads), state
+
+
+def grad_rel(got, want) -> float:
+    """max over the leaves of max |got - want| / max |want| (a leaf that
+    is zero in ``want``, an unfitted one, must be zero in ``got``)."""
+    out = 0.0
+    for g, w in zip(got, want):
+        scale = float(np.abs(w).max())
+        d = float(np.abs(g - w).max())
+        out = max(out, d / scale if scale else (0.0 if d == 0 else np.inf))
+    return out
+
+
+def mesh_fit_phases(card: str, dev, keep: dict) -> None:
+    """The autograd fits with ``mesh=``: fit_scene (tensor, frozen) at
+    128^2 and fit_pose (LOD 3) and fit_scene_batch (K=4, frozen) at 64^2
+    on 4 entries of the card, fit_scene_multiview (K=4, frozen) and
+    fit_joint (fd poses) at 64^2 on 2, each beside the same fit unsharded
+    (from the earlier fit phases, ``keep``; multi-view run here), its
+    targets from S1 on the same mesh; then one sharded SGD step on the
+    card against the same fit on a mesh of CPU entries and on one card
+    entry at 12^2, its losses and its summed gradient."""
+    import gamer_tpu_torch as gt
+    from gamer_tpu_torch.engine import fit as tfit
+    from gamer_tpu_torch.parallel import Mesh
+    from gamer_tpu_torch.scene.cameracontrols import orbit_path
+    from gamer_tpu_torch.utils.tree import tree_leaves
+
+    t_phase = time.perf_counter()
+
+    def fit_rel(got, want):
+        return max([_rel(got.losses, want.losses)]
+                   + [_rel(x, y) for x, y in zip(tree_leaves(got.params),
+                                                 tree_leaves(want.params))])
+
+    def s1_target(scene, mesh, want):
+        img = gt.render_scene(scene, mesh=mesh)
+        check(np.array_equal(img, want),
+              "S1 target differs from the unsharded kernel frame")
+        return img
+
+    def report(name, n, size, got, base, err, limit, keep_steps=None):
+        res, ms, counts, peak = got
+        log(f"timing [{card}] {name} at {size}^2 on {n} entries of one "
+            f"card: {fmt_ms(ms, keep_steps)}, {counts.get((0, 1))} CUDA "
+            f"launches a step (traced), peak {peak:.2f} GiB; unsharded "
+            f"{fmt_ms(base['ms'], keep_steps)}, "
+            f"{base['launches']} launches, peak {base['peak']:.2f} GiB; "
+            f"losses and fitted values max rel {err:.3g} against unsharded "
+            f"(limit {limit}); losses "
+            f"{np.asarray(res.losses, np.float64).tolist()}")
+
+    # --- fit_scene, tensor and frozen, 128^2 on 4 entries ------------------
+    mesh4, mesh2 = Mesh([dev] * 4), Mesh([dev] * 2)
+    for march in ("tensor", "frozen"):
+        base = keep[f"fit_scene {march}"]
+        target = s1_target(base["scene"], mesh4, base["target"])
+        got = traced_fit(lambda cb: tfit.fit_scene(
+            base["start"], target, steps=FIT_STEPS, march=march, mesh=mesh4,
+            on_step=cb))
+        err = fit_rel(got[0], base["res"])
+        report(f"fit_scene march={march} mesh=", 4, FIT_SIZE, got, base, err,
+               MESH_FIT_RTOL["fit_scene"])
+        check(err <= MESH_FIT_RTOL["fit_scene"],
+              f"fit_scene {march} on the mesh: {got[0].losses} vs "
+              f"{base['res'].losses}")
+
+    # --- fit_pose, LOD 3, 64^2 on 4 entries --------------------------------
+    base = keep["fit_pose"]
+    target = s1_target(base["truth"], mesh4, base["target"])
+    got = traced_fit(lambda cb: tfit.fit_pose(
+        base["scene"], target, ("camera",), steps=FIT_STEPS, lr=1e-2,
+        mesh=mesh4, on_step=cb))
+    err = fit_rel(got[0], base["res"])
+    report("fit_pose march=tensor LOD 3 mesh=", 4, POSE_SIZE, got, base, err,
+           MESH_FIT_RTOL["fit_pose"])
+    check(err <= MESH_FIT_RTOL["fit_pose"],
+          f"fit_pose on the mesh: {got[0].losses} vs {base['res'].losses}")
+
+    # --- fit_scene_batch K=4, frozen, 64^2 on 4 entries: bit-equal ---------
+    base = keep["fit_scene_batch frozen"]
+    targets = np.stack([s1_target(sc, mesh4, t) for sc, t in
+                        zip(base["truths"], base["targets"])])
+    got = traced_fit(lambda cb: tfit.fit_scene_batch(
+        base["scenes"], targets, steps=FIT_STEPS, march="frozen", mesh=mesh4,
+        on_step=cb))
+    same = (np.array_equal(got[0].losses, base["res"].losses)
+            and all(np.array_equal(x, y) for x, y in zip(
+                tree_leaves(got[0].params), tree_leaves(base["res"].params))))
+    report(f"fit_scene_batch K={BATCH_K} march=frozen mesh=", 4, POSE_SIZE,
+           got, base, 0.0 if same else fit_rel(got[0], base["res"]),
+           "bit-equal")
+    check(same, f"fit_scene_batch on the mesh is not bit-equal: "
+                f"{got[0].losses.tolist()} vs {base['res'].losses.tolist()}")
+
+    # --- fit_scene_multiview K=4, frozen, 64^2 on 2 entries ----------------
+    ptruth = keep["fit_pose"]["truth"]
+    cams = orbit_path(ptruth.camera, MESH_MVIEW_K, 120.0)
+    views = [dataclasses.replace(ptruth, camera=c) for c in cams]
+    vtargets = np.stack([s1_target(v, mesh2, gt.render_scene(v, device=dev))
+                         for v in views])
+    start = scaled(ptruth, "strength", 1.5)
+    res, ms, counts, peak = traced_fit(lambda cb: tfit.fit_scene_multiview(
+        start, vtargets, cams, steps=FIT_STEPS, march="frozen", device=dev,
+        on_step=cb))
+    base = dict(res=res, ms=ms, launches=counts.get((0, 1)), peak=peak)
+    got = traced_fit(lambda cb: tfit.fit_scene_multiview(
+        start, vtargets, cams, steps=FIT_STEPS, march="frozen", mesh=mesh2,
+        on_step=cb))
+    err = fit_rel(got[0], res)
+    report(f"fit_scene_multiview K={MESH_MVIEW_K} march=frozen mesh=", 2,
+           POSE_SIZE, got, base, err, MESH_FIT_RTOL["fit_scene_multiview"])
+    check(err <= MESH_FIT_RTOL["fit_scene_multiview"],
+          f"fit_scene_multiview on the mesh: {got[0].losses} vs {res.losses}")
+
+    # --- fit_joint, fd poses (S2) and frozen scene steps, on 2 entries -----
+    base = keep["fit_joint"]
+    P = FIT_STEPS
+    target = s1_target(keep["fit_pose"]["truth"], mesh2, base["target"])
+    res, ms, counts, peak = traced_fit(
+        lambda cb: tfit.fit_joint(base["scene"], target, ("strength",),
+                                  rounds=1, pose_steps=P, scene_steps=P,
+                                  pose_method="fd", march="frozen",
+                                  mesh=mesh2, on_step=cb),
+        windows=((0, 1), (P, P + 1)))
+    err = _rel(res.losses, base["res"].losses)
+    log(f"timing [{card}] fit_joint pose_method=fd mesh= at {POSE_SIZE}^2 on "
+        f"2 entries of one card: a pose step {fmt_ms(ms, range(2, P))}, a "
+        f"scene step {fmt_ms(ms, range(P + 2, 2 * P))}; CUDA launches a pose "
+        f"step {counts.get((0, 1))}, a scene step {counts.get((P, P + 1))} "
+        f"(traced), peak {peak:.2f} GiB; unsharded: a pose step "
+        f"{fmt_ms(base['ms'], range(2, P))}, a scene step "
+        f"{fmt_ms(base['ms'], range(P + 2, 2 * P))}, launches "
+        f"{base['launches'].get((0, 1))} / {base['launches'].get((P, P + 1))}"
+        f", peak {base['peak']:.2f} GiB; losses max rel {err:.3g} against "
+        f"unsharded (limit {MESH_FIT_RTOL['fit_joint']})")
+    check(err <= MESH_FIT_RTOL["fit_joint"],
+          f"fit_joint on the mesh: {res.losses} vs {base['res'].losses}")
+
+    # --- one sharded step: the card against CPU entries at 12^2 ------------
+    c_truth = spiral_scene(CHECK_SIZE, is_preview=True, noise_octaves=2)
+    c_target = gt.render_scene(c_truth, device=dev)
+    c_weak = scaled(c_truth, "strength", 1.5)
+    c_moved = dataclasses.replace(c_truth, camera=dataclasses.replace(
+        c_truth.camera, camera=POSE_START))
+    c_cams = orbit_path(c_truth.camera, 2, 120.0)
+    c_views = np.stack([gt.render_scene(dataclasses.replace(c_truth,
+                                                            camera=c),
+                                        device=dev) for c in c_cams])
+    c_btargets = np.stack([gt.render_scene(scaled(c_truth, "strength", f),
+                                           device=dev)
+                           for f in (0.7, 0.9, 1.1, 1.3)])
+    # plain SGD, whose step is proportional to the gradient, and each
+    # step's summed gradient kept: Adam's lr x sign(m) steps would hide a
+    # gradient part that the mesh drops, doubles or scales by 1/n
+    runs = {
+        ("fit_scene", 4): lambda m, o: tfit.fit_scene(
+            c_weak, c_target, ("strength",), steps=1, lr=5e-2, optimizer=o,
+            mesh=m),
+        ("fit_pose", 4): lambda m, o: tfit.fit_pose(
+            c_moved, c_target, ("camera",), steps=1, lr=1e-3, optimizer=o,
+            mesh=m),
+        ("fit_scene_batch", 4): lambda m, o: tfit.fit_scene_batch(
+            c_weak, c_btargets, ("strength",), steps=1, lr=5e-2,
+            march="frozen", optimizer=o, mesh=m),
+        ("fit_scene_multiview", 2): lambda m, o: tfit.fit_scene_multiview(
+            c_weak, c_views, c_cams, ("strength",), steps=1, lr=5e-2,
+            march="frozen", optimizer=o, mesh=m),
+    }
+    for (name, n), run in runs.items():
+        probes = {k: SGDProbe(5e-2) for k in ("card", "cpu", "one entry")}
+        a, b = (np.asarray(run(Mesh([d] * n), probes[k]).losses, np.float64)
+                for k, d in (("card", dev), ("cpu", "cpu")))
+        run(Mesh([dev]), probes["one entry"])
+        err = _rel(a, b)
+        g_cpu = grad_rel(probes["card"].grads[0], probes["cpu"].grads[0])
+        g_one = grad_rel(probes["card"].grads[0],
+                         probes["one entry"].grads[0])
+        log(f"{name} mesh= {CHECK_SIZE}^2, 1 SGD step on {n} entries: card "
+            f"losses {a.tolist()}, CPU entries {b.tolist()}: max rel "
+            f"{err:.3g} (limit {FIT_CPU_RTOL:g}); the step's summed gradient "
+            f"max |d| / max |g| against CPU entries {g_cpu:.3g} (limit "
+            f"{FIT_CPU_RTOL:g}), against the card unsharded {g_one:.3g} "
+            f"(limit {MESH_GRAD_RTOL:g})")
+        check(err <= FIT_CPU_RTOL and g_cpu <= FIT_CPU_RTOL
+              and g_one <= MESH_GRAD_RTOL,
+              f"{name} mesh: card {a} vs CPU {b}, gradient {g_cpu} / {g_one}")
+    log(f"sharded fits phase: {time.perf_counter() - t_phase:.1f} s (host "
+        f"clock)")
+
+
+# the XLA-form surfaces: the progressive frame's chunks and where the
+# abort run stops; the sky at ALLSKY_NSIDE (one nside-512 call takes
+# ~28 s on an NVIDIA H100 80GB HBM3 at 700 W, under the 60 s that would
+# call for nside 256)
+XLA_CHUNKS = 16
+XLA_ABORT_AFTER = 4
+XLA_MAX_LSB = 3
+# the XLA-form map against K6's: max |d| / max |m|. tests/test_pallas.py
+# holds the two to 1e-3 at nside 4 and 16; the XLA march's per-step norm
+# (ROADMAP.md section 3) puts them 8.96e-4 apart at nside 256 and 1.25e-3
+# at nside 512 on this sky (NVIDIA H100 80GB HBM3, 700 W), so the gate takes the frame's allowance for
+# it (2 -> 3 LSB) in the same proportion
+XLA_MAP_GATE = 1.5e-3
+
+
+def _timed(fn):
+    torch.cuda.synchronize()
+    t = time.perf_counter()
+    out = fn()
+    torch.cuda.synchronize()
+    return out, (time.perf_counter() - t) * 1e3
+
+
+def xla_surface_phases(card: str, dev) -> None:
+    """The XLA-form surfaces on the card: render_scene_sharded(method=
+    "xla") at 512^2 on 4 entries against the unsharded XLA-form frame and
+    the kernel's; render_allsky_map(kernel="xla") against K6's map;
+    queue.render_progressive (ticks, abort, the finished frame); the CLI
+    galaxy xla / sharded / oracle and skybox xla against their library
+    calls."""
+    import gamer_tpu_torch as gt
+    from gamer_tpu_torch import cli
+    from gamer_tpu_torch.engine import queue as tqueue
+    from gamer_tpu_torch.engine import render as trender
+    from gamer_tpu_torch.io.png import read_png
+    from gamer_tpu_torch.io.renderparams import RenderParamsFile
+    from gamer_tpu_torch.models import presets
+    from gamer_tpu_torch.oracle import render_oracle
+    from gamer_tpu_torch.parallel import (Mesh, make_pixel_mesh,
+                                          render_scene_sharded)
+    from gamer_tpu_torch.scene import gax
+
+    t_phase = time.perf_counter()
+    scene = spiral_scene(MAIN_SIZE)
+    xla, xla_ms = _timed(lambda: trender.render_scene(scene, device=dev))
+    # the march's trip replayed as a CUDA graph against the eager loop
+    graphed = trender._march_graphed
+
+    def eager(step, state):
+        while bool((~state[4]).any()):
+            state = step(state)
+        return state[1], state[2]
+
+    trender._march_graphed = eager
+    try:
+        xla_eager, eager_ms = _timed(lambda: trender.render_scene(
+            scene, device=dev))
+    finally:
+        trender._march_graphed = graphed
+    check(np.array_equal(xla, xla_eager),
+          "the CUDA-graph march differs from the eager loop")
+    sharded, sh_ms = _timed(lambda: render_scene_sharded(
+        scene, Mesh([dev] * 4), method="xla"))
+    kernel, k_ms = _timed(lambda: gt.render_scene(scene, device=dev))
+    d = np.abs(xla.astype(np.int16) - kernel.astype(np.int16))
+    check(np.array_equal(sharded, xla),
+          "sharded XLA-form frame differs from the unsharded one")
+    check(int(d.max()) <= XLA_MAX_LSB,
+          f"XLA-form frame {int(d.max())} LSB from the kernel's")
+    log(f"timing [{card}] XLA-form frame {MAIN_SIZE}^2 (host clock, one "
+        f"call each): the trip as a CUDA graph {xla_ms:.1f} ms, bit-equal to "
+        f"the eager loop ({eager_ms:.1f} ms); render_scene_sharded(method="
+        f"'xla') on 4 entries of one card {sh_ms:.1f} ms, bit-equal to the "
+        f"unsharded XLA-form frame; against the kernel's frame ({k_ms:.1f} "
+        f"ms) max {int(d.max())} LSB (limit {XLA_MAX_LSB}), "
+        f"{int((d.max(-1) > 2).sum())} pixels above 2 LSB, "
+        f"{float((d.max(-1) > 0).mean()):.5f} of pixels differ")
+
+    # --- the all-sky map through the XLA-form march ------------------------
+    sky = allsky_scene()
+    k6, k6_ms = _timed(lambda: gt.render_allsky_map(sky, ALLSKY_NSIDE,
+                                                    device=dev))
+    xmap, xmap_ms = _timed(lambda: gt.render_allsky_map(
+        sky, ALLSKY_NSIDE, device=dev, kernel="xla"))
+    gate = float(np.abs(xmap - k6).max() / (np.abs(k6).max() + 1e-12))
+    check(gate < XLA_MAP_GATE and bool((xmap > 0).all()),
+          f"XLA-form all-sky map: max |d| / max |m| {gate}")
+    log(f"timing [{card}] render_allsky_map nside {ALLSKY_NSIDE} "
+        f"({12 * ALLSKY_NSIDE ** 2} rays, host clock, one call each): "
+        f"kernel='xla' {xmap_ms:.1f} ms, K6 {k6_ms:.1f} ms; max |d| / max "
+        f"|m| {gate:.3g} (limit {XLA_MAP_GATE:g}), every pixel non-zero")
+
+    # --- queue.render_progressive: ticks, abort, the finished frame --------
+    ticks = []
+    prog, prog_ms = _timed(lambda: tqueue.render_progressive(
+        scene, XLA_CHUNKS, lambda f, _p: ticks.append(f), device=dev))
+    check(ticks == [(c + 1) / XLA_CHUNKS for c in range(XLA_CHUNKS)]
+          and np.array_equal(prog, xla),
+          f"progressive XLA-form frame: ticks {ticks}, bit-equal "
+          f"{np.array_equal(prog, xla)}")
+    seen = []
+
+    def stop(frac, partial):
+        seen.append((frac, partial))
+        return len(seen) < XLA_ABORT_AFTER
+
+    part, part_ms = _timed(lambda: tqueue.render_progressive(
+        scene, XLA_CHUNKS, stop, device=dev))
+    rows = XLA_ABORT_AFTER * MAIN_SIZE // XLA_CHUNKS
+    check([f for f, _ in seen] == [(c + 1) / XLA_CHUNKS
+                                   for c in range(XLA_ABORT_AFTER)]
+          and np.array_equal(part, seen[-1][1])
+          and np.array_equal(part[:rows], xla[:rows])
+          and not part[rows:].any(),
+          f"progressive abort: ticks {[f for f, _ in seen]}")
+    log(f"timing [{card}] queue.render_progressive {MAIN_SIZE}^2 (host "
+        f"clock): {XLA_CHUNKS} chunks {prog_ms:.1f} ms, ticks in order, "
+        f"bit-equal to the unsharded XLA-form frame; stopped after chunk "
+        f"{XLA_ABORT_AFTER}: {part_ms:.1f} ms, the partial frame (rows "
+        f"0-{rows - 1} the frame's, the rest black)")
+
+    # --- the CLI methods, on the spiral's bulge alone ----------------------
+    # (the skybox camera sits outside the bulge, so most faces march no
+    # trip; a frame of queue.render_progressive is bit-equal to
+    # render.render_scene's, held above at 512^2, so the library frames
+    # are one march each)
+    g = presets.spiral()
+    g.components = [c for c in g.components if c.cid == 0]
+    with tempfile.TemporaryDirectory() as tmp:
+        tmp = Path(tmp)
+        gax.save(g, tmp / "bulge.gax")
+        RenderParamsFile(camera=gt.CameraParams(camera=(1.5, 0, 0)),
+                         ray_step=0.025).save(tmp / "rp.dat")
+        small = spiral_scene(32, galaxy=g)
+        cwd = os.getcwd()
+        os.chdir(tmp)
+        try:
+            clis = {}
+            for method in ("xla", "sharded", "oracle"):
+                argv = ["galaxy", method, "0.5", "0", "0", "0", "0", "0",
+                        "0", "1", "0", "90", "1", "1", "1.0", "0.025",
+                        "bulge.gax", "32", f"{method}.png"]
+                _, clis[method] = _timed(lambda: cli.main(argv))
+            _, clis["skybox xla"] = _timed(lambda: cli.main(
+                ["skybox", "xla", "rp.dat", "bulge.gax", "64"]))
+        finally:
+            os.chdir(cwd)
+        want = {
+            "xla": trender.render_scene(small, device=dev),
+            "sharded": render_scene_sharded(small, make_pixel_mesh()),
+            "oracle": render_oracle(small)[0],
+        }
+        for method, img in want.items():
+            check(np.array_equal(read_png(tmp / f"{method}.png"), img),
+                  f"CLI galaxy {method} differs from its library call")
+        rp = RenderParamsFile.load(tmp / "rp.dat")
+        faces = tqueue.skybox_jobs(gt.Scene(
+            camera=rp.camera, instances=[gt.GalaxyInstance(galaxy=g)],
+            config=rp.to_render_config(size=64)))
+        for job in faces:
+            check(np.array_equal(
+                read_png(tmp / f"{job.filename}.png"),
+                trender.render_scene(job.scene, device=dev)),
+                f"CLI skybox xla face {job.filename} differs")
+    log(f"cli galaxy xla / sharded / oracle at 32^2 and skybox xla at 64^2 "
+        f"(the spiral's bulge alone, the skybox from (1.5, 0, 0)): each PNG "
+        f"equals its library frame (the XLA-form frame, "
+        f"render_scene_sharded over every card, render_oracle; each face's "
+        f"XLA-form frame); host clock "
+        f"{', '.join(f'{k} {v:.0f} ms' for k, v in clis.items())}")
+    log(f"XLA-form surfaces phase: {time.perf_counter() - t_phase:.1f} s "
+        f"(host clock)")
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: torch.cuda.is_available() is False; this run "
@@ -933,8 +1364,11 @@ def main() -> int:
     f32 = np.float32
     if "--fit-only" in sys.argv[1:]:
         # development: the build report and the fit phases alone
-        fit_phases(card, dev)
-        fit_family_phases(card, dev)
+        keep = {}
+        fit_phases(card, dev, keep)
+        fit_family_phases(card, dev, keep)
+        mesh_fit_phases(card, dev, keep)
+        xla_surface_phases(card, dev)
         return 0
 
     # --- the kernel's noise device functions vs their plain versions -------
@@ -957,6 +1391,25 @@ def main() -> int:
             f"max |d| raw/octave/ridged {err.tolist()}, bit-equal share "
             f"{exact.tolist()} over {len(pts)} points")
         check(float(err.max()) <= 1e-6, f"noise probe disagrees: {err.tolist()}")
+    # the probe kernel timed at these points (simplex), and its bound: per
+    # point 1 + octaves + ridged octaves raw evaluations, the octave sum ~8
+    # f32 ops an octave and the ridged one ~12, 12 B read and 12 B written
+    pts_d = torch.as_tensor(pts, device=dev)
+    args = (10, 0.6, 0.1, tnoise.ridged_weights(1.5, 9), 2.5, 1.0, 1.2)
+    probe_ms, _ = cuda_ms(lambda: tnoise.noise_probe(pts_d, *args), 5)
+    _, probe_plain_ms = _timed(lambda: tnoise.noise_probe_plain(pts_d,
+                                                                *args))
+    n_pts = len(pts)
+    probe_ops = n_pts * ((1 + 10 + 9) * RAW_NOISE_WORK["simplex"][0]
+                         + 10 * 8 + 9 * 12)
+    probe_bytes = n_pts * 24 + tnoise.noise_table("simplex", dev).numel() * 4
+    t_ops, t_bytes = probe_ops / F32_PEAK, probe_bytes / HBM_PEAK
+    log(f"timing [{card}] noise_probe kernel, {n_pts} points (10 octaves, 9 "
+        f"ridged; CUDA events, median of 5): {probe_ms:.4f} ms, plain on "
+        f"cuda {probe_plain_ms:.1f} ms; bound {max(t_ops, t_bytes) * 1e3:.4f}"
+        f" ms by {'operations' if t_ops >= t_bytes else 'bytes'} "
+        f"({probe_ops:.4g} f32 ops -> {t_ops * 1e3:.4f} ms, {probe_bytes} B "
+        f"-> {t_bytes * 1e3:.5f} ms)")
     # the other raw backends on the same points: perlin is integer lattice
     # work and lerps in one order, so bit-equal; iq's hash amplifies the
     # last ulps of the sine (the card's sinf against torch's CPU sine), so
@@ -2206,11 +2659,16 @@ def main() -> int:
     # =======================================================================
     # the fit path: fit_scene_fd (K4 probes), the autograd marches, CLI fit
     # =======================================================================
+    keep = {}
     (fit_launches, fit_err, fit_k_ms, fit_plain_ms,
-     fit_bound) = fit_phases(card, dev)
+     fit_bound) = fit_phases(card, dev, keep)
     # the pose, batch, multi-view and joint fits (fit_pose_fd's probes: K4)
     (pfd_launches, pfd_err, pfd_k_ms, pfd_plain_ms,
-     pfd_bound) = fit_family_phases(card, dev)
+     pfd_bound) = fit_family_phases(card, dev, keep)
+    # the autograd fits on a mesh, beside the unsharded runs above
+    mesh_fit_phases(card, dev, keep)
+    # the XLA-form surfaces: the sharded frame, the sky, the queue, the CLI
+    xla_surface_phases(card, dev)
 
     for pkg in ("jax", "gamer_tpu"):
         check(pkg not in sys.modules, f"{pkg} was imported")

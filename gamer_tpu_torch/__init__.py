@@ -13,7 +13,10 @@ camera. Every path takes the three raw-noise backends of
 ``RenderConfig.noise_kind`` (simplex, perlin, iq), and a ``mesh=`` of
 devices (``parallel.Mesh``) over which a frame's row slabs, a batch's
 frames or a ray list's blocks are spread. ``RenderService`` / ``serve``
-put the paths behind a job queue and an HTTP API.
+put the paths behind a job queue and an HTTP API. ``engine.fit`` fits
+galaxy parameters and camera poses through the XLA-form march in torch
+ops (``engine.render``), on a device or a mesh; ``oracle`` is the numpy
+spec oracle.
 On a CUDA device the march runs in csrc/march.cu (built with nvcc at first
 use); on the CPU it runs the kernel's plain torch version. The package
 stands alone: it has its own copy of the scene model, the presets, the star

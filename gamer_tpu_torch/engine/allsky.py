@@ -11,8 +11,9 @@ projection of the map and the standard post chain.
 
 All sky pixels march in one ray-list launch (K6,
 ``cuda_render.march_rays``), or over a device mesh in one launch per entry
-(``march_rays_rowshard``): no shuffle is needed, since work-list shuffling
-only balanced the reference's thread chunks.
+(``march_rays_rowshard``), or through the XLA-form march
+(``kernel="xla"``): no shuffle is needed, since work-list shuffling only
+balanced the reference's thread chunks.
 """
 
 from __future__ import annotations
@@ -24,7 +25,7 @@ from ..post.healpix import npix, pix2vec_ring
 from ..post.mollweide import mollweide_image
 from ..scene.schema import Scene
 from .cuda_render import _device, mesh_device, render_dirs
-from .render import post_process
+from .render import post_process, render_rays, scene_args
 
 f32 = np.float32
 
@@ -38,13 +39,27 @@ def allsky_dirs(nside: int) -> np.ndarray:
 
 
 def render_allsky_map(scene: Scene, nside: int, device="cuda",
-                      mesh=None) -> np.ndarray:
+                      mesh=None, kernel: str = "pallas") -> np.ndarray:
     """Render the scene into a RING HEALPix luminance map of 12*nside^2
-    float64 values: one ray-list launch (or, with a 1-D ``mesh``, one per
-    mesh entry on its block of pixels), the channel mean taken in float32
-    on ``device`` and then cast."""
-    linear = render_dirs(scene, allsky_dirs(nside), device=device,
-                         device_out=True, mesh=mesh)
+    float64 values, the channel mean taken in float32 on ``device`` and
+    then cast. ``kernel="pallas"`` (the JAX package's name for its kernel;
+    here the CUDA march) is one ray-list launch, or with a 1-D ``mesh`` one
+    per mesh entry on its block of pixels. ``kernel="xla"`` marches the
+    ray list through the XLA-form march (``render.render_rays``) on
+    ``device``; it takes no mesh."""
+    if kernel == "pallas":
+        linear = render_dirs(scene, allsky_dirs(nside), device=device,
+                             device_out=True, mesh=mesh)
+    elif kernel == "xla":
+        if mesh is not None:
+            raise ValueError("mesh sharding needs the pallas kernel")
+        (static, params, camera, _inv_vp, rs, ms, _ex, _ga,
+         _sa) = scene_args(scene, _device(device))
+        dirs = torch.as_tensor(allsky_dirs(nside), device=camera.device)
+        with torch.no_grad():
+            linear = render_rays(static, params, dirs, camera, rs, ms)
+    else:
+        raise ValueError(f"unknown all-sky kernel {kernel!r}")
     # numpy's order of the three-term sum, and a tensor divisor: the f32
     # quotient on every device (see render.post_process)
     csum = (linear[:, 0] + linear[:, 1]) + linear[:, 2]

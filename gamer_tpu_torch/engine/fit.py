@@ -33,9 +33,12 @@ Which leaves move is chosen by field name over flatten_scene's params
 with hard domain limits are projected after every step.
 ``apply_fit_to_scene`` writes fitted leaves back into a copy of the Scene.
 Every fit takes ``device=`` (the card unless the caller asks for the CPU)
-and checkpoints that a rerun resumes bit for bit. ``mesh=`` on the
-autograd fits (pixel rows, the batch or view axis over devices) is not
-ported and raises; the FD fits pass it to the batched launch.
+and checkpoints that a rerun resumes bit for bit, and ``mesh=`` (a 1-D
+``parallel.Mesh``): the autograd fits shard pixel rows (fit_scene,
+fit_pose and their ladders), the batch axis (fit_scene_batch) or the view
+axis (fit_scene_multiview) over its entries, each entry on its device's
+current stream, the params on the first device and their gradients summed
+there; the FD fits spread their probe batch over it.
 """
 
 from __future__ import annotations
@@ -117,7 +120,9 @@ def _ss_setup(scene: Scene, size: int):
         return 1, (lambda linear: linear)
 
     def pool_linear(linear):
-        return linear.reshape(size, ss, size, ss, 3).mean(dim=(1, 3))
+        # (rows * ss, size * ss, 3) -> (rows, size, 3): a whole frame or a
+        # row slab of one
+        return linear.reshape(-1, ss, size, ss, 3).mean(dim=(1, 3))
 
     return ss, pool_linear
 
@@ -239,6 +244,12 @@ def _optimize(loss_fn, params, mask, *, steps, lr, optimizer, on_step,
       kept per scene, as K independent fits would.
     - ``captures`` are large tensors the loss reads (the frozen noise
       fields), passed as ``loss_fn(p, *captures)``, detached.
+    - ``loss_fn`` returns the loss, or on a mesh an iterator of its parts,
+      one per mesh entry in entry order (their sum is the loss; in batch
+      mode, their concatenation). Each part is differentiated as it
+      comes, before the next entry's forward runs, so one entry's graph
+      is alive at a time; the gradients are summed on the params' device
+      in entry order, then made finite and masked.
     - Returns (best_params, losses): each step's loss belongs to the params
       before its update and the last iterate's loss is evaluated at the
       end, so the best pair is chosen over every iterate.
@@ -257,14 +268,30 @@ def _optimize(loss_fn, params, mask, *, steps, lr, optimizer, on_step,
     def host(loss):
         return loss.cpu().numpy() if batch else float(loss)
 
+    def parts_of(out):
+        return (out,) if torch.is_tensor(out) else out
+
+    def join(total, part):
+        part = part.detach().to(dev)
+        if total is None:
+            return part
+        return torch.cat([total, part]) if batch else total + part
+
     def step_fn(p, s):
         live = [leaf.detach().requires_grad_(m != 0.0)
                 for leaf, m in zip(tree_leaves(p), masks)]
-        loss = loss_fn(tree_unflatten_like(p, live), *caps)
-        total = loss.sum() if batch else loss
         wrt = [leaf for leaf in live if leaf.requires_grad]
-        got = iter(torch.autograd.grad(total, wrt, allow_unused=True)
-                   if wrt else ())
+        loss, summed = None, None
+        for part in parts_of(loss_fn(tree_unflatten_like(p, live), *caps)):
+            if wrt:
+                got = torch.autograd.grad(part.sum() if batch else part,
+                                          wrt, allow_unused=True)
+                summed = list(got) if summed is None else [
+                    g if a is None else a if g is None else a + g
+                    for a, g in zip(summed, got)]
+            loss = join(loss, part)
+            del part
+        got = iter(summed or ())
         grads = []
         for leaf, m in zip(live, masks):
             g = next(got) if leaf.requires_grad else None
@@ -324,7 +351,10 @@ def _optimize(loss_fn, params, mask, *, steps, lr, optimizer, on_step,
             break
     # the last iterate's loss was not seen by the loop
     with torch.no_grad():
-        final = host(loss_fn(params, *caps))
+        final = None
+        for part in parts_of(loss_fn(params, *caps)):
+            final = join(final, part)
+        final = host(final)
     losses.append(final)
     improve(final, params)
     return best_params, losses
@@ -436,40 +466,77 @@ def _f32(v, device):
     return torch.as_tensor(np.asarray(v, np.float32), device=device)
 
 
-def _no_mesh(mesh, who: str) -> None:
-    if mesh is not None:
-        raise NotImplementedError(
-            f"{who}(mesh=...) is not ported: data parallelism of the "
-            f"autograd fits (pixel rows, the batch axis, the view axis) is "
-            f"queued in ROADMAP.md §1 item 2")
+def _mesh_devices(mesh) -> list:
+    """The devices of a 1-D mesh's entries, in entry order, each checked as
+    a ``device=`` argument is (a CUDA entry without a card raises; a CPU
+    entry runs only where the caller names one)."""
+    if len(mesh.axis_names) != 1:
+        raise ValueError(f"need a 1-D mesh, got axes {mesh.axis_names}")
+    return [_device(d) for d in mesh.devices]
+
+
+def _check_mesh_divides(n_dev: int, size: int, pool: int, who: str) -> None:
+    if (size // pool) % n_dev:
+        raise ValueError(
+            f"{who}: pooled frame rows {size // pool} must divide the mesh "
+            f"({n_dev} devices) so every device owns whole output rows")
+
+
+def _check_views_divide(n_dev: int, k: int) -> None:
+    if k % n_dev:
+        raise ValueError(
+            f"fit_scene_multiview: {k} views must divide the mesh "
+            f"({n_dev} devices) so every device owns whole views")
+
+
+def _per_device(make):
+    """``make(device)`` once per distinct device: the constants that each
+    mesh entry reads on its own device."""
+    cache = {}
+
+    def get(d):
+        if d not in cache:
+            cache[d] = make(d)
+        return cache[d]
+    return get
+
+
+def _to(tree, d):
+    """A params tree on device ``d``: differentiable copies, or the leaves
+    themselves on their own device (the gradients cross the copies)."""
+    return tree_map(lambda leaf: leaf.to(d), tree)
 
 
 def _image_model(scene: Scene, size: int, pool: int, dev,
                  normalize: bool = False):
     """The differentiable forward model's image end, shared by the autograd
-    fits: (ss, prep, image_loss). ``prep(img)`` box-averages by ``pool``
-    (and with ``normalize`` divides by the mean); ``image_loss(linear,
-    target_prepped)`` pools the ss^2 rays per pixel in linear space, runs
-    the float post chain and returns the MSE in [0, 1] image space."""
+    fits: (ss, prep, image, image_loss). ``image(linear)`` pools the ss^2
+    rays per pixel in linear space and runs the float post chain into [0,
+    1]; ``prep(img)`` box-averages by ``pool`` (and with ``normalize``
+    divides by the mean); ``image_loss(linear, target_prepped)`` is the
+    MSE of the two in image space. Each works on a whole frame or a row
+    slab of whole pooled rows."""
     ss, linear_pooled = _ss_setup(scene, size)
     cfg = scene.config
     ex, ga, sa = (_f32(cfg.exposure, dev), _f32(cfg.gamma, dev),
                   _f32(cfg.saturation, dev))
+    o = size // pool
+
+    def image(linear):
+        return post_process_float(linear_pooled(linear), ex, ga,
+                                  sa) / const(linear, 255.0)
 
     def prep(img):
         if pool > 1:
-            o = size // pool
-            img = img.reshape(o, pool, o, pool, 3).mean(dim=(1, 3))
+            img = img.reshape(-1, pool, o, pool, 3).mean(dim=(1, 3))
         if normalize:
             img = img / (torch.mean(img) + 1e-6)
         return img
 
     def image_loss(linear, target_prepped):
-        img = post_process_float(linear_pooled(linear), ex, ga,
-                                 sa) / const(linear, 255.0)
-        return torch.mean((prep(img) - target_prepped) ** 2)
+        return torch.mean((prep(image(linear)) - target_prepped) ** 2)
 
-    return ss, prep, image_loss
+    return ss, prep, image, image_loss
 
 
 def _trip_bound(scenes, max_steps, fit_fields) -> int:
@@ -528,14 +595,26 @@ def fit_scene(
     ``Adam``'s init/update interface (unscaled updates).
     ``checkpoint_path`` saves the optimizer state every
     ``checkpoint_every`` steps and resumes from it when the file exists; a
-    checkpoint of a different setup is rejected. ``mesh`` (pixel-row data
-    parallelism) is not ported yet and raises (ROADMAP.md §1 item 2).
+    checkpoint of a different setup is rejected.
+
+    ``mesh`` (a 1-D ``parallel.Mesh``; ``device`` is then not consulted)
+    shards the pixel rows: entry i marches ray rows of pooled output rows
+    i * R + [0, R), R = (size // pool) / n, on its device (on that
+    device's current stream), and with march='frozen' precomputes and
+    keeps its own slab's noise fields there. The params stay on the
+    mesh's first device and each entry reads copies of them. An entry's
+    loss is its slab's mean squared error over n, differentiated before
+    the next entry runs, so a step holds one entry's graph at a time; the
+    loss is the sum of the entries' and the gradients are summed on the
+    first device in entry order. The pooled frame rows must divide the
+    mesh. Without a mesh the fit is this path on one entry, ``device``.
 
     Returns a FitResult whose scene is a deep copy with the fitted values
     written back.
     """
-    _no_mesh(mesh, "fit_scene")
-    dev = _device(device)
+    # without a mesh the fit is a one-entry mesh of ``device``
+    devs = [_device(device)] if mesh is None else _mesh_devices(mesh)
+    dev = devs[0]
     target = np.asarray(target_image, np.float32) / 255.0
     size = target.shape[0]
     if target.shape != (size, size, 3):
@@ -545,7 +624,8 @@ def fit_scene(
             f"target size {size} != scene.config.size {scene.config.size}")
     if pool < 1 or size % pool != 0:
         raise ValueError(f"pool {pool} must divide the size {size}")
-    ss, prep, image_loss = _image_model(scene, size, pool, dev)
+    _check_mesh_divides(len(devs), size, pool, "fit_scene")
+    ss, prep, _image, image_loss = _image_model(scene, size, pool, dev)
     target_pooled = prep(torch.as_tensor(target, device=dev))
 
     cfg = scene.config
@@ -565,21 +645,38 @@ def fit_scene(
         # field that feeds them
         check_frozen, precompute, frozen_fn = _frozen_march()
         check_frozen(static, fit_fields)
-        captures = (precompute(static, params, dirs, camera, rs, ms,
-                               trip_bound),)
 
-        def march_fn(p, fz):
-            return frozen_fn(static, p, dirs, camera, rs, ms, trip_bound, fz)
+        def march_on(p, d, c, r, m, fz):
+            return frozen_fn(static, p, d, c, r, m, trip_bound, fz)
     else:
         _march = _march_fn(march)
-        captures = ()
 
-        def march_fn(p, fz):
-            return _march(static, p, dirs, camera, rs, ms, trip_bound)
+        def march_on(p, d, c, r, m, fz):
+            return _march(static, p, d, c, r, m, trip_bound)
+
+    n = len(devs)
+    rows = size // n  # output rows an entry
+    consts = _per_device(lambda d: (
+        image_loss if d == dev else _image_model(scene, size, pool, d)[3],
+        rs.to(d), ms.to(d), camera.to(d)))
+    entries = [
+        (d, *consts(d), dirs[i * rows * ss:(i + 1) * rows * ss].to(d),
+         target_pooled[i * rows // pool:(i + 1) * rows // pool].to(d))
+        for i, d in enumerate(devs)]
+    captures = ((tuple(
+        precompute(static, _to(params, d), e_dirs, cam_d, rs_d, ms_d,
+                   trip_bound)
+        for d, _l, rs_d, ms_d, cam_d, e_dirs, _t in entries),)
+        if march == "frozen" else ())
 
     def loss_fn(p, *cap):
-        return image_loss(march_fn(p, cap[0] if cap else None),
-                          target_pooled)
+        # an entry's part is its slab's mean squared error times its share
+        # of the frame, 1 / n (times 1.0, exactly the mean, on one entry)
+        for i, (d, loss_d, rs_d, ms_d, cam_d, e_dirs,
+                e_target) in enumerate(entries):
+            yield loss_d(march_on(_to(p, d), e_dirs, cam_d, rs_d, ms_d,
+                                  cap[0][i] if cap else None),
+                         e_target) * (1.0 / n)
 
     mask = _fit_mask(params, fit_fields)
     # project the start too: a field on a singular value (inner == 0)
@@ -758,11 +855,18 @@ def fit_scene_batch(
     of one structure, camera pose and render config (each starts from its
     own values and gets its own frozen fields). ``target_images``: (K, N,
     N, 3) in [0, 255]. ``on_step(i, losses)`` sees the (K,) losses.
-    ``mesh`` (the batch axis over devices) is not ported yet and raises
-    (ROADMAP.md §1 item 2). Checkpoints resume the whole batch bit for
-    bit."""
-    _no_mesh(mesh, "fit_scene_batch")
-    dev = _device(device)
+    ``mesh`` (a 1-D ``parallel.Mesh``; ``device`` is then not consulted)
+    shards the batch axis: entry i fits scenes i * K/n ... (i+1) * K/n - 1
+    on its device, each reading copies of its slice of the stacked leaves
+    (which stay on the mesh's first device) and its own frozen fields;
+    each entry's part of the loss vector is differentiated before the
+    next entry runs. Scene k's graph is the unsharded one's, so on one
+    device the fit is bit-equal to the unsharded fit. K must divide the
+    mesh. Checkpoints resume the whole batch bit for bit, each leaf onto
+    the live leaf's device. Without a mesh the fit is this path on one
+    entry, ``device``."""
+    devs = [_device(device)] if mesh is None else _mesh_devices(mesh)
+    dev = devs[0]
     if hasattr(scenes, "instances"):
         scene_list = None
         template = scenes
@@ -787,7 +891,11 @@ def fit_scene_batch(
             f"{len(scene_list)} scenes but {K} targets")
     if pool < 1 or size % pool != 0:
         raise ValueError(f"pool {pool} must divide the size {size}")
-    ss, prep, image_loss = _image_model(template, size, pool, dev)
+    if K % len(devs):
+        raise ValueError(
+            f"fit_scene_batch: batch size {K} must divide the mesh "
+            f"({len(devs)} devices) so every device owns whole scenes")
+    ss, prep, _image, image_loss = _image_model(template, size, pool, dev)
     _check_march_fields(march, fit_fields)
 
     cfg = template.config
@@ -844,35 +952,51 @@ def fit_scene_batch(
     def scene_k(p, k):
         return tree_map(lambda leaf: leaf[k], p)
 
+    # the scenes' devices and each device's copies of the forward model's
+    # constants
+    n_ent = len(devs)
+    per = K // n_ent
+    scene_dev = [devs[k // per] for k in range(K)]
+    consts = _per_device(lambda d: (
+        image_loss if d == dev else _image_model(template, size, pool, d)[3],
+        dirs.to(d), camera.to(d), rs.to(d), ms.to(d)))
+    t_on = [targets_pooled[k].to(scene_dev[k]) for k in range(K)]
+
     if march == "frozen":
         check_frozen, precompute, frozen_fn = _frozen_march()
         check_frozen(static, fit_fields)
         if scene_list is None:
-            # one template: the K starts are equal, so ONE field set serves
-            # every scene instead of K x the precompute memory
-            shared = precompute(static, params_to_torch(params0, dev), dirs,
-                                camera, rs, ms, trip_bound)
-            captures = ((shared,) * K,)
+            # one template: the K starts are equal, so ONE field set per
+            # device serves every scene instead of K x the precompute memory
+            shared = _per_device(lambda d: precompute(
+                static, params_to_torch(params0, d), *consts(d)[1:],
+                trip_bound))
+            captures = (tuple(shared(d) for d in scene_dev),)
         else:
             # the fields depend on each scene's starting values
-            captures = (tuple(precompute(static, scene_k(params, k), dirs,
-                                         camera, rs, ms, trip_bound)
-                              for k in range(K)),)
+            captures = (tuple(precompute(
+                static, _to(scene_k(params, k), scene_dev[k]),
+                *consts(scene_dev[k])[1:], trip_bound) for k in range(K)),)
 
-        def march_scene(p, fz):
-            return frozen_fn(static, p, dirs, camera, rs, ms, trip_bound, fz)
+        def march_scene(p, d, fz):
+            return frozen_fn(static, p, *consts(d)[1:], trip_bound, fz)
     else:
         _march = _march_fn(march)
         captures = ()
 
-        def march_scene(p, fz):
-            return _march(static, p, dirs, camera, rs, ms, trip_bound)
+        def march_scene(p, d, fz):
+            return _march(static, p, *consts(d)[1:], trip_bound)
+
+    def scene_losses(p, cap, ks):
+        return torch.stack([
+            consts(scene_dev[k])[0](
+                march_scene(_to(scene_k(p, k), scene_dev[k]), scene_dev[k],
+                            cap[0][k] if cap else None), t_on[k])
+            for k in ks])
 
     def loss_fn(p, *cap):
-        return torch.stack([
-            image_loss(march_scene(scene_k(p, k), cap[0][k] if cap else None),
-                       targets_pooled[k])
-            for k in range(K)])
+        for i in range(n_ent):
+            yield scene_losses(p, cap, range(i * per, (i + 1) * per))
 
     mask = _fit_mask(params, fit_fields)
     params = _project_bounds(params, fit_fields)
@@ -930,11 +1054,19 @@ def fit_scene_multiview(
     brighter one). The forward model loops over the views, each with its
     own ray grid and camera origin (and with march='frozen' its own noise
     fields). The scene's own camera is not a view unless passed in
-    ``cameras``. ``pool``, ``march`` and checkpoints are as in fit_scene;
-    ``mesh`` (the view axis over devices) is not ported yet and raises
-    (ROADMAP.md §1 item 2)."""
-    _no_mesh(mesh, "fit_scene_multiview")
-    dev = _device(device)
+    ``cameras``. ``pool``, ``march`` and checkpoints are as in fit_scene.
+
+    ``mesh`` (a 1-D ``parallel.Mesh``; ``device`` is then not consulted)
+    shards the view axis: entry i renders views i * K/n ... (i+1) * K/n - 1
+    on its device from copies of the params (which stay on the mesh's
+    first device), with their frozen fields kept there; an entry's part
+    of the loss is its views' mean MSE times per / K, differentiated
+    before the next entry runs, and the per-view gradients are summed on
+    the first device in entry order. K must divide the mesh. Without a
+    mesh the fit is this path on one entry, ``device``."""
+    # without a mesh the fit is a one-entry mesh of ``device``
+    devs = [_device(device)] if mesh is None else _mesh_devices(mesh)
+    dev = devs[0]
     targets = np.asarray(targets, np.float32) / 255.0
     size = int(scene.config.size)
     if targets.ndim != 4 or targets.shape[1:] != (size, size, 3):
@@ -947,9 +1079,15 @@ def fit_scene_multiview(
             f"{K} target views but {len(cameras)} cameras")
     if pool < 1 or size % pool != 0:
         raise ValueError(f"pool {pool} must divide the size {size}")
-    ss, prep, image_loss = _image_model(scene, size, pool, dev)
-    targets_pooled = [prep(torch.as_tensor(targets[v], device=dev))
-                      for v in range(K)]
+    _check_views_divide(len(devs), K)
+    n_ent = len(devs)
+    per = K // n_ent
+    view_dev = [devs[v // per] for v in range(K)]
+    ss, prep, _image, image_loss = _image_model(scene, size, pool, dev)
+    losses_on = _per_device(lambda d: (
+        image_loss if d == dev else _image_model(scene, size, pool, d)[3]))
+    targets_pooled = [prep(torch.as_tensor(targets[v], device=dev)).to(
+        view_dev[v]) for v in range(K)]
 
     cfg = scene.config
     static, params0 = flatten_scene(scene)
@@ -959,34 +1097,46 @@ def fit_scene_multiview(
         np.asarray([c.target for c in cameras], np.float32),
         np.asarray([c.up for c in cameras], np.float32),
         np.asarray([c.fov for c in cameras], np.float32))
-    dirs = [ray_grid_xla(size * ss, _f32(m, dev)) for m in inv_vps]
-    cam_pos = [_f32(c.camera, dev) for c in cameras]
+    dirs = [ray_grid_xla(size * ss, _f32(m, view_dev[v]))
+            for v, m in enumerate(inv_vps)]
+    cam_pos = [_f32(c.camera, view_dev[v]) for v, c in enumerate(cameras)]
     trip_bound = _trip_bound([scene], max_steps, fit_fields)
-    rs, ms = _f32(cfg.ray_step, dev), _f32(cfg.min_ray_step, dev)
+    steps_on = _per_device(lambda d: (_f32(cfg.ray_step, d),
+                                      _f32(cfg.min_ray_step, d)))
 
     _check_march_fields(march, fit_fields)
     if march == "frozen":
         # per-view frozen noise: each view has its own rays and origin
         check_frozen, precompute, frozen_fn = _frozen_march()
         check_frozen(static, fit_fields)
-        captures = (tuple(precompute(static, params, dirs[v], cam_pos[v], rs,
-                                     ms, trip_bound) for v in range(K)),)
+        captures = (tuple(precompute(
+            static, _to(params, view_dev[v]), dirs[v], cam_pos[v],
+            *steps_on(view_dev[v]), trip_bound) for v in range(K)),)
 
         def march_view(p, v, fz):
-            return frozen_fn(static, p, dirs[v], cam_pos[v], rs, ms,
-                             trip_bound, fz)
+            return frozen_fn(static, p, dirs[v], cam_pos[v],
+                             *steps_on(view_dev[v]), trip_bound, fz)
     else:
         _march = _march_fn(march)
         captures = ()
 
         def march_view(p, v, fz):
-            return _march(static, p, dirs[v], cam_pos[v], rs, ms, trip_bound)
+            return _march(static, p, dirs[v], cam_pos[v],
+                          *steps_on(view_dev[v]), trip_bound)
+
+    def view_losses(p, cap, vs):
+        return torch.stack([
+            losses_on(view_dev[v])(
+                march_view(_to(p, view_dev[v]), v, cap[0][v] if cap else None),
+                targets_pooled[v])
+            for v in vs])
 
     def loss_fn(p, *cap):
-        return torch.mean(torch.stack([
-            image_loss(march_view(p, v, cap[0][v] if cap else None),
-                       targets_pooled[v])
-            for v in range(K)]))
+        # an entry's part is its views' mean MSE times their share, per / K
+        # (times 1.0, exactly the mean, on one entry)
+        for i in range(n_ent):
+            yield torch.mean(view_losses(
+                p, cap, range(i * per, (i + 1) * per))) * (per / K)
 
     mask = _fit_mask(params, fit_fields)
     params = _project_bounds(params, fit_fields)
@@ -1072,12 +1222,27 @@ def fit_pose(
     ``normalize`` (default on) compares mean-normalized images, so a
     brightness offset between an LOD render and a full-quality target does
     not pull the pose; ``pool`` box-averages both images first.
-    Checkpoints resume bit for bit; ``mesh`` (pixel rows over devices) is
-    not ported yet and raises (ROADMAP.md §1 item 2).
+    Checkpoints resume bit for bit.
+
+    ``mesh`` (a 1-D ``parallel.Mesh``; ``device`` is then not consulted)
+    shards the pixel rows: entry i builds the rays of pooled output rows
+    i * R + [0, R), R = (size // pool) / n, from a copy of the pose's
+    camera matrix and marches them on its device, so the pose gradient
+    crosses the copies. The entries' images are gathered on the first
+    device and the loss runs there (``normalize`` divides by the whole
+    frame's mean, so no entry's share is known before every slab is
+    marched); the loss's gradient in each entry's image is then carried
+    back through that entry's graph alone, one entry after another, and
+    the pose gradients are summed on the first device in entry order.
+    The pooled frame rows must divide the mesh.
     """
-    _no_mesh(mesh, "fit_pose")
     wanted = _check_pose_fields(fit_fields)
-    dev = _device(device)
+    devs = None
+    if mesh is not None:
+        devs = _mesh_devices(mesh)
+        dev = devs[0]
+    else:
+        dev = _device(device)
     target = np.asarray(target_image, np.float32) / 255.0
     size = target.shape[0]
     if target.shape != (size, size, 3) or size != scene.config.size:
@@ -1086,7 +1251,10 @@ def fit_pose(
             f"got {target.shape}")
     if pool < 1 or size % pool != 0:
         raise ValueError(f"pool {pool} must divide the size {size}")
-    ss, prep, image_loss = _image_model(scene, size, pool, dev, normalize)
+    if devs is not None:
+        _check_mesh_divides(len(devs), size, pool, "fit_pose")
+    ss, prep, _image, image_loss = _image_model(scene, size, pool, dev,
+                                                normalize)
     target_prepped = prep(torch.as_tensor(target, device=dev))
 
     cfg = scene.config
@@ -1102,16 +1270,55 @@ def fit_pose(
     rs, ms = _f32(cfg.ray_step, dev), _f32(cfg.min_ray_step, dev)
     march_fn = _march_fn(march)
 
-    def loss_fn(p):
+    def inv_vp_on(p, d):
         # the 4x4 chain runs on the host, as fit_scene's host matrix does,
         # so a pose fit sees the same bits on the card as fit_scene; the
         # gradient crosses the copies
-        inv_vp = inv_view_projection_tensor(
+        return inv_view_projection_tensor(
             p["camera"].to(host), p["target"].to(host), up,
-            p["fov"].to(host)).to(dev)
-        dirs = ray_grid_xla(size * ss, inv_vp)
-        return image_loss(march_fn(static, gal, dirs, p["camera"], rs, ms,
-                                   trip_bound), target_prepped)
+            p["fov"].to(host)).to(d)
+
+    def loss_fn(p):
+        if devs is None:
+            dirs = ray_grid_xla(size * ss, inv_vp_on(p, dev))
+            return image_loss(march_fn(static, gal, dirs, p["camera"], rs,
+                                       ms, trip_bound), target_prepped)
+        return mesh_parts(p)
+
+    # each device's image end, galaxy and step sizes
+    entry = _per_device(lambda d: (
+        _image_model(scene, size, pool, d, normalize)[2], _to(gal, d),
+        _f32(cfg.ray_step, d), _f32(cfg.min_ray_step, d)))
+
+    def mesh_parts(p):
+        """The loss on the mesh as one part per entry. Every entry builds
+        its own chain and slab of rays from the pose (a row slab of the
+        grid is the same rows of the whole grid) and marches it on its
+        device; the loss runs on the gathered frame (``normalize`` reads
+        its mean), and its gradient in entry i's image, carried back
+        through entry i's own graph, is entry i's part: sum(img_i * g_i)
+        has the gradient of that share and adds 0 to the value (the first
+        part carries the loss's value)."""
+        rows = size // len(devs)  # output rows an entry
+        imgs = []
+        for i, d in enumerate(devs):
+            dirs = ray_grid_xla(size * ss, inv_vp_on(p, d), i * rows * ss,
+                                rows * ss)
+            image_d, gal_d, rs_d, ms_d = entry(d)
+            imgs.append(image_d(march_fn(static, gal_d, dirs,
+                                         p["camera"].to(d), rs_d, ms_d,
+                                         trip_bound)))
+        gathered = [img.detach().to(dev).requires_grad_() for img in imgs]
+        loss = torch.mean((prep(torch.cat(gathered)) - target_prepped) ** 2)
+        value = loss.detach()
+        if not torch.is_grad_enabled():
+            yield value
+            return
+        shares = torch.autograd.grad(loss, gathered)
+        for i, img in enumerate(imgs):
+            s = torch.sum(img * shares[i].to(img.device))
+            base = value.to(img.device) if i == 0 else torch.zeros_like(s)
+            yield base + (s - s.detach())
 
     mask = {k: 1.0 if k in wanted else 0.0 for k in pose}
 
@@ -1639,9 +1846,9 @@ def fit_pose_multiscale(
     (LOD 0) removes the LOD's bias. ``steps`` applies per rung, and each
     rung has its own checkpoint file (``<checkpoint_path>.rung<n>``);
     ``on_step`` sees a global step index, and an abort inside a rung stops
-    the ladder. The returned scene keeps the caller's noise_octaves. CLI:
-    ``fitpose ... multiscale``."""
-    _no_mesh(mesh, "fit_pose_multiscale")
+    the ladder. The returned scene keeps the caller's noise_octaves.
+    ``mesh`` shards every rung's pixel rows (fit_pose), so each rung's
+    pooled rows must divide it. CLI: ``fitpose ... multiscale``."""
     if not schedule:
         raise ValueError("schedule must have at least one (lod, pool) rung")
     size = int(scene.config.size)
@@ -1663,7 +1870,7 @@ def fit_pose_multiscale(
             rung_scene, target_image, fit_fields, steps=steps, lr=lr,
             max_steps=max_steps, optimizer=optimizer,
             on_step=_block_callback(on_step, base, state),
-            normalize=normalize, pool=pool, march=march,
+            normalize=normalize, pool=pool, march=march, mesh=mesh,
             # a finished rung's file already holds step == steps, so a
             # restarted ladder skips it
             checkpoint_path=(f"{checkpoint_path}.rung{base // steps}"
@@ -1718,9 +1925,9 @@ def fit_joint(
     ``checkpoint_path`` writes per-block files (``.r<k>.pose``,
     ``.r<k>.scene``); a finished block is skipped on restart. Returns a
     FitResult whose scene carries both fits and whose ``params`` is
-    {"pose": pose dict, "scene": params}. ``mesh`` is not ported yet and
-    raises (ROADMAP.md §1 item 2)."""
-    _no_mesh(mesh, "fit_joint")
+    {"pose": pose dict, "scene": params}. ``mesh`` goes to both blocks:
+    fit_pose_fd spreads its probe frames over it, fit_pose_multiscale and
+    fit_scene shard their pixel rows over it."""
     if rounds < 1:
         raise ValueError(f"rounds must be >= 1, got {rounds}")
     if pose_method not in ("multiscale", "fd"):
@@ -1728,6 +1935,10 @@ def fit_joint(
             f"unknown pose_method {pose_method!r}; use 'multiscale' or 'fd'")
     _check_march_fields(march if march != "frozen" else "tensor",
                         scene_fields)  # frozen is checked per block
+    if mesh is not None:
+        # the parameter block's rows, checked before any pose block runs
+        _check_mesh_divides(len(_mesh_devices(mesh)), scene.config.size, 1,
+                            "fit_scene")
     pose_block = (pose_steps * len(pose_schedule)
                   if pose_method == "multiscale" else pose_steps)
     current = scene
@@ -1742,14 +1953,14 @@ def fit_joint(
             pres = fit_pose_fd(
                 current, target_image, ("camera",), steps=pose_steps,
                 lr=pose_lr, on_step=_block_callback(on_step, base, state),
-                normalize=normalize, checkpoint_path=pose_ckpt,
+                normalize=normalize, mesh=mesh, checkpoint_path=pose_ckpt,
                 checkpoint_every=checkpoint_every, device=device)
         else:
             pres = fit_pose_multiscale(
                 current, target_image, ("camera",), steps=pose_steps,
                 lr=pose_lr, schedule=pose_schedule, optimizer=optimizer,
                 on_step=_block_callback(on_step, base, state),
-                normalize=normalize, march="tensor",
+                normalize=normalize, march="tensor", mesh=mesh,
                 checkpoint_path=pose_ckpt,
                 checkpoint_every=checkpoint_every, device=device)
         current = pres.scene
@@ -1762,6 +1973,7 @@ def fit_joint(
             current, target_image, scene_fields, steps=scene_steps,
             lr=scene_lr, optimizer=optimizer,
             on_step=_block_callback(on_step, base, state), march=march,
+            mesh=mesh,
             checkpoint_path=(f"{checkpoint_path}.r{r}.scene"
                              if checkpoint_path else None),
             checkpoint_every=checkpoint_every, device=device)
@@ -1821,9 +2033,8 @@ def fit_joint_multiview(
     ``on_step`` sees a global index over rounds * (K * pose_steps +
     scene_steps); ``checkpoint_path`` writes per-block files
     (``.r<k>.pose<v>``, ``.r<k>.scene``), a finished block skipped on
-    restart. ``mesh`` is not ported yet and raises (ROADMAP.md §1 item
-    2)."""
-    _no_mesh(mesh, "fit_joint_multiview")
+    restart. ``mesh`` shards the view axis of the parameter blocks
+    (fit_scene_multiview); the pose blocks run on its first device."""
     if rounds < 1:
         raise ValueError(f"rounds must be >= 1, got {rounds}")
     targets = np.asarray(targets)
@@ -1831,6 +2042,12 @@ def fit_joint_multiview(
     if targets.shape[0] != K:
         raise ValueError(
             f"{targets.shape[0]} targets for {K} cameras")
+    pose_device = device
+    if mesh is not None:
+        # the parameter blocks' views, checked before any pose block runs
+        devs = _mesh_devices(mesh)
+        _check_views_divide(len(devs), K)
+        pose_device = devs[0]
     cams = list(cameras)
     current = scene
     all_losses: List[float] = []
@@ -1846,7 +2063,7 @@ def fit_joint_multiview(
                 normalize=normalize,
                 checkpoint_path=(f"{checkpoint_path}.r{r}.pose{v}"
                                  if checkpoint_path else None),
-                checkpoint_every=checkpoint_every, device=device)
+                checkpoint_every=checkpoint_every, device=pose_device)
             cams[v] = pres.scene.camera
             all_losses.extend(pres.losses)
             base += pose_steps
@@ -1857,7 +2074,7 @@ def fit_joint_multiview(
         sres = fit_scene_multiview(
             current, targets, cams, scene_fields, steps=scene_steps,
             lr=scene_lr, on_step=_block_callback(on_step, base, state),
-            march=march,
+            march=march, mesh=mesh,
             checkpoint_path=(f"{checkpoint_path}.r{r}.scene"
                              if checkpoint_path else None),
             checkpoint_every=checkpoint_every, device=device)

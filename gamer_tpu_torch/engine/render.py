@@ -5,7 +5,8 @@ and supersample pooling in linear space.
 The XLA march (``render_rays``, ``render_frame``, ``render_frame_ss``,
 ``render_scene``) is the JAX package's conformance march in torch ops:
 every ray steps in lockstep through a Python loop whose body is vectorized
-over rays, with per-ray masks as selects, until every ray is done. Its
+over rays, with per-ray masks as selects, until every ray is done (on the
+card the loop replays one CUDA graph of a trip, ``_march_graphed``). Its
 arithmetic is the XLA march's, not the kernel's: a per-step camera
 distance ``norm3(p - o)`` (render.py:395-400 of the JAX package) where
 csrc/march.cu keeps ``dist0 - tacc``, the library atan/atan2, and the
@@ -14,7 +15,11 @@ differentiable marches (engine/diff.py, engine/tensor_march.py) reuse: the
 component math takes a ``pow_fn`` (``safe_pow`` there) and a ``noise``
 hook (the frozen noise fields). Parameters are torch tensors
 (``params_to_torch``); scalars that the JAX march takes as float32 arrays
-(ray step, post knobs) are float32 tensors here too.
+(ray step, post knobs) are float32 tensors here too. ``render_rows`` marches
+a row slab of a frame, which equals the same rows of the whole frame: the
+sharded frame (``render_scene(mesh=...)``, behind
+``render_scene_sharded(method="xla")``) and the queue's progressive chunks
+(``engine/queue.py``) are slabs.
 """
 
 from __future__ import annotations
@@ -471,10 +476,51 @@ def _march_instance(st: InstanceStatic, pr, dirs, camera, I, winding,
                                                    ray_step, min_step, dither)
     state = (origin, I, winding, torch.full_like(length, 1.0) * ray_step,
              ~alive)
+
+    def step(s):
+        return _march_step(st, pr, s, o, origin, length, dir_m, ray_step,
+                           min_step)
+
+    if dirs.is_cuda:
+        return _march_graphed(step, state)
     while bool((~state[4]).any()):
-        state = _march_step(st, pr, state, o, origin, length, dir_m,
-                            ray_step, min_step)
+        state = step(state)
     return state[1], state[2]
+
+
+# trips replayed between two checks of "every ray is done" on the card
+GRAPH_TRIPS = 8
+
+
+def _march_graphed(step, state):
+    """The lockstep loop on the card as one CUDA graph of a trip, replayed
+    GRAPH_TRIPS times between checks. A trip is ~10^3 small kernels that
+    the host issues one by one (the loop is launch-bound); a replay
+    issues them at once. The kernels and their inputs are the eager
+    trip's, and a trip leaves a done ray's state as it was, so the trips
+    past the last ray's end change nothing: the result is the eager
+    loop's bit for bit. The first trip runs eagerly on a side stream (it
+    fills the per-device constant caches before the capture)."""
+    dev = state[0].device
+    with torch.no_grad(), torch.cuda.device(dev):
+        side = torch.cuda.Stream(dev)
+        side.wait_stream(torch.cuda.current_stream(dev))
+        with torch.cuda.stream(side):
+            state = step(state)
+        torch.cuda.current_stream(dev).wait_stream(side)
+        if not bool((~state[4]).any()):
+            return state[1], state[2]
+        live = tuple(t.clone() for t in state)
+        graph = torch.cuda.CUDAGraph()
+        # thread_local: the service's worker threads may use the card
+        # while this thread captures
+        with torch.cuda.graph(graph, capture_error_mode="thread_local"):
+            for t, new in zip(live, step(live)):
+                t.copy_(new)
+        while bool((~live[4]).any()):
+            for _ in range(GRAPH_TRIPS):
+                graph.replay()
+        return live[1], live[2]
 
 
 def render_rays(static: SceneStatic, params, dirs, camera, ray_step,
@@ -499,11 +545,28 @@ def _post_uint8(linear, exposure, gamma, saturation):
                         np.float32(gamma.item()), np.float32(saturation.item()))
 
 
+def render_rows(static: SceneStatic, size: int, ss: int, params, camera,
+                inv_vp, ray_step, min_step, row0: int = 0,
+                rows: int | None = None):
+    """Linear radiance of ``rows`` output rows (default all) of a size x
+    size frame from row ``row0`` on, as (rows, size, 3): the rays of rows
+    [row0 * ss, (row0 + rows) * ss) of the size * ss grid, with ss^2 rays
+    per pixel box-averaged in linear space (RenderConfig.supersample). A
+    done ray's state no longer changes, so a row slab equals the same rows
+    of the whole frame: the sharded and progressive XLA forms are slabs."""
+    rows = size if rows is None else rows
+    dirs = ray_grid_xla(size * ss, inv_vp, row0 * ss, rows * ss)
+    linear = render_rays(static, params, dirs, camera, ray_step, min_step)
+    if ss > 1:
+        linear = linear.reshape(rows, ss, size, ss, 3).mean(dim=(1, 3))
+    return linear
+
+
 def render_frame(static: SceneStatic, size: int, params, camera, inv_vp,
                  ray_step, min_step, exposure, gamma, saturation):
     """One frame: rays -> march -> post, as (uint8 image, linear)."""
-    dirs = ray_grid_xla(size, inv_vp)
-    linear = render_rays(static, params, dirs, camera, ray_step, min_step)
+    linear = render_rows(static, size, 1, params, camera, inv_vp, ray_step,
+                         min_step)
     return _post_uint8(linear, exposure, gamma, saturation), linear
 
 
@@ -511,55 +574,90 @@ def render_frame_ss(static: SceneStatic, size: int, ss: int, params, camera,
                     inv_vp, ray_step, min_step, exposure, gamma, saturation):
     """Supersampled frame: ss^2 rays per pixel, box-averaged in linear space
     before the post chain (RenderConfig.supersample)."""
-    dirs = ray_grid_xla(size * ss, inv_vp)
-    linear = render_rays(static, params, dirs, camera, ray_step, min_step)
-    linear = linear.reshape(size, ss, size, ss, 3).mean(dim=(1, 3))
+    linear = render_rows(static, size, ss, params, camera, inv_vp, ray_step,
+                         min_step)
     return _post_uint8(linear, exposure, gamma, saturation), linear
 
 
-def scene_args(scene, device):
+def scene_args(scene, device, dtype=torch.float32):
     """(static, params, camera, inv_vp, ray step, min step, exposure,
-    gamma, saturation) of a Scene as tensors on ``device``: the arguments
-    of render_frame and of the differentiable frames."""
+    gamma, saturation) of a Scene as tensors of ``dtype`` on ``device``:
+    the arguments of render_frame and of the differentiable frames. The
+    values are cast from the scene's numbers to ``dtype``, as
+    ``gamer_tpu.engine.render.render_scene`` casts them; the 4x4 inverse
+    view-projection is the host's float32 one in every dtype."""
     cfg = scene.config
-    static, params = flatten_scene(scene)
+    np_dtype = np.float64 if dtype == torch.float64 else np.float32
+    static, params = flatten_scene(scene, np_dtype)
     camera = np.asarray(scene.camera.camera, np.float32)
     inv_vp = inv_view_projection(camera, scene.camera.target, scene.camera.up,
                                  scene.camera.fov)
 
     def t(v):
-        return torch.as_tensor(np.asarray(v, np.float32), device=device)
+        return torch.as_tensor(np.asarray(v, np_dtype), device=device,
+                               dtype=dtype)
 
-    return (static, params_to_torch(params, device), t(camera), t(inv_vp),
-            t(cfg.ray_step), t(cfg.min_ray_step), t(cfg.exposure),
+    return (static, params_to_torch(params, device, dtype),
+            t(scene.camera.camera),
+            t(inv_vp), t(cfg.ray_step), t(cfg.min_ray_step), t(cfg.exposure),
             t(cfg.gamma), t(cfg.saturation))
 
 
-def render_scene(scene, device="cuda", return_linear: bool = False):
+def assemble(linear, cfg, exposure, gamma, saturation):
+    """The frame's epilogue on the radiance buffer's device: the star
+    overlay added to the radiance (rasterizer.cpp:320-321), then the post
+    chain -> (uint8 image, linear with stars)."""
+    if cfg.no_stars > 0:
+        from .cuda_render import _star_overlay
+
+        linear = linear + _star_overlay(cfg, linear.device).to(linear.dtype)
+    return _post_uint8(linear, exposure, gamma, saturation), linear
+
+
+def render_scene(scene, device="cuda", return_linear: bool = False,
+                 mesh=None, dtype=torch.float32):
     """Render a Scene with the XLA march on ``device`` (the card unless the
     caller asks for the CPU): a (size, size, 3) uint8 numpy array, and the
     linear radiance buffer with ``return_linear``. The star overlay is
     added to the radiance buffer and the post chain runs again
     (rasterizer.cpp:320-321). The package's ``render_scene`` is the march
     kernel's path (engine/cuda_render.py); this one is the conformance
-    march that the fits differentiate."""
-    from .cuda_render import _device, _star_overlay
+    march that the fits differentiate.
 
-    dev = _device(device)
+    With ``mesh`` (a 1-D ``parallel.Mesh``; ``device`` is then not
+    consulted) entry i marches output rows i * size/n + [0, size/n) on its
+    device, on that device's current stream; the slabs are gathered on the
+    mesh's first device, where the epilogue runs. The size must divide the
+    mesh. The frame is bit-equal to the unsharded one on the same device:
+    every ray's march is element-wise. ``dtype`` is the march's float
+    type."""
+    from .cuda_render import _device, mesh_device
+
     cfg = scene.config
-    (static, params, camera, inv_vp, rs, ms, ex, ga,
-     sa) = scene_args(scene, dev)
     with torch.no_grad():
-        if cfg.supersample > 1:
-            img, linear = render_frame_ss(static, cfg.size, cfg.supersample,
-                                          params, camera, inv_vp, rs, ms, ex,
-                                          ga, sa)
+        if mesh is None:
+            dev = _device(device)
+            (static, params, camera, inv_vp, rs, ms, ex, ga,
+             sa) = scene_args(scene, dev, dtype)
+            linear = render_rows(static, cfg.size, cfg.supersample, params,
+                                 camera, inv_vp, rs, ms)
         else:
-            img, linear = render_frame(static, cfg.size, params, camera,
-                                       inv_vp, rs, ms, ex, ga, sa)
-        if cfg.no_stars > 0:
-            linear = linear + _star_overlay(cfg, dev)
-            img = _post_uint8(linear, ex, ga, sa)
+            if len(mesh.axis_names) != 1:
+                raise ValueError(
+                    f"need a 1-D mesh, got axes {mesh.axis_names}")
+            if cfg.size % mesh.size != 0:
+                raise ValueError(
+                    f"size {cfg.size} not divisible by mesh size "
+                    f"{mesh.size}; choose a size that tiles over the mesh")
+            dev = mesh_device(mesh)
+            rows = cfg.size // mesh.size
+            args = {d: scene_args(scene, _device(d), dtype)
+                    for d in mesh.devices}
+            linear = torch.cat([render_rows(
+                args[d][0], cfg.size, cfg.supersample, *args[d][1:6],
+                i * rows, rows).to(dev) for i, d in enumerate(mesh.devices)])
+            ex, ga, sa = args[mesh.devices[0]][6:]
+        img, linear = assemble(linear, cfg, ex, ga, sa)
     if return_linear:
         return img.cpu().numpy(), linear.cpu().numpy()
     return img.cpu().numpy()

@@ -124,16 +124,20 @@ def ray_grid(size: int, inv_vp, row0: float = 0.0, device="cpu",
     return coord2ray(i_g, j_g, size, inv_vp)
 
 
-def ray_grid_xla(size: int, inv_vp):
-    """All rays of a size x size frame as (size, size, 3) [row j, col i],
-    in the expression of the XLA march (``gamer_tpu.ops.camera.ray_grid``):
-    the screen point (xx, -yy, 1, 1) dotted with the rows of ``inv_vp`` in
-    index order, then ``v / |v|``. ``inv_vp`` is a (4, 4) float32 tensor,
-    and the rays are differentiable in it."""
+def ray_grid_xla(size: int, inv_vp, row0: int = 0, rows: int | None = None):
+    """The rays of ``rows`` rows (default all) of a size x size frame from
+    row ``row0`` on, as (rows, size, 3) [row j, col i], in the expression of
+    the XLA march (``gamer_tpu.ops.camera.ray_grid``): the screen point
+    (xx, -yy, 1, 1) dotted with the rows of ``inv_vp`` in index order, then
+    ``v / |v|``. Each ray is an element-wise function of its (i, j), so a
+    row slab equals the same rows of the whole grid. ``inv_vp`` is a (4, 4)
+    float tensor, and the rays are differentiable in it."""
     dt, dev = inv_vp.dtype, inv_vp.device
+    rows = size if rows is None else rows
     half = torch.tensor(float(size), dtype=dt, device=dev) * 0.5
     ii = torch.arange(size, dtype=dt, device=dev)
-    j_g, i_g = torch.meshgrid(ii, ii, indexing="ij")
+    jj = torch.arange(row0, row0 + rows, dtype=dt, device=dev)
+    j_g, i_g = torch.meshgrid(jj, ii, indexing="ij")
     xx = i_g / half - 1.0
     yy = j_g / half - 1.0
     w = [((xx * inv_vp[r, 0] + (-yy) * inv_vp[r, 1]) + inv_vp[r, 2])

@@ -58,8 +58,8 @@ so everything the CLI and the library can render is servable. Endpoints:
                             posed views (fit_scene_multiview; with "pose":
                             "joint" the poses are refined per view,
                             fit_joint_multiview). fd pose jobs spread over
-                            the batch mesh; autograd fits run on the first
-                            device (ROADMAP.md §1 item 2)
+                            the batch mesh; autograd fits shard over the
+                            service mesh where their rows or views tile it
   GET    /job/<id>          state/progress/timing (?wait=s long-polls)
   GET    /job/<id>/image.png       finished (or abort-partial) frame
   GET    /job/<id>/animation.gif   fly-through result (501 without PIL)
@@ -412,9 +412,9 @@ class RenderService:
 
         Where it runs: fd pose jobs spread their probe frames over the
         service's batch mesh (as every batch does); every autograd fit,
-        the parameter and pose blocks of joint fits included, runs with
-        mesh=None on the service's first device until the fits' data
-        parallelism lands (ROADMAP.md §1 item 2)."""
+        the parameter and pose blocks of joint fits included, shards its
+        pixel rows over the service mesh when every rung's pooled rows
+        tile it, else runs on the service's first device."""
         scene = self._coerce_scene(scene)
         target_image = _target_array(target_image)
         size = scene.config.size
@@ -507,8 +507,9 @@ class RenderService:
         held. ``pose="joint"`` takes them as starting guesses instead
         (fit_joint_multiview: ``rounds`` alternations of per-view
         fit_pose_fd blocks of ``pose_steps`` and a shared parameter
-        block); the result then carries the K fitted cameras. Runs with
-        mesh=None on the service's first device (ROADMAP.md §1 item 2)."""
+        block); the result then carries the K fitted cameras. The view
+        axis shards over the service mesh when K divides it, else the fit
+        runs on the service's first device."""
         scene = self._coerce_scene(scene)
         size = scene.config.size
         if not views:
@@ -938,8 +939,18 @@ class RenderService:
         result is the fitted scene dict and loss trace, plus a render of
         the fitted scene (``render_scene``, K1 on the card) for
         /image.png. fd pose jobs spread their probe frames over the batch
-        mesh; every autograd fit runs with mesh=None on the service's
-        device (ROADMAP.md §1 item 2)."""
+        mesh; the autograd fits shard over the service mesh where every
+        rung tiles it (``_fit_mesh``; multi-view fits where the views
+        divide it), else they run on the service's device.
+
+        The sharding is the JAX service's, and it costs time: one host
+        thread issues every entry's launches, so a fit on a mesh of n
+        cards takes n x the launches of the unsharded fit at 1/n of the
+        pixels and runs slower (PERF.md section 5: a fit_scene step
+        2.5 x, a fit_pose step ~5 x on four NVIDIA H100 80GB HBM3 at
+        700 W), with 1/n of the peak
+        memory on each card. A service that should fit faster is started
+        without a mesh."""
         from .engine.fit import (
             DEFAULT_POSE_SCHEDULE,
             DEFAULT_SCENE_SCHEDULE,
@@ -983,18 +994,33 @@ class RenderService:
             return not job.abort.is_set()
 
         dev = dict(device=self.device)
+        if multiview:
+            # the view axis shards over the service mesh when it tiles
+            # (K % n == 0), else the fit runs on the first device
+            mesh = self.mesh
+            if mesh is not None and len(spec["cameras"]) % mesh.size:
+                mesh = None
+        elif joint:
+            # both blocks must tile the mesh: the pose ladder's rungs and
+            # the full-size parameter block (the JAX service's rule, which
+            # checks the ladder for fd pose blocks too)
+            mesh = self._fit_mesh(job.scene, True, pose=True)
+            if mesh is not None and \
+                    self._fit_mesh(job.scene, False, pose=False) is None:
+                mesh = None
         if multiview and joint:
             result = fit_joint_multiview(
                 job.scene, spec["target"], spec["cameras"],
                 spec["fit_fields"], rounds=spec["rounds"],
                 pose_steps=pose_steps, scene_steps=spec["steps"],
-                scene_lr=spec["lr"], on_step=on_step,
+                scene_lr=spec["lr"], on_step=on_step, mesh=mesh,
                 march=spec.get("march", "frozen"), **dev)
         elif multiview:
             result = fit_scene_multiview(
                 job.scene, spec["target"], spec["cameras"],
                 spec["fit_fields"], steps=spec["steps"], lr=spec["lr"],
-                on_step=on_step, march=spec.get("march", "tensor"), **dev)
+                on_step=on_step, mesh=mesh,
+                march=spec.get("march", "tensor"), **dev)
         elif joint:
             result = fit_joint(
                 job.scene, spec["target"], spec["fit_fields"],
@@ -1002,7 +1028,7 @@ class RenderService:
                 scene_steps=spec["steps"], scene_lr=spec["lr"],
                 on_step=on_step,
                 pose_method=spec.get("pose_method", "multiscale"),
-                march=spec.get("march", "tensor"), **dev)
+                march=spec.get("march", "tensor"), mesh=mesh, **dev)
         elif pose == "fd":
             # the 2K+1 probe frames of a step are one batch: they spread
             # over the batch mesh like any batch
@@ -1018,7 +1044,10 @@ class RenderService:
             result = fitter(job.scene, spec["target"], spec["fit_fields"],
                             steps=spec["steps"], lr=spec["lr"],
                             on_step=on_step,
-                            march=spec.get("march", "tensor"), **dev)
+                            march=spec.get("march", "tensor"),
+                            mesh=self._fit_mesh(job.scene,
+                                                spec["multiscale"], pose),
+                            **dev)
         job.result = {
             "scene": scene_to_dict(result.scene),
             "losses": [float(v) for v in result.losses],
@@ -1035,6 +1064,27 @@ class RenderService:
                 for k, v in pose_params.items()}
         job.image = cuda_render.render_scene(result.scene, device=self.device)
         self._finish(job, ABORTED if job.abort.is_set() else DONE)
+
+    def _fit_mesh(self, scene, multiscale: bool, pose: bool = False):
+        """The service mesh if every rung of an autograd fit tiles it with
+        whole pooled rows, else None (the fit then runs on the first
+        device, so odd sizes stay serviceable). Scene rungs render at
+        size // s over DEFAULT_SCENE_SCHEDULE; pose rungs render at full
+        size and pool the loss by the schedule's pool factor."""
+        if self.mesh is None:
+            return None
+        from .engine.fit import DEFAULT_POSE_SCHEDULE, DEFAULT_SCENE_SCHEDULE
+
+        n = self.mesh.size
+        size = int(scene.config.size)
+        if pose:
+            divisors = ([p for _, p in DEFAULT_POSE_SCHEDULE]
+                        if multiscale else [1])
+        else:
+            divisors = list(DEFAULT_SCENE_SCHEDULE) if multiscale else [1]
+        if all(size % s == 0 and (size // s) % n == 0 for s in divisors):
+            return self.mesh
+        return None
 
     def _render_preview_refine(self, job: Job) -> None:
         """Preview-then-refine: publish a fast LOD frame, then replace it

@@ -33,6 +33,7 @@ from gamer_tpu.engine.render import render_scene as jrender_scene  # noqa: E402
 from gamer_tpu.scene.schema import default_galaxy  # noqa: E402
 
 from gamer_tpu_torch.engine import fit as tfit  # noqa: E402
+from gamer_tpu_torch.parallel import Mesh  # noqa: E402
 from gamer_tpu_torch.engine import render as trender  # noqa: E402
 from gamer_tpu_torch.engine import scene_prep as tprep  # noqa: E402
 from gamer_tpu_torch.utils.tree import tree_leaves  # noqa: E402
@@ -224,8 +225,9 @@ def test_fit_rejects_unknown_fields_and_not_ported_mesh(problem):
     with pytest.raises(ValueError, match="unknown fit fields"):
         tfit.fit_scene(start, target, fit_fields=("orientation",), steps=1,
                        device="cpu")
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        tfit.fit_scene(start, target, steps=1, mesh=object(), device="cpu")
+    with pytest.raises(ValueError, match="must divide the mesh"):
+        tfit.fit_scene(start, target, steps=1, mesh=Mesh(["cpu"] * 7),
+                       device="cpu")
     with pytest.raises(ValueError, match="target size"):
         tfit.fit_scene(start, target[:8, :8], steps=1, device="cpu")
 

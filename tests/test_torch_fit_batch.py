@@ -29,6 +29,7 @@ from gamer_tpu.engine.render import render_scene as jrender_scene  # noqa: E402
 from gamer_tpu.scene.schema import default_galaxy  # noqa: E402
 
 from gamer_tpu_torch.engine import fit as tfit  # noqa: E402
+from gamer_tpu_torch.parallel import Mesh  # noqa: E402
 from gamer_tpu_torch.utils.tree import tree_leaves  # noqa: E402
 
 SIZE = 12
@@ -218,8 +219,9 @@ def test_fit_scene_batch_validation(batch_problem):
     with pytest.raises(ValueError, match="frozen"):
         tfit.fit_scene_batch(starts, targets, fit_fields=("scale",),
                              march="frozen", **kw)
-    with pytest.raises(NotImplementedError, match="ROADMAP.md §1 item 2"):
-        tfit.fit_scene_batch(template, targets, mesh=object(), **kw)
+    with pytest.raises(ValueError, match="must divide the mesh"):
+        tfit.fit_scene_batch(template, targets, mesh=Mesh(["cpu"] * 7),
+                             **kw)
 
 
 def test_fit_scene_batch_bound_covers_largest_scene(batch_problem):
@@ -311,8 +313,9 @@ def test_fit_scene_multiview_validation(mview_problem):
     with pytest.raises(ValueError, match="frozen"):
         tfit.fit_scene_multiview(start, targets, cams, fit_fields=("winding",),
                                  march="frozen", **kw)
-    with pytest.raises(NotImplementedError, match="ROADMAP.md §1 item 2"):
-        tfit.fit_scene_multiview(start, targets, cams, mesh=object(), **kw)
+    with pytest.raises(ValueError, match="views must divide the mesh"):
+        tfit.fit_scene_multiview(start, targets, cams,
+                                 mesh=Mesh(["cpu"] * 7), **kw)
     if not torch.cuda.is_available():
         with pytest.raises(RuntimeError, match="cuda"):
             tfit.fit_scene_multiview(start, targets, cams, steps=1)

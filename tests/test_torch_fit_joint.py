@@ -33,6 +33,7 @@ from gamer_tpu.engine.render import render_scene as jrender_scene  # noqa: E402
 from gamer_tpu.scene.schema import default_galaxy  # noqa: E402
 
 from gamer_tpu_torch.engine import fit as tfit  # noqa: E402
+from gamer_tpu_torch.parallel import Mesh  # noqa: E402
 from gamer_tpu_torch.utils.tree import tree_leaves  # noqa: E402
 
 SIZE = 8
@@ -137,8 +138,9 @@ def test_pose_multiscale_abort_and_rung_checkpoints(problem, tmp_path):
     _same(tfit.fit_pose_multiscale(start, target, **kw), straight)
     with pytest.raises(ValueError, match="rung"):
         tfit.fit_pose_multiscale(start, target, schedule=(), **CPU)
-    with pytest.raises(NotImplementedError, match="ROADMAP.md §1 item 2"):
-        tfit.fit_pose_multiscale(start, target, mesh=object(), **CPU)
+    with pytest.raises(ValueError, match="must divide the mesh"):
+        tfit.fit_pose_multiscale(start, target, mesh=Mesh(["cpu"] * 7),
+                                 **CPU)
 
 
 def test_pose_multiscale_matches_jax(problem):
@@ -236,8 +238,8 @@ def test_fit_joint_validation(problem):
         tfit.fit_joint(start, target, rounds=0, **CPU)
     with pytest.raises(ValueError, match="pose_method"):
         tfit.fit_joint(start, target, pose_method="lbfgs", **CPU)
-    with pytest.raises(NotImplementedError, match="ROADMAP.md §1 item 2"):
-        tfit.fit_joint(start, target, mesh=object(), **CPU)
+    with pytest.raises(ValueError, match="must divide the mesh"):
+        tfit.fit_joint(start, target, mesh=Mesh(["cpu"] * 7), **CPU)
     if not torch.cuda.is_available():
         with pytest.raises(RuntimeError, match="cuda"):
             tfit.fit_joint(start, target, rounds=1, pose_steps=1,
@@ -318,6 +320,6 @@ def test_fit_joint_multiview_abort_and_validation(mview, tmp_path):
         tfit.fit_joint_multiview(scene, targets[:1], starts, rounds=1, **CPU)
     with pytest.raises(ValueError, match="rounds"):
         tfit.fit_joint_multiview(scene, targets, starts, rounds=0, **CPU)
-    with pytest.raises(NotImplementedError, match="ROADMAP.md §1 item 2"):
-        tfit.fit_joint_multiview(scene, targets, starts, mesh=object(),
-                                 **CPU)
+    with pytest.raises(ValueError, match="views must divide the mesh"):
+        tfit.fit_joint_multiview(scene, targets, starts,
+                                 mesh=Mesh(["cpu"] * 7), **CPU)

@@ -44,6 +44,7 @@ from gamer_tpu.scene.schema import default_galaxy  # noqa: E402
 
 from gamer_tpu_torch.engine import batch as tbatch  # noqa: E402
 from gamer_tpu_torch.engine import fit as tfit  # noqa: E402
+from gamer_tpu_torch.parallel import Mesh  # noqa: E402
 from gamer_tpu_torch.engine.diff import post_process_float  # noqa: E402
 from gamer_tpu_torch.ops import camera as tcam  # noqa: E402
 from gamer_tpu_torch.utils.tree import tree_map  # noqa: E402
@@ -394,8 +395,9 @@ def test_pose_fits_reject_fields_march_and_mesh(pose_problem):
             fn(start, target, fit_fields=("up",), steps=1, device="cpu")
     with pytest.raises(ValueError, match="frozen"):
         tfit.fit_pose(start, target, steps=1, march="frozen", device="cpu")
-    with pytest.raises(NotImplementedError, match="ROADMAP.md §1 item 2"):
-        tfit.fit_pose(start, target, steps=1, mesh=object(), device="cpu")
+    with pytest.raises(ValueError, match="must divide the mesh"):
+        tfit.fit_pose(start, target, steps=1, mesh=Mesh(["cpu"] * 7),
+                      device="cpu")
     with pytest.raises(ValueError, match="target must be"):
         tfit.fit_pose(start, target[:8, :8], steps=1, device="cpu")
 

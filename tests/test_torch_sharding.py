@@ -119,8 +119,9 @@ def test_rowshard_matches_jax_sharded_frame():
 def test_render_scene_sharded_arguments():
     scene = _scene(8, ray_step=0.2)
     mesh = Mesh(["cpu"] * 2)
-    with pytest.raises(NotImplementedError, match="item 10"):
-        tparallel.render_scene_sharded(scene, mesh, method="xla")
+    with pytest.raises(ValueError, match="not divisible by mesh size 3"):
+        tparallel.render_scene_sharded(scene, Mesh(["cpu"] * 3),
+                                       method="xla")
     with pytest.raises(ValueError, match="float32"):
         tparallel.render_scene_sharded(scene, mesh, dtype=torch.float64)
     with pytest.raises(ValueError, match="unknown sharded method"):
