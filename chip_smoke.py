@@ -37,11 +37,23 @@ to the unsharded XLA-form frame, within 3 LSB of the kernel's),
 ``render_allsky_map(kernel="xla")`` at nside 512 against K6's map,
 ``queue.render_progressive`` in 16 chunks (ticks, an abort after chunk 4,
 the finished frame) and the CLI ``galaxy xla|sharded|oracle`` and
-``skybox xla``.
+``skybox xla``. Last the front end: the interactive viewer over HTTP
+(``/render`` at 256x256 through ``march``, the streamed 512x512
+``/fullrender`` through 16 ``march_band`` launches, ``/skybox`` through one
+``march_batch`` launch, each image against its library call and each
+route's kernel against its plain version on the route's own inputs, request
+latencies), ``dryrun_multichip`` on 4 entries of the card, ``entry()``'s
+frame step against the kernel's frame, ``profile_trace`` around the 512x512
+still (in this process, where a lost kernel record must be reported, and in
+a fresh one: the trace's kernel time beside CUDA events) and
+``RenderStats``.
 
     python3 chip_smoke.py
     python3 chip_smoke.py --fit-only   # the build report, the fit paths,
                                        # the sharded fits, the XLA surfaces
+    python3 chip_smoke.py --frontend-only  # the build report, the front end
+    python3 chip_smoke.py --profiler-loss [N ...]  # kernel records lost
+                                       # after a session of N launches
 
 Needs one CUDA card and nvcc. Prints one line per phase; the line before
 the last is the card's name and power limit, the line before that the
@@ -51,6 +63,7 @@ Any failed phase raises and the script exits non-zero without that line.
 
 from __future__ import annotations
 
+import contextlib
 import dataclasses
 import json
 import os
@@ -61,6 +74,7 @@ import threading
 import time
 import urllib.error
 import urllib.request
+import warnings
 from pathlib import Path
 
 import numpy as np
@@ -1320,6 +1334,395 @@ def xla_surface_phases(card: str, dev) -> None:
         f"(host clock)")
 
 
+VIEWER_SIZE = 256
+VIEWER_LOD = 4
+VIEWER_REQUESTS = 20
+VIEWER_FULL = 512
+VIEWER_FACE = 128
+DRYRUN_ENTRIES = 4
+DRYRUN_BUDGET_S = 300.0
+STATS_FRAMES = 5
+PROFILER_LOSS_SIZES = [0, 600000, 2000000]
+
+
+def _multipart(body: bytes):
+    """(progress, PNG bytes) of each part of a multipart/x-mixed-replace
+    body with the viewer's boundary."""
+    parts = []
+    for chunk in body.split(b"--gamerband\r\n")[1:]:
+        head, _, rest = chunk.partition(b"\r\n\r\n")
+        fields = dict(line.split(b": ", 1) for line in head.split(b"\r\n"))
+        n = int(fields[b"Content-Length"])
+        parts.append((float(fields[b"X-Progress"]), rest[:n]))
+    return parts
+
+
+# profile_trace around one still of the spiral (after a warm-up launch),
+# in a process of its own: prints [name, microseconds] of each kernel in
+# the trace
+PROFILE_CHILD = """
+import json, sys, tempfile
+from pathlib import Path
+sys.path.insert(0, sys.argv[1])
+import gamer_tpu_torch as gt
+from gamer_tpu_torch.models import presets
+from gamer_tpu_torch.utils.profiling import profile_trace
+scene = gt.Scene(
+    camera=gt.CameraParams(camera=(0.5, 0, 0), target=(0, 0, 0),
+                           up=(0, 1, 0), fov=90.0),
+    instances=[gt.GalaxyInstance(galaxy=presets.spiral())],
+    config=gt.RenderConfig(size=int(sys.argv[2]), ray_step=0.025))
+gt.render_scene(scene)
+with tempfile.TemporaryDirectory() as tmp:
+    with profile_trace(tmp, device="cuda"):
+        gt.render_scene(scene)
+    events = json.loads((Path(tmp) / "trace.json").read_text())
+print(json.dumps([[e["name"], e["dur"]] for e in events["traceEvents"]
+                  if e.get("cat") == "kernel"]))
+"""
+
+
+# a CUDA-only session of N launches (as a traced fit step issues them),
+# then three profile_trace sessions of 10 launches, in a process of its own:
+# prints per session the launch calls, kernel records, launches without
+# their kernel, their order and whether a TraceLossWarning was raised
+PROFILER_LOSS_CASE = r"""
+import json, sys, tempfile, warnings
+from pathlib import Path
+sys.path.insert(0, sys.argv[1])
+import torch
+from torch.profiler import ProfilerActivity, profile
+from gamer_tpu_torch.utils.profiling import (TraceLossWarning, kernel_records,
+                                             profile_trace)
+n = int(sys.argv[2])
+x = torch.ones(1024, device="cuda")
+torch.cuda.synchronize()
+if n:
+    big = profile(activities=[ProfilerActivity.CUDA])
+    big.start()
+    for _ in range(n):
+        x.add_(0.0)
+    torch.cuda.synchronize()
+    big.stop()
+rows = []
+for _ in range(3):
+    with tempfile.TemporaryDirectory() as tmp:
+        with warnings.catch_warnings(record=True) as caught:
+            warnings.simplefilter("always", TraceLossWarning)
+            with profile_trace(tmp, device="cuda"):
+                for _ in range(10):
+                    x.mul_(1.0)
+        trace = json.loads((Path(tmp) / "trace.json").read_text())
+    ev = trace["traceEvents"]
+    kernels = {e["args"].get("correlation") for e in ev
+               if e.get("cat") == "kernel"}
+    calls = sorted((e["ts"], e["args"].get("correlation")) for e in ev
+                   if e.get("cat") == "cuda_runtime" and "Launch" in e["name"])
+    lost_at = [i for i, (_, c) in enumerate(calls) if c not in kernels]
+    launches, n_kernels, lost = kernel_records(trace)
+    rows.append({"launches": launches, "kernels": n_kernels, "lost": lost,
+                 "lost_at": lost_at,
+                 "warned": any(issubclass(w.category, TraceLossWarning)
+                               for w in caught)})
+print(json.dumps(rows))
+"""
+
+
+def profiler_loss(card: str, sizes) -> bool:
+    """The kernel records a torch.profiler session loses after a CUDA-only
+    session of N launches earlier in the same process, for each N in
+    ``sizes``, and whether profile_trace reported each loss; False if it
+    misreported a session."""
+    ok = True
+    for n in sizes:
+        t = time.perf_counter()
+        r = subprocess.run([sys.executable, "-W", "ignore", "-c",
+                            PROFILER_LOSS_CASE, str(ROOT), str(n)], cwd=ROOT,
+                           capture_output=True, text=True, timeout=600)
+        check(r.returncode == 0, f"profiler loss N={n}: {r.stderr[-2000:]}")
+        rows = json.loads(r.stdout.strip().splitlines()[-1])
+        for row in rows:
+            ok &= row["warned"] == bool(row["lost"] or not row["kernels"])
+        log(f"profiler loss [{card}] after a CUDA-only session of {n} "
+            f"launches ({time.perf_counter() - t:.1f} s): " + "; ".join(
+                f"{x['kernels']} kernel records for {x['launches']} "
+                f"launches, lost {x['lost']} (launches {x['lost_at']}), "
+                f"TraceLossWarning {x['warned']}" for x in rows))
+    return ok
+
+
+def frontend_phases(card: str, dev) -> None:
+    """The front end on the card: the interactive viewer over HTTP on a
+    loopback port (/galaxies, /params, /render at a noise LOD through K1,
+    /set, the streamed /fullrender through K5's 16 bands, /skybox through
+    one K4 launch; each image against the library call, the launches each
+    route made, each route's kernel against its plain version), the dry run
+    on 4 entries of the card (rungs a-h), the entry step against the
+    kernel's frame, profile_trace around a still and RenderStats over
+    stills."""
+    from gamer_tpu_torch import dryrun, viewer
+    from gamer_tpu_torch.engine import batch
+    from gamer_tpu_torch.engine import cuda_render as cr
+    from gamer_tpu_torch.engine.queue import skybox_jobs
+    from gamer_tpu_torch.golden import load_oracle_golden
+    from gamer_tpu_torch.io.png import decode_png
+    from gamer_tpu_torch.models import presets
+    from gamer_tpu_torch.scene.schema import galaxy_to_dict
+    from gamer_tpu_torch.utils.profiling import (RenderStats, TraceLossWarning,
+                                                 kernel_records, profile_trace)
+
+    from gamer_tpu_torch.engine.render import post_process
+
+    t_phase = time.perf_counter()
+    routes = (cr.march, cr.march_band, cr.march_batch)
+
+    def counts():
+        torch.cuda.synchronize()
+        return [fn.launch_count for fn in routes]
+
+    taken = {}
+
+    @contextlib.contextmanager
+    def spying(route):
+        """Keep the (pages, table, frame size, rows) and the output of each
+        march launch while the block runs, under ``route``: the kernel's
+        inputs as the route made them. The launch helper under the three
+        wrappers is wrapped, so their launch counts stay theirs."""
+        real = cr._launch
+
+        def spy(*a):
+            out = real(*a)
+            taken.setdefault(route, []).append((a, out))
+            return out
+
+        cr._launch = spy
+        try:
+            yield
+        finally:
+            cr._launch = real
+
+    httpd = viewer.serve(port=0, size=VIEWER_SIZE, poll=False, device=dev)
+    state = httpd.state
+    thread = threading.Thread(target=httpd.serve_forever, daemon=True)
+    thread.start()
+    base = f"http://127.0.0.1:{httpd.server_address[1]}"
+
+    def http(path):
+        try:
+            with urllib.request.urlopen(base + path,
+                                        timeout=SERVE_WAIT_S) as r:
+                status, body = r.status, r.read()
+        except urllib.error.HTTPError as e:
+            status, body = e.code, e.read()
+        check(status == 200, f"viewer {path}: {status} {body[:200]!r}")
+        return body
+
+    g = "spiral"
+    try:
+        names = json.loads(http("/galaxies"))
+        check(g in names, f"/galaxies: {names}")
+        params = json.loads(http(f"/params?galaxy={g}"))
+        check(params == galaxy_to_dict(presets.spiral()),
+              "/params differs from galaxy_to_dict of the preset")
+        view = f"/render?galaxy={g}&h=30&v=10&lod={VIEWER_LOD}"
+        c0 = counts()
+        with spying("/render"):
+            img = decode_png(http(view))
+        c1 = counts()
+        view_scene = state._scene(g, 30.0, 10.0, 0.0, VIEWER_SIZE,
+                                  preview=True, lod=VIEWER_LOD)
+        want = cr.render_scene(view_scene, device=dev)
+        check(np.array_equal(img, want) and int(img.sum()) > 0,
+              "viewer /render differs from render_scene of its scene")
+        lat = []
+        for _ in range(VIEWER_REQUESTS):
+            t = time.perf_counter()
+            http(view)
+            lat.append((time.perf_counter() - t) * 1e3)
+        http(f"/set?galaxy={g}&comp=0&field=strength&value=400")
+        edited = decode_png(http(view))
+        check(not np.array_equal(edited, img), "/set did not change /render")
+        http(f"/reset?galaxy={g}")
+        c2 = counts()
+        t = time.perf_counter()
+        with spying("/fullrender"):
+            body = http(f"/fullrender?galaxy={g}&size={VIEWER_FULL}&v=20"
+                        f"&stream=1&bands={BANDS}")
+        full_ms = (time.perf_counter() - t) * 1e3
+        c3 = counts()
+        parts = _multipart(body)
+        full = decode_png(parts[-1][1])
+        full_scene = state._scene(g, 0.0, 20.0, 0.0, VIEWER_FULL,
+                                  preview=False)
+        want_full = cr.render_scene(full_scene, device=dev)
+        check(len(parts) >= BANDS and parts[-1][0] == 1.0
+              and np.array_equal(full, want_full),
+              f"/fullrender stream: {len(parts)} parts, last bit-equal "
+              f"{np.array_equal(full, want_full)}")
+        c4 = counts()
+        t = time.perf_counter()
+        with spying("/skybox"):
+            montage = decode_png(http(f"/skybox?galaxy={g}"
+                                      f"&size={VIEWER_FACE}"))
+        sky_ms = (time.perf_counter() - t) * 1e3
+        c5 = counts()
+        sky_scene = state._scene(g, 0.0, 0.0, 0.0, VIEWER_FACE,
+                                 preview=False)
+        faces = batch.render_batch([j.scene for j in skybox_jobs(sky_scene)],
+                                   device=dev)
+        f = VIEWER_FACE
+        check(montage.shape == (2 * f, 3 * f, 3) and all(
+            np.array_equal(montage[(i // 3) * f:(i // 3 + 1) * f,
+                                   (i % 3) * f:(i % 3 + 1) * f], face)
+            for i, face in enumerate(faces)),
+              "viewer /skybox faces differ from render_batch's")
+    finally:
+        httpd.shutdown()
+        httpd.server_close()
+        thread.join(SERVE_WAIT_S)
+    check(not thread.is_alive(), "the viewer's thread did not stop")
+    rises = {"/render": [b - a for a, b in zip(c0, c1)],
+             "/fullrender": [b - a for a, b in zip(c2, c3)],
+             "/skybox": [b - a for a, b in zip(c4, c5)]}
+    check(rises == {"/render": [1, 0, 0], "/fullrender": [0, BANDS, 0],
+                    "/skybox": [0, 0, 1]},
+          f"launches (march, march_band, march_batch) per route: {rises}")
+    log(f"viewer on {base} ({card}): /galaxies, /params = galaxy_to_dict; "
+        f"/render {VIEWER_SIZE}^2 LOD {VIEWER_LOD} bit-equal to render_scene"
+        f", /set changes it; /fullrender?stream=1 {VIEWER_FULL}^2: "
+        f"{len(parts)} parts, the last bit-equal to render_scene; /skybox "
+        f"{VIEWER_FACE}^2 faces bit-equal to render_batch; launches "
+        f"(march, march_band, march_batch) per route {rises}")
+    log(f"timing [{card}] viewer (host clock, request -> last byte): "
+        f"/render {VIEWER_SIZE}^2 LOD {VIEWER_LOD}, {VIEWER_REQUESTS} "
+        f"sequential: p50 {np.percentile(lat, 50):.3f} ms, p95 "
+        f"{np.percentile(lat, 95):.3f} ms; /fullrender?stream=1 "
+        f"{VIEWER_FULL}^2 in {BANDS} bands with a PNG per band: {full_ms:.1f} "
+        f"ms; /skybox 6 x {VIEWER_FACE}^2: {sky_ms:.1f} ms")
+
+    # --- each route's kernel against its plain version ----------------------
+    # on the card, on the inputs the route gave its kernel and the output the
+    # kernel gave the route: /render's page (LOD 4), the middle band of the
+    # 512^2 /fullrender and the six /skybox faces; a few rays may take one
+    # more or fewer march step (f32 ulps at the exit test), so the gate is
+    # the whole-frame one of the 512^2 checks
+    def held(label, scene, out, plain_fn):
+        torch.cuda.synchronize()
+        t = time.perf_counter()
+        plain = plain_fn()
+        torch.cuda.synchronize()
+        plain_ms = (time.perf_counter() - t) * 1e3
+        err = float((out - plain).abs().max())
+        c = scene.config
+        mx, frac, mean_d = lsb_diff(*(post_process(
+            x.cpu(), np.float32(c.exposure), np.float32(c.gamma),
+            np.float32(c.saturation)).numpy() for x in (out, plain)))
+        log(f"viewer {label} kernel vs plain on the card: linear max_abs_err "
+            f"{err:.3g}, uint8 max {mx} LSB, {frac:.5f} of pixels differ, "
+            f"mean {mean_d:.4f} LSB (limits: < 0.01 differ, mean < 0.05); "
+            f"plain {plain_ms:.1f} ms")
+        check(bool(torch.isfinite(out).all()) and frac < 0.01
+              and mean_d < 0.05,
+              f"viewer {label} kernel vs plain: {frac:.4f} differ, mean "
+              f"{mean_d}, max_abs_err {err}")
+
+    seen = {r: len(taken.get(r, ())) for r in ("/render", "/fullrender",
+                                                "/skybox")}
+    check(seen == {"/render": 1, "/fullrender": BANDS, "/skybox": 1},
+          f"march launches seen per route: {seen}")
+    (pages, table, size, _), out = taken["/render"][0]
+    held(f"/render {VIEWER_SIZE}^2 LOD {VIEWER_LOD} (march)", view_scene,
+         out[0], lambda: cr.march_plain(pages[0], table, size))
+    (pages, table, size, rows), out = taken["/fullrender"][BANDS // 2]
+    row0 = BANDS // 2 * rows
+    held(f"/fullrender {VIEWER_FULL}^2 band rows {row0}-{row0 + rows - 1} "
+         f"(march_band)", full_scene, out[0],
+         lambda: cr.march_band_plain(pages[0], table, size, rows, row0))
+    (pages, table, size, _), out = taken["/skybox"][0]
+    held(f"/skybox {len(pages)} x {VIEWER_FACE}^2 (march_batch)", sky_scene,
+         out, lambda: cr.march_batch_plain(pages, table, size))
+    taken.clear()
+
+    # --- the dry run on entries of the card, and the entry step -----------
+    ticks = dryrun.dryrun_multichip(DRYRUN_ENTRIES, budget_s=DRYRUN_BUDGET_S,
+                                    devices=[dev] * DRYRUN_ENTRIES)
+    check(len(ticks) == 8, f"dry run rungs: {list(ticks)}")
+    prev, per = 0.0, []
+    for rung, at in ticks.items():
+        per.append(f"{rung.split(':')[0]} {at - prev:.2f}")
+        prev = at
+    log(f"timing [{card}] dryrun_multichip({DRYRUN_ENTRIES}) on "
+        f"{DRYRUN_ENTRIES} entries of one card (host clock, s per rung): "
+        f"{', '.join(per)}; {prev:.1f} s in all")
+    fn, args = dryrun.entry(device=dev)
+    (step, _lin), step_ms = _timed(lambda: fn(*args))
+    kernel = cr.render_scene(dryrun._spiral_scene(dryrun.ENTRY_SIZE),
+                             device=dev)
+    d = int(np.abs(step.cpu().numpy().astype(np.int16)
+                   - kernel.astype(np.int16)).max())
+    check(d <= XLA_MAX_LSB, f"entry step {d} LSB from the kernel's frame")
+    log(f"entry(): the XLA-form step at {dryrun.ENTRY_SIZE}^2 "
+        f"({dryrun.spiral_galaxy()[1]}) {step_ms:.1f} ms (host clock), max "
+        f"{d} LSB from the kernel's frame (limit {XLA_MAX_LSB})")
+
+    # --- profile_trace around a still, RenderStats over stills ------------
+    # in this process first: after the fit phases' large CUDA-only sessions
+    # torch.profiler may lose kernel records (here the march kernel's), and
+    # profile_trace must then say so with a TraceLossWarning; a trace that
+    # holds every launch's kernel must not warn
+    scene = spiral_scene(MAIN_SIZE)
+    with tempfile.TemporaryDirectory() as tmp:
+        with warnings.catch_warnings(record=True) as caught:
+            warnings.simplefilter("always", TraceLossWarning)
+            with profile_trace(tmp, device=dev):
+                cr.render_scene(scene, device=dev)
+        trace = json.loads((Path(tmp) / "trace.json").read_text())
+    launches_k, kernels_k, lost_k = kernel_records(trace)
+    named = [e["dur"] for e in trace["traceEvents"]
+             if e.get("cat") == "kernel" and "march_kernel" in e["name"]]
+    warned = [w for w in caught if issubclass(w.category, TraceLossWarning)]
+    check(bool(warned) == bool(lost_k or not kernels_k),
+          f"profile_trace: {lost_k} of {launches_k} launches lost their "
+          f"kernel, {kernels_k} kernels, {len(warned)} warnings")
+    check(len(named) == 1 or warned,
+          f"the in-process trace names {len(named)} march kernels and "
+          f"profile_trace did not warn")
+    log(f"profile_trace in this process: "
+        f"{launches_k} launch calls, {kernels_k} kernel records, {lost_k} "
+        f"launches without their kernel; march kernel "
+        f"{'recorded, %.4f ms' % (named[0] / 1e3) if named else 'lost'}; "
+        f"TraceLossWarning {'raised' if warned else 'not raised'}")
+    # then in a fresh process, as a user profiles, for the kernel's time
+    child = subprocess.run(
+        [sys.executable, "-c", PROFILE_CHILD, str(ROOT), str(MAIN_SIZE)],
+        cwd=ROOT, capture_output=True, text=True, timeout=300)
+    check(child.returncode == 0, f"profile_trace child: {child.stderr[-2000:]}")
+    kernels = [(name, dur) for name, dur in
+               json.loads(child.stdout.strip().splitlines()[-1])
+               if "march_kernel" in name]
+    check(len(kernels) == 1, f"the trace names {len(kernels)} march kernels")
+    prof_ms = kernels[0][1] / 1e3
+    page, table, size, _ = cr.prepare(scene, dev)
+    event_ms, _ = cuda_ms(lambda: cr.march(page, table, size), 5)
+    log(f"timing [{card}] profile_trace around the {MAIN_SIZE}^2 still (a "
+        f"fresh process): trace.json names {kernels[0][0]!r}, {prof_ms:.4f} "
+        f"ms in the trace; the same launch by CUDA events here "
+        f"{event_ms:.4f} ms (median of 5)")
+    gold = load_oracle_golden()
+    stats = RenderStats(samples_per_pixel=gold["samples"] / gold["pixels"])
+    for _ in range(STATS_FRAMES):
+        with stats.frame(MAIN_SIZE * MAIN_SIZE, device=dev):
+            cr.render_scene(scene, device=dev, device_out=True)
+    summary = stats.summary()
+    check(summary["frames"] == STATS_FRAMES and summary["rays_per_sec"] > 0,
+          f"RenderStats: {summary}")
+    log(f"timing [{card}] RenderStats over {STATS_FRAMES} {MAIN_SIZE}^2 "
+        f"stills (device_out, synchronized; {stats.samples_per_pixel:.1f} "
+        f"samples per pixel from the oracle): {summary}")
+    log(f"front-end phase: {time.perf_counter() - t_phase:.1f} s (host "
+        f"clock)")
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: torch.cuda.is_available() is False; this run "
@@ -1337,10 +1740,11 @@ def main() -> int:
     from gamer_tpu_torch.engine.batch import _scene_groups
     from gamer_tpu_torch.scene.cameracontrols import orbit_path
     from gamer_tpu_torch.scene.schema import ComponentParams, scene_to_dict
+    from gamer_tpu_torch.ops import noise as tnoise
 
     wrappers = (cr.march, cr.march_band, cr.march_batch, cr.march_rays,
                 cr.march_rowshard, cr.march_batch_rowshard,
-                cr.march_rays_rowshard)
+                cr.march_rays_rowshard, tnoise.noise_probe)
 
     def reset_counts():
         for fn in wrappers:
@@ -1359,6 +1763,12 @@ def main() -> int:
     dev = torch.device("cuda", 0)
     log(f"card: {card} (torch {torch.__version__}, cuda {torch.version.cuda}, "
         f"python {sys.version.split()[0]})")
+    if "--profiler-loss" in sys.argv[1:]:
+        # measurement: the profiler's lost kernel records, no kernel build
+        sizes = [int(a) for a in sys.argv[2:]] or PROFILER_LOSS_SIZES
+        ok = profiler_loss(card, sizes)
+        check(ok, "profile_trace misreported a session")
+        return 0
 
     report_build()
     f32 = np.float32
@@ -1370,16 +1780,19 @@ def main() -> int:
         mesh_fit_phases(card, dev, keep)
         xla_surface_phases(card, dev)
         return 0
+    if "--frontend-only" in sys.argv[1:]:
+        # development: the build report and the front-end phase alone
+        frontend_phases(card, dev)
+        return 0
 
     # --- the kernel's noise device functions vs their plain versions -------
     # csrc/noise_probe.cu runs noise.cuh's raw/octave/ridged functions at
     # explicit points; the plain torch ops on the CPU do the same float32
     # operations in the same order, so equality is expected
-    from gamer_tpu_torch.ops import noise as tnoise
-
     rng = np.random.default_rng(2)
     pts = rng.uniform(-40.0, 40.0, (1 << 18, 3)).astype(np.float32)
     pts[:64] = np.round(pts[:64])  # exact integers: the fastfloor edge
+    probe_err = 0.0
     for octaves, pers, scale, n_sw in ((10, 0.6, 0.1, 9), (4, -2.0, 0.2, 4)):
         args = (octaves, pers, scale, tnoise.ridged_weights(1.5, n_sw),
                 2.5, 1.0, 1.2)
@@ -1391,6 +1804,7 @@ def main() -> int:
             f"max |d| raw/octave/ridged {err.tolist()}, bit-equal share "
             f"{exact.tolist()} over {len(pts)} points")
         check(float(err.max()) <= 1e-6, f"noise probe disagrees: {err.tolist()}")
+        probe_err = max(probe_err, float(err.max()))
     # the probe kernel timed at these points (simplex), and its bound: per
     # point 1 + octaves + ridged octaves raw evaluations, the octave sum ~8
     # f32 ops an octave and the ridged one ~12, 12 B read and 12 B written
@@ -1404,6 +1818,8 @@ def main() -> int:
                          + 10 * 8 + 9 * 12)
     probe_bytes = n_pts * 24 + tnoise.noise_table("simplex", dev).numel() * 4
     t_ops, t_bytes = probe_ops / F32_PEAK, probe_bytes / HBM_PEAK
+    probe_bound = (max(t_ops, t_bytes) * 1e3,
+                   "operations" if t_ops >= t_bytes else "bytes")
     log(f"timing [{card}] noise_probe kernel, {n_pts} points (10 octaves, 9 "
         f"ridged; CUDA events, median of 5): {probe_ms:.4f} ms, plain on "
         f"cuda {probe_plain_ms:.1f} ms; bound {max(t_ops, t_bytes) * 1e3:.4f}"
@@ -1536,13 +1952,20 @@ def main() -> int:
     t = time.perf_counter()
     frame = gt.render_scene(main_scene, device="cuda")
     wall_ms = (time.perf_counter() - t) * 1e3
-    launches = read_counts()["march"]
+    main_counts = read_counts()
+    launches = main_counts["march"]
     check(launches >= 1, "the main path launched no march kernel")
+    # the noise probe is a check of the device functions, not a kernel of
+    # any path: the main path must not launch it
+    check(main_counts["noise_probe"] == 0,
+          f"the main path launched noise_probe {main_counts['noise_probe']} "
+          f"time(s)")
     check(frame.shape == (MAIN_SIZE, MAIN_SIZE, 3) and frame.dtype == np.uint8,
           f"main frame has shape {frame.shape} {frame.dtype}")
     check(int(frame.sum()) > 0, "main frame is black")
     log(f"main path: render_scene(spiral {MAIN_SIZE}^2, device='cuda') "
-        f"launched march {launches} time(s), {wall_ms:.1f} ms wall with "
+        f"launched march {launches} time(s), noise_probe "
+        f"{main_counts['noise_probe']}, {wall_ms:.1f} ms wall with "
         f"download, mean pixel {frame.mean():.2f}")
 
     frame_ms, _ = cuda_ms(lambda: gt.render_scene(main_scene, device="cuda",
@@ -2669,6 +3092,8 @@ def main() -> int:
     mesh_fit_phases(card, dev, keep)
     # the XLA-form surfaces: the sharded frame, the sky, the queue, the CLI
     xla_surface_phases(card, dev)
+    # the front end: the viewer, the dry run, the entry step, profiling
+    frontend_phases(card, dev)
 
     for pkg in ("jax", "gamer_tpu"):
         check(pkg not in sys.modules, f"{pkg} was imported")
@@ -2716,6 +3141,13 @@ def main() -> int:
         entry("march_batch[fit_pose_fd]",
               "gamer_tpu/engine/pallas_render.py:1294", pfd_launches,
               pfd_err, pfd_k_ms, pfd_plain_ms, pfd_bound),
+        # the noise device functions at explicit points: a check, on no
+        # main path (its launches are the main 512^2 path's count; the
+        # noise phase above measured the rest)
+        entry("noise_probe", "tests/test_pallas.py:55",
+              main_counts["noise_probe"], probe_err,
+              probe_ms, probe_plain_ms, probe_bound,
+              source="gamer_tpu_torch/csrc/noise_probe.cu"),
     ]}))
     log(card)
     log(json.dumps({"ok": True, "device": {

@@ -1,8 +1,8 @@
 """Headless CLI for the port: the reference's positional commands
 (ConsoleRenderer parity, consolerenderer.cpp) with every method of
 ``gamer_tpu.cli`` (the kernel's bands, the XLA-form march, the oracle, the
-sharded kernel), and the JAX package's batch and fit commands (``fit``,
-``fitpose``, ``fitjoint``).
+sharded kernel), the JAX package's batch and fit commands (``fit``,
+``fitpose``, ``fitjoint``) and its interactive editor (``viewer``).
 
   python -m gamer_tpu_torch.cli <command> <parameters> [--device cuda|cpu]
 
@@ -27,7 +27,7 @@ from .scene.schema import (
     GalaxyInstance,
     RenderConfig,
     Scene,
-    _to_dict,
+    galaxy_to_dict,
     scene_from_dict,
     scene_to_dict,
 )
@@ -61,6 +61,7 @@ Commands:
        [ckpt=<file>] [march=frozen] [pose=multiscale|fd]  (an unknown camera
        AND unknown parameters: alternating pose and parameter blocks; also
        writes the fitted galaxy as <out>.gax)
+   viewer [port=8000] [size=256] [gax dir]
 <method>: omp | thread | pallas (the CUDA march kernel, in row bands)
           | xla (the XLA-form march, in 16 row chunks) | oracle (the numpy
           spec oracle, galaxy only) | sharded (the kernel's row slabs over
@@ -226,7 +227,7 @@ def cmd_info(argv, device) -> int:
     if len(argv) != 2:
         print(USAGE)
         return 1
-    print(json.dumps(_to_dict(gax.load(argv[1])), indent=2))
+    print(json.dumps(galaxy_to_dict(gax.load(argv[1])), indent=2))
     return 0
 
 
@@ -731,6 +732,19 @@ def _method_desc(method: str, device: str) -> str:
     return _device_desc(device)
 
 
+def cmd_viewer(argv, device) -> int:
+    """The interactive HTTP editor (viewer.py): orbit, zoom, noise LOD and
+    live edits, rendered on the device."""
+    from .viewer import serve as viewer_serve
+
+    args = argv[1:]
+    port = int(args[0]) if len(args) > 0 else 8000
+    size = int(args[1]) if len(args) > 1 else 256
+    gax_dir = args[2] if len(args) > 2 else None
+    viewer_serve(port, size, gax_dir, device=device)
+    return 0
+
+
 COMMANDS = {
     "galaxy": cmd_galaxy,
     "skybox": cmd_skybox,
@@ -746,6 +760,7 @@ COMMANDS = {
     "fit": cmd_fit,
     "fitpose": cmd_fitpose,
     "fitjoint": cmd_fitjoint,
+    "viewer": cmd_viewer,
 }
 
 

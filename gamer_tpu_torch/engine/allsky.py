@@ -30,22 +30,24 @@ from .render import post_process, render_rays, scene_args
 f32 = np.float32
 
 
-def allsky_dirs(nside: int) -> np.ndarray:
-    """(12*nside^2, 3) float32 ray directions of the RING pixel centres,
-    turned 90 degrees about +X: (x, y, z) -> (x, -z, y). Centres and turn
-    are float64; the cast to float32 comes last."""
+def allsky_dirs(nside: int, dtype=np.float32) -> np.ndarray:
+    """(12*nside^2, 3) ray directions of the RING pixel centres, turned 90
+    degrees about +X: (x, y, z) -> (x, -z, y). Centres and turn are
+    float64; the cast to ``dtype`` comes last."""
     d = pix2vec_ring(nside, np.arange(npix(nside)))
-    return np.stack([d[:, 0], -d[:, 2], d[:, 1]], axis=-1).astype(np.float32)
+    return np.stack([d[:, 0], -d[:, 2], d[:, 1]], axis=-1).astype(dtype)
 
 
 def render_allsky_map(scene: Scene, nside: int, device="cuda",
-                      mesh=None, kernel: str = "pallas") -> np.ndarray:
+                      mesh=None, kernel: str = "pallas",
+                      dtype=torch.float32) -> np.ndarray:
     """Render the scene into a RING HEALPix luminance map of 12*nside^2
-    float64 values, the channel mean taken in float32 on ``device`` and
-    then cast. ``kernel="pallas"`` (the JAX package's name for its kernel;
-    here the CUDA march) is one ray-list launch, or with a 1-D ``mesh`` one
-    per mesh entry on its block of pixels. ``kernel="xla"`` marches the
-    ray list through the XLA-form march (``render.render_rays``) on
+    float64 values, the channel mean taken on ``device`` in the march's
+    float type and then cast. ``kernel="pallas"`` (the JAX package's name
+    for its kernel; here the CUDA march, float32 whatever ``dtype`` says,
+    as in JAX) is one ray-list launch, or with a 1-D ``mesh`` one per mesh
+    entry on its block of pixels. ``kernel="xla"`` marches the ray list
+    through the XLA-form march (``render.render_rays``) in ``dtype`` on
     ``device``; it takes no mesh."""
     if kernel == "pallas":
         linear = render_dirs(scene, allsky_dirs(nside), device=device,
@@ -54,8 +56,10 @@ def render_allsky_map(scene: Scene, nside: int, device="cuda",
         if mesh is not None:
             raise ValueError("mesh sharding needs the pallas kernel")
         (static, params, camera, _inv_vp, rs, ms, _ex, _ga,
-         _sa) = scene_args(scene, _device(device))
-        dirs = torch.as_tensor(allsky_dirs(nside), device=camera.device)
+         _sa) = scene_args(scene, _device(device), dtype)
+        np_dtype = np.float64 if dtype == torch.float64 else np.float32
+        dirs = torch.as_tensor(allsky_dirs(nside, np_dtype),
+                               device=camera.device)
         with torch.no_grad():
             linear = render_rays(static, params, dirs, camera, rs, ms)
     else:
@@ -68,10 +72,12 @@ def render_allsky_map(scene: Scene, nside: int, device="cuda",
 
 
 def render_allsky_image(scene: Scene, nside: int, size: int, device="cuda",
-                        mesh=None) -> np.ndarray:
-    """All-sky map -> Mollweide -> post chain -> uint8 (size, size, 3)."""
+                        mesh=None, dtype=torch.float32) -> np.ndarray:
+    """All-sky map -> Mollweide -> post chain -> uint8 (size, size, 3).
+    ``dtype`` is passed to ``render_allsky_map``, whose kernel path it
+    leaves at float32 (the JAX package passes it the same way)."""
     dev = _device(device) if mesh is None else mesh_device(mesh)
-    hpx = render_allsky_map(scene, nside, device=dev, mesh=mesh)
+    hpx = render_allsky_map(scene, nside, device=dev, mesh=mesh, dtype=dtype)
     buf = mollweide_image(hpx, nside, size)
     cfg = scene.config
     img = post_process(torch.as_tensor(buf, device=dev), f32(cfg.exposure),

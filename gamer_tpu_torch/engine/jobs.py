@@ -3,6 +3,8 @@
 ``render_batch`` (K4), with a JSON manifest of finished chunks, so an
 interrupted job restarts where it stopped. Each chunk is a pure function of
 its scenes, so a resumed job writes the same bytes as one that ran through.
+With ``mesh`` each chunk is one ``render_batch(..., mesh=...)`` call: its
+frames over the mesh's batch axis (S2), as ``render_batch`` spreads them.
 """
 
 from __future__ import annotations
@@ -28,11 +30,15 @@ class DatasetJob:
     """
 
     def __init__(self, scenes: Sequence[Scene], out_dir: str,
-                 chunk_size: int = 16, device="cuda"):
+                 chunk_size: int = 16, device="cuda", mesh=None):
+        """``device`` renders the chunks; with ``mesh`` (a 1-D batch mesh or
+        a ('batch', 'rows') one) each chunk is spread over the mesh and
+        ``device`` is not consulted, as in ``render_batch``."""
         self.scenes = list(scenes)
         self.out_dir = Path(out_dir)
         self.chunk_size = chunk_size
         self.device = device
+        self.mesh = mesh
         self.out_dir.mkdir(parents=True, exist_ok=True)
         self.manifest_path = self.out_dir / "manifest.json"
         self.manifest = self._load_manifest()
@@ -71,7 +77,8 @@ class DatasetJob:
             t0 = time.perf_counter()
             lo = c * self.chunk_size
             batch_scenes = self.scenes[lo:lo + self.chunk_size]
-            frames = render_batch(batch_scenes, device=self.device)
+            frames = render_batch(batch_scenes, device=self.device,
+                                  mesh=self.mesh)
             np.save(self.out_dir / f"chunk_{c:05d}.npy", frames)
             self.manifest["done"].append(c)
             self._save_manifest()

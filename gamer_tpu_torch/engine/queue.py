@@ -69,7 +69,7 @@ def skybox_jobs(scene: Scene, prefix: str = "Skybox") -> List[RenderJob]:
 
 def render_progressive(scene: Scene, chunks: int = 16,
                        on_progress: Optional[ProgressFn] = None,
-                       device="cuda") -> np.ndarray:
+                       device="cuda", dtype=torch.float32) -> np.ndarray:
     """Render a scene with the XLA-form march in row chunks on ``device``,
     reporting progress after each chunk; returns the uint8 frame.
 
@@ -79,16 +79,17 @@ def render_progressive(scene: Scene, chunks: int = 16,
     partial)`` sees the frame assembled so far (stars, then the post
     chain), the rows not yet rendered black; a False from it stops the
     render and the partial frame is returned. Chunks past the frame's last
-    row render nothing but still report. The finished frame is bit-equal
-    to the unsharded ``render.render_scene`` on the same device."""
+    row render nothing but still report. ``dtype`` is the march's float
+    type. The finished frame is bit-equal to the unsharded
+    ``render.render_scene`` of the same dtype on the same device."""
     dev = _device(device)
     cfg = scene.config
     size = cfg.size
     (static, params, camera, inv_vp, rs, ms, ex, ga,
-     sa) = scene_args(scene, dev)
+     sa) = scene_args(scene, dev, dtype)
     chunks = max(1, min(chunks, size))
     rows_per = -(-size // chunks)
-    linear = torch.zeros((size, size, 3), dtype=torch.float32, device=dev)
+    linear = torch.zeros((size, size, 3), dtype=dtype, device=dev)
 
     def frame():
         return assemble(linear, cfg, ex, ga, sa)[0].cpu().numpy()

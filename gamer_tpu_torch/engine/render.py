@@ -500,7 +500,10 @@ def _march_graphed(step, state):
     trip's, and a trip leaves a done ray's state as it was, so the trips
     past the last ray's end change nothing: the result is the eager
     loop's bit for bit. The first trip runs eagerly on a side stream (it
-    fills the per-device constant caches before the capture)."""
+    fills the per-device constant caches before the capture). The graph is
+    captured anew on every call from that call's tensors, and the caches
+    are keyed on device and dtype, so a float64 march replays a float64
+    graph: nothing is shared between dtypes."""
     dev = state[0].device
     with torch.no_grad(), torch.cuda.device(dev):
         side = torch.cuda.Stream(dev)
@@ -560,6 +563,31 @@ def render_rows(static: SceneStatic, size: int, ss: int, params, camera,
     if ss > 1:
         linear = linear.reshape(rows, ss, size, ss, 3).mean(dim=(1, 3))
     return linear
+
+
+def render_rows_mesh(static: SceneStatic, size: int, ss: int, mesh, params,
+                     camera, inv_vp, ray_step, min_step):
+    """``render_rows`` of the whole frame over a 1-D ``mesh``: entry i
+    marches output rows i * size/n + [0, size/n) on its device, on that
+    device's current stream, from copies of the arguments there; the slabs
+    are gathered on the mesh's first device. The size must divide the
+    mesh. Every ray marches element-wise, so the result is bit-equal to
+    the unsharded ``render_rows`` on the same device."""
+    if len(mesh.axis_names) != 1:
+        raise ValueError(f"need a 1-D mesh, got axes {mesh.axis_names}")
+    if size % mesh.size != 0:
+        raise ValueError(
+            f"size {size} not divisible by mesh size {mesh.size}; choose a "
+            "size that tiles over the mesh")
+    out = mesh.devices[0]
+    rows = size // mesh.size
+    slabs = []
+    for i, d in enumerate(mesh.devices):
+        args = tree_map(lambda t, d=d: t.to(d),
+                        (params, camera, inv_vp, ray_step, min_step))
+        slabs.append(render_rows(static, size, ss, *args, i * rows,
+                                 rows).to(out))
+    return torch.cat(slabs)
 
 
 def render_frame(static: SceneStatic, size: int, params, camera, inv_vp,
@@ -635,28 +663,15 @@ def render_scene(scene, device="cuda", return_linear: bool = False,
 
     cfg = scene.config
     with torch.no_grad():
+        dev = _device(device) if mesh is None else mesh_device(mesh)
+        (static, params, camera, inv_vp, rs, ms, ex, ga,
+         sa) = scene_args(scene, dev, dtype)
         if mesh is None:
-            dev = _device(device)
-            (static, params, camera, inv_vp, rs, ms, ex, ga,
-             sa) = scene_args(scene, dev, dtype)
             linear = render_rows(static, cfg.size, cfg.supersample, params,
                                  camera, inv_vp, rs, ms)
         else:
-            if len(mesh.axis_names) != 1:
-                raise ValueError(
-                    f"need a 1-D mesh, got axes {mesh.axis_names}")
-            if cfg.size % mesh.size != 0:
-                raise ValueError(
-                    f"size {cfg.size} not divisible by mesh size "
-                    f"{mesh.size}; choose a size that tiles over the mesh")
-            dev = mesh_device(mesh)
-            rows = cfg.size // mesh.size
-            args = {d: scene_args(scene, _device(d), dtype)
-                    for d in mesh.devices}
-            linear = torch.cat([render_rows(
-                args[d][0], cfg.size, cfg.supersample, *args[d][1:6],
-                i * rows, rows).to(dev) for i, d in enumerate(mesh.devices)])
-            ex, ga, sa = args[mesh.devices[0]][6:]
+            linear = render_rows_mesh(static, cfg.size, cfg.supersample,
+                                      mesh, params, camera, inv_vp, rs, ms)
         img, linear = assemble(linear, cfg, ex, ga, sa)
     if return_linear:
         return img.cpu().numpy(), linear.cpu().numpy()

@@ -100,6 +100,46 @@ def norm3(v):
     return torch.where(nz, n, 0.0)
 
 
+def normalize3(v, eps=0.0):
+    """``v / |v|`` over the trailing axis of size 3; a zero vector stays
+    zero. ``eps`` is unused, as in ``gamer_tpu.ops.math3d.normalize3``."""
+    n = norm3(v)
+    safe = torch.where(n == 0, 1.0, n)
+    return v / safe[..., None]
+
+
+def quat_mul(q1, q2):
+    """Hamilton product of (..., 4) quaternions (w, x, y, z)."""
+    w1, x1, y1, z1 = (q1[..., i] for i in range(4))
+    w2, x2, y2, z2 = (q2[..., i] for i in range(4))
+    return torch.stack([
+        w1 * w2 - x1 * x2 - y1 * y2 - z1 * z2,
+        w1 * x2 + x1 * w2 + y1 * z2 - z1 * y2,
+        w1 * y2 + y1 * w2 + z1 * x2 - x1 * z2,
+        w1 * z2 + z1 * w2 + x1 * y2 - y1 * x2,
+    ], dim=-1)
+
+
+def quat_rotation_to_y(orientation):
+    """The shortest-arc quaternion (..., 4) from (0, 1, 0) to
+    ``orientation`` (QQuaternion::rotationTo as GalaxyInstance uses it,
+    galaxyinstance.cpp:69-71). Antiparallel orientations take Qt's
+    fallback, a half turn about (0, 0, 1). Host-side scene prep uses the
+    oracle's exact Qt float32 form instead (oracle/qtmath.py)."""
+    v1 = normalize3(orientation)
+    d = v1[..., 1] + 1.0  # dot((0,1,0), v1) + 1
+    near_pi = torch.abs(d) <= 1e-5
+    dd = torch.sqrt(2.0 * torch.where(near_pi, 1.0, d))
+    # cross((0,1,0), v1) = (z, 0, -x)
+    axis = torch.stack([v1[..., 2], torch.zeros_like(d), -v1[..., 0]],
+                       dim=-1) / dd[..., None]
+    q = torch.cat([(dd * 0.5)[..., None], axis], dim=-1)
+    qn = q / torch.sqrt(torch.sum(q * q, dim=-1, keepdim=True))
+    flip = torch.zeros_like(qn)
+    flip[..., 3] = 1.0  # (w, x, y, z) = (0, 0, 0, 1)
+    return torch.where(near_pi[..., None], flip, qn)
+
+
 def qt_smoothstep(edge0, edge1, x):
     """Util::smoothstep; 0/0 -> NaN -> clamp -> 1 (the oracle's value). A
     zero-width edge keeps that value but carries no derivative; the other

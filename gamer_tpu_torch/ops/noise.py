@@ -290,6 +290,21 @@ def ridged_mf(x, y, z, spectral_weights, lacunarity, offset, gain,
     return value * 1.25 - 1.0
 
 
+def noise_statistics(sampler, n: int = 100000, lo: float = -1.0,
+                     hi: float = 1.0, seed: int = 0, device="cuda"):
+    """Min, max, mean and std of ``sampler(x, y, z)`` over ``n`` uniform
+    points of the cube [lo, hi)^3, drawn from ``seed`` (float32 tensors on
+    ``device``): Noise::calculate_statistics (noise.cpp:132-160), seeded."""
+    from ..engine.cuda_render import _device
+
+    rng = np.random.default_rng(seed)
+    pts = torch.as_tensor(rng.uniform(lo, hi, size=(int(n), 3)),
+                          dtype=torch.float32, device=_device(device))
+    vals = sampler(pts[:, 0], pts[:, 1], pts[:, 2]).cpu().numpy()
+    return {"min": float(vals.min()), "max": float(vals.max()),
+            "mean": float(vals.mean()), "std": float(vals.std())}
+
+
 NOISE_KINDS = ("simplex", "perlin", "iq")
 
 

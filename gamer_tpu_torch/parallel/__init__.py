@@ -11,4 +11,5 @@ from .sharding import (  # noqa: F401
     Mesh,
     make_pixel_mesh,
     render_scene_sharded,
+    sharded_render_fn,
 )

@@ -110,6 +110,27 @@ def make_pixel_mesh(devices: Optional[Sequence] = None,
     return Mesh(tuple(devices), (axis_name,))
 
 
+def sharded_render_fn(static, size: int, mesh: Mesh, supersample: int = 1):
+    """The XLA-form frame of one scene structure as a function of its
+    tensor arguments, ``frame(params, camera, inv_vp, ray_step, min_step,
+    exposure, gamma, saturation) -> (size, size, 3) uint8`` on the mesh's
+    first device, its row slabs over the 1-D ``mesh``
+    (``engine.render.render_rows_mesh``; the size must divide the mesh).
+    The frame is bit-equal to ``engine.render.render_frame`` /
+    ``render_frame_ss`` on the same device."""
+    from ..engine.render import _post_uint8, render_rows_mesh
+
+    def frame(params, camera, inv_vp, ray_step, min_step, exposure, gamma,
+              saturation):
+        with torch.no_grad():
+            linear = render_rows_mesh(static, size, supersample, mesh,
+                                      params, camera, inv_vp, ray_step,
+                                      min_step)
+            return _post_uint8(linear, exposure, gamma, saturation)
+
+    return frame
+
+
 def render_scene_sharded(scene: Scene, mesh: Optional[Mesh] = None,
                          dtype=torch.float32,
                          method: str = "pallas") -> np.ndarray:

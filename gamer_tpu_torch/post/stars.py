@@ -1,7 +1,8 @@
 """The star-field overlay (Buffer2D::RenderStars / RenderGaussian parity,
 buffer2d.cpp:140-173, 224-243): seeded per-star draws on the host
 (``star_params``), splatted on the device (``star_field_device``, the
-counterpart of ``gamer_tpu.post.stars.star_field_device``)."""
+counterpart of ``gamer_tpu.post.stars.star_field_device``) or on the host
+in numpy (``render_star_field``, a copy of the JAX package's)."""
 
 from __future__ import annotations
 
@@ -49,6 +50,42 @@ def pad_star_rows(rows: np.ndarray) -> np.ndarray:
     if bucket > K:
         rows = np.concatenate([rows, np.zeros((bucket - K, 6), np.float32)])
     return rows
+
+
+def render_star_field(size: int, no_stars: int, star_size: float,
+                      star_size_spread: float, strength: float,
+                      seed: int = 0) -> np.ndarray:
+    """(size, size, 3) float32 star overlay splatted on the host, star by
+    star, each max-combined into the buffer (rasterizer.cpp:320-321 adds it
+    to the radiance)."""
+    buf = np.zeros((size, size, 3), dtype=np.float32)
+    for row in star_params(size, no_stars, star_size, star_size_spread,
+                           strength, seed):
+        x, y, w = int(row[0]), int(row[1]), int(row[2])
+        _splat_gaussian(buf, x, y, w, row[3:6].astype(np.float32))
+    return buf
+
+
+def _splat_gaussian(buf: np.ndarray, i: int, j: int, w: int,
+                    cs: np.ndarray) -> None:
+    """Max-combine a gaussian splat of width w at column i, row j: the
+    reference's per-texel loop (buffer2d.cpp:224-243) over the window
+    [-(w//2), w//2) in both axes, clipped to the buffer."""
+    size = buf.shape[0]
+    xs = np.arange(-(w // 2), w // 2)
+    if xs.size == 0:
+        return
+    dx = xs / float(w)
+    d2 = dx[:, None] ** 2 + dx[None, :] ** 2
+    v = np.exp(-d2 / 0.01).astype(np.float32)
+    xi = i + xs
+    yj = j + xs
+    mx = (xi >= 0) & (xi < size)
+    my = (yj >= 0) & (yj < size)
+    # the buffer is indexed [y, x]; v is symmetric in (dx, dy)
+    sub = buf[np.ix_(yj[my], xi[mx])]
+    splat = v[np.ix_(my.nonzero()[0], mx.nonzero()[0])][..., None] * cs
+    buf[np.ix_(yj[my], xi[mx])] = np.maximum(sub, splat.astype(np.float32))
 
 
 def star_field_device(params, size: int, device="cpu"):

@@ -209,6 +209,10 @@ def scene_to_dict(scene: Scene) -> dict:
     return _to_dict(scene)
 
 
+def galaxy_to_dict(galaxy: GalaxyData) -> dict:
+    return _to_dict(galaxy)
+
+
 def _vec3(v: Sequence[float]) -> Vec3:
     return (float(v[0]), float(v[1]), float(v[2]))
 

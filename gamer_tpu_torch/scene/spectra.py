@@ -25,3 +25,14 @@ def find_spectrum(name: str, table: Optional[Mapping[str, Vec3]] = None) -> Vec3
     white when there is none."""
     tbl = BUILTIN_SPECTRA if table is None else {k.lower(): v for k, v in table.items()}
     return tbl.get(name.lower(), DEFAULT_SPECTRUM)
+
+
+def verify_spectra(names, table: Optional[Mapping[str, Vec3]] = None) -> str:
+    """The first name in ``names`` that ``table`` (None: the built-ins)
+    does not hold, case-insensitively; '' when every name resolves
+    (Galaxy::VerifySpectra, galaxy.cpp:87-95)."""
+    tbl = BUILTIN_SPECTRA if table is None else {k.lower(): v for k, v in table.items()}
+    for n in names:
+        if n.lower() not in tbl:
+            return n
+    return ""

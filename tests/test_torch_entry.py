@@ -144,13 +144,15 @@ def test_package_never_imports_gamer_tpu():
 
 
 def test_cpu_render_loads_no_jax():
-    """Import the port, render with stars on the CPU, write a PNG and serve
-    one request over a mesh, in a
-    process where nothing keeps gamer_tpu from loading jax: neither jax nor
-    gamer_tpu may be in sys.modules afterwards."""
+    """Import the port (its viewer, dry run and profiling hooks too),
+    render with stars on the CPU, write a PNG and serve one request over a
+    mesh, in a process where nothing keeps gamer_tpu from loading jax:
+    neither jax nor gamer_tpu may be in sys.modules afterwards."""
     code = (
         "import sys, tempfile\n"
         "import gamer_tpu_torch as gt\n"
+        "import gamer_tpu_torch.dryrun, gamer_tpu_torch.utils.profiling\n"
+        "import gamer_tpu_torch.viewer\n"
         "from gamer_tpu_torch.cli import write_png\n"
         "from gamer_tpu_torch.models import presets\n"
         "s = gt.Scene(camera=gt.CameraParams(camera=(0.5, 0, 0)),\n"
