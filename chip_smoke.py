@@ -1,9 +1,11 @@
 """Card smoke run for gamer_tpu_torch: builds the CUDA march kernel from
 csrc/ and drives the port's main paths on the spiral preset: one still
 frame at 512x512 (``render_scene``, K1), the same frame in 16 row bands
-(``render_progressive``, K5), an 8-frame orbit fly-through in one batched
-launch (``render_flythrough``, K4), the all-sky image at nside 512
-(``render_allsky_image``, K6: 3,145,728 rays in one ray-list launch) and
+(``render_progressive``, K5: one launch that flags each band while it runs;
+ticks against the launch, an abort inside it), an 8-frame orbit
+fly-through in one batched launch (``render_flythrough``, K4), the all-sky
+image at nside 512 (``render_allsky_image``, K6: 3,145,728 rays in one
+ray-list launch) and
 the still with the perlin and the iq noise backends (K1-perlin, K1-iq),
 the same frame, orbit and sky spread over a mesh that names the card
 several times (S1-S3: one launch per mesh entry, each on a stream of its
@@ -39,8 +41,8 @@ to the unsharded XLA-form frame, within 3 LSB of the kernel's),
 the finished frame) and the CLI ``galaxy xla|sharded|oracle`` and
 ``skybox xla``. Last the front end: the interactive viewer over HTTP
 (``/render`` at 256x256 through ``march``, the streamed 512x512
-``/fullrender`` through 16 ``march_band`` launches, ``/skybox`` through one
-``march_batch`` launch, each image against its library call and each
+``/fullrender`` through one ``march_progressive`` launch, ``/skybox``
+through one ``march_batch`` launch, each image against its library call and each
 route's kernel against its plain version on the route's own inputs, request
 latencies), ``dryrun_multichip`` on 4 entries of the card, ``entry()``'s
 frame step against the kernel's frame, ``profile_trace`` around the 512x512
@@ -136,6 +138,16 @@ FIT_PROBE_RTOL = 1e-4
 FIT_CPU_RTOL = 1e-3
 LAUNCH_API = ("cudaLaunchKernel", "cudaLaunchKernelExC", "cuLaunchKernel",
               "cuLaunchKernelEx")
+# march_kernel<0> (K1, simplex) as built before the progressive kernel
+# joined march.cu: ptxas's registers and spill bytes and the static SASS
+# instruction count. The progressive kernel is a template flag of the same
+# body and must leave the other kernels' code as it was
+# (scripts/torch_march_ab.py compares the whole code of two builds).
+K1_CODE = {"registers": 80, "spill_stores": 92, "spill_loads": 132,
+           "sass": 4320}
+# the host work a viewer does in each tick of a streamed /fullrender (a
+# stdlib PNG of 512^2, ~8 ms)
+TICK_STALL_MS = 8.0
 
 
 
@@ -249,6 +261,109 @@ def cuda_ms(fn, reps: int):
     return float(np.median(times)), out
 
 
+def progressive_ticks(scene, bands: int, on_tick=None,
+                      stall_ms: float = 0.0) -> dict:
+    """``render_progressive(scene, bands)`` on the card, with each tick's
+    host time and the launch's start and end on the same clock, in ms after
+    the call began: events recorded on the launch's stream just before and
+    just after the launch's set-up (``_launch_bands``; the launch counts
+    stay the wrappers'), mapped to the host clock by an event recorded on
+    the idle stream as the call began. ``on_tick(frac)``'s result goes back
+    to render_progressive (False aborts); ``stall_ms`` of host work follows
+    every tick (a viewer's PNG encode). ``abort_ms``: from the return of an
+    aborting tick to the return of the call; ``tiles``: the tiles the
+    launch took and each band's finished tiles (its device counters);
+    ``phases``: the host's steps, (name, first band, bands or rows, start,
+    end) on the same clock: each wait for flags, each epilogue's enqueue,
+    each download's wait and each collection of Python's garbage collector
+    (its generation and the objects it freed)."""
+    import gc
+
+    from gamer_tpu_torch.engine import cuda_render as cr
+
+    marks, fracs, ticks, phases = {}, [], [], []
+    real = {"launch": cr._launch_bands, "wait": cr.ProgressiveLaunch.wait,
+            "epilogue": cr._Bands.epilogue, "finish": cr._Bands.finish}
+
+    def launch_bands(plan):
+        stream = torch.cuda.current_stream()
+        start = torch.cuda.Event(enable_timing=True)
+        start.record(stream)
+        launch = real["launch"](plan)
+        end = torch.cuda.Event(enable_timing=True)
+        end.record(stream)
+        marks["launch"] = (start, end)
+        marks["counters"] = launch.counters
+        return launch
+
+    def wait(self, b):
+        t = time.perf_counter()
+        n = real["wait"](self, b)
+        phases.append(("wait", b, n, t, time.perf_counter()))
+        return n
+
+    def epilogue(self, b, n, lin):
+        t = time.perf_counter()
+        out = real["epilogue"](self, b, n, lin)
+        phases.append(("epilogue", b, n, t, time.perf_counter()))
+        return out
+
+    def finish(pending):
+        t = time.perf_counter()
+        out = real["finish"](pending)
+        phases.append(("download", -1, len(out), t, time.perf_counter()))
+        return out
+
+    def collected(what, info):
+        if what == "start":
+            marks["gc"] = time.perf_counter()
+        else:
+            phases.append(("gc", info["generation"], info["collected"],
+                           marks.pop("gc", t0), time.perf_counter()))
+
+    def on_progress(frac, partial):
+        ticks.append(time.perf_counter())
+        fracs.append(frac)
+        go = True if on_tick is None else on_tick(frac)
+        t = time.perf_counter()
+        while (time.perf_counter() - t) * 1e3 < stall_ms:
+            pass
+        marks["returned"] = time.perf_counter()
+        return go
+
+    cr._launch_bands = launch_bands
+    cr.ProgressiveLaunch.wait = wait
+    cr._Bands.epilogue = epilogue
+    cr._Bands.finish = staticmethod(finish)
+    t0 = time.perf_counter()
+    gc.callbacks.append(collected)
+    try:
+        torch.cuda.synchronize()
+        anchor = torch.cuda.Event(enable_timing=True)
+        t0 = time.perf_counter()
+        anchor.record()
+        img = cr.render_progressive(scene, bands=bands,
+                                    on_progress=on_progress, device="cuda")
+        t1 = time.perf_counter()
+    finally:
+        gc.callbacks.remove(collected)
+        cr._launch_bands = real["launch"]
+        cr.ProgressiveLaunch.wait = real["wait"]
+        cr._Bands.epilogue = real["epilogue"]
+        cr._Bands.finish = staticmethod(real["finish"])
+    torch.cuda.synchronize()
+    start, end = marks["launch"]
+    return {"img": img, "fracs": fracs,
+            "ticks_ms": [(t - t0) * 1e3 for t in ticks],
+            "start_ms": anchor.elapsed_time(start),
+            "end_ms": anchor.elapsed_time(end), "wall_ms": (t1 - t0) * 1e3,
+            "abort_ms": (t1 - marks["returned"]) * 1e3,
+            "tiles": marks["counters"].cpu().tolist(),
+            "phases": [(name, b, n, round((x - t0) * 1e3, 3),
+                        round((z - t0) * 1e3, 3))
+                       for name, b, n, x, z in phases]}
+
+
 def report_build() -> None:
     """Build the kernels and print the toolchain, ptxas's register and spill
     report, and each march kernel's resident blocks per SM and static SASS
@@ -269,22 +384,35 @@ def report_build() -> None:
                 or "Compiling entry" in line):
             log(f"ptxas: {line.strip()}")
     threads = lib.gamer_march_block_threads()
+    forms = ((0, "march_kernel"), (1, "march_rays_kernel"),
+             (2, "march_progressive_kernel"))
     with torch.cuda.device(0):
         for k, kind in enumerate(NOISE_KINDS):
-            for rays, name in ((0, "march_kernel"), (1, "march_rays_kernel")):
-                n = lib.gamer_march_occupancy(k, rays)
+            for form, name in forms:
+                n = lib.gamer_march_occupancy(k, form)
                 check(n > 0, f"occupancy query of {name}<{kind}> failed: {n}")
                 log(f"occupancy: {name}<{kind}> {n} resident blocks of "
                     f"{threads} threads per SM ({n * threads // 32} warps of "
                     f"64)")
-    names = [f"{n}march{k}_kernelILi{i}E" for n, k in (("12", ""),
-                                                      ("17", "_rays"))
+    names = [f"{len(n)}{n}ILi{i}E" for _, n in forms
              for i in range(len(NOISE_KINDS))]
     mixes = kernels.sass_mix(info["path"], names)
     for name in names:
         log(f"sass mix {name} (static instruction counts, cuobjdump -sass): "
             + (json.dumps(mixes[name]) if mixes else "not measured (no "
                "cuobjdump)"))
+    # the frame kernel's code is as it was before the progressive kernel
+    counts = next((v for k, v in kernels.ptxas_report(
+        info.get("log", "")).items() if "12march_kernelILi0E" in k), None)
+    check(counts is not None, "no ptxas report of march_kernel<0> in the "
+                              "build log")
+    got = dict(zip(("registers", "spill_stores", "spill_loads"), counts))
+    if mixes:  # the static SASS count where cuobjdump exists
+        got["sass"] = mixes["12march_kernelILi0E"]["total"]
+    want = {k: K1_CODE[k] for k in got}
+    log(f"march_kernel<0> code: {got}, as before the progressive kernel: "
+        f"{K1_CODE}")
+    check(got == want, f"march_kernel<0> code changed: {got} against {want}")
 
 
 def scaled(scene, field, factor, gp=False):
@@ -601,7 +729,8 @@ def fit_family_phases(card: str, dev, keep: dict):
     tbatch.render_batch_linear, cr.march_batch_plain = spy_batch, spy_plain
     try:
         # the main path's counts: 0 just before it, read just after
-        for fn in (cr.march, cr.march_band, cr.march_batch, cr.march_rays):
+        for fn in (cr.march, cr.march_band, cr.march_batch, cr.march_rays,
+                   cr.march_progressive):
             fn.launch_count = 0
         pfd, pfd_ms, pfd_n, pfd_peak = traced_fit(
             lambda cb: tfit.fit_pose_fd(start, target, steps=FIT_STEPS,
@@ -609,7 +738,8 @@ def fit_family_phases(card: str, dev, keep: dict):
         torch.cuda.synchronize()
         pfd_launches = cr.march_batch.launch_count
         others = (cr.march.launch_count + cr.march_band.launch_count
-                  + cr.march_rays.launch_count)
+                  + cr.march_rays.launch_count
+                  + cr.march_progressive.launch_count)
     finally:
         tbatch.render_batch_linear, cr.march_batch_plain = real_batch, real_plain
     check(pfd_launches == FIT_STEPS + 1
@@ -1451,15 +1581,17 @@ def profiler_loss(card: str, sizes) -> bool:
     return ok
 
 
-def frontend_phases(card: str, dev) -> None:
+def frontend_phases(card: str, dev) -> float:
     """The front end on the card: the interactive viewer over HTTP on a
     loopback port (/galaxies, /params, /render at a noise LOD through K1,
-    /set, the streamed /fullrender through K5's 16 bands, /skybox through
-    one K4 launch; each image against the library call, the launches each
-    route made, each route's kernel against its plain version), the dry run
-    on 4 entries of the card (rungs a-h), the entry step against the
-    kernel's frame, profile_trace around a still and RenderStats over
-    stills."""
+    /set, the streamed /fullrender through K5's one progressive launch,
+    /skybox through one K4 launch; each image against the library call, the
+    launches each route made, each route's kernel against its plain
+    version), the dry run on 4 entries of the card (rungs a-h), the entry
+    step against the kernel's frame, profile_trace around a still and
+    RenderStats over stills. Returns the linear max_abs_err of the
+    /fullrender launch's middle band against its plain version (the main
+    path's shape: 512^2 in 16 bands)."""
     from gamer_tpu_torch import dryrun, viewer
     from gamer_tpu_torch.engine import batch
     from gamer_tpu_torch.engine import cuda_render as cr
@@ -1474,7 +1606,7 @@ def frontend_phases(card: str, dev) -> None:
     from gamer_tpu_torch.engine.render import post_process
 
     t_phase = time.perf_counter()
-    routes = (cr.march, cr.march_band, cr.march_batch)
+    routes = (cr.march, cr.march_band, cr.march_batch, cr.march_progressive)
 
     def counts():
         torch.cuda.synchronize()
@@ -1484,22 +1616,29 @@ def frontend_phases(card: str, dev) -> None:
 
     @contextlib.contextmanager
     def spying(route):
-        """Keep the (pages, table, frame size, rows) and the output of each
-        march launch while the block runs, under ``route``: the kernel's
-        inputs as the route made them. The launch helper under the three
-        wrappers is wrapped, so their launch counts stay theirs."""
-        real = cr._launch
+        """Keep the inputs and the output of each march launch while the
+        block runs, under ``route``: the kernel's inputs as the route made
+        them ((pages, table, frame size, rows) of a frame launch, (page,
+        table, frame size, band rows, bands) of a progressive one, whose
+        output is its ``ProgressiveLaunch``). The launch helpers under the
+        wrappers are wrapped, so the wrappers' launch counts stay theirs."""
+        reals = {name: getattr(cr, name)
+                 for name in ("_launch", "_launch_progressive")}
 
-        def spy(*a):
-            out = real(*a)
-            taken.setdefault(route, []).append((a, out))
-            return out
+        def spy(real):
+            def launch(*a):
+                out = real(*a)
+                taken.setdefault(route, []).append((a, out))
+                return out
+            return launch
 
-        cr._launch = spy
+        for name, real in reals.items():
+            setattr(cr, name, spy(real))
         try:
             yield
         finally:
-            cr._launch = real
+            for name, real in reals.items():
+                setattr(cr, name, real)
 
     httpd = viewer.serve(port=0, size=VIEWER_SIZE, poll=False, device=dev)
     state = httpd.state
@@ -1584,26 +1723,29 @@ def frontend_phases(card: str, dev) -> None:
     rises = {"/render": [b - a for a, b in zip(c0, c1)],
              "/fullrender": [b - a for a, b in zip(c2, c3)],
              "/skybox": [b - a for a, b in zip(c4, c5)]}
-    check(rises == {"/render": [1, 0, 0], "/fullrender": [0, BANDS, 0],
-                    "/skybox": [0, 0, 1]},
-          f"launches (march, march_band, march_batch) per route: {rises}")
+    check(rises == {"/render": [1, 0, 0, 0], "/fullrender": [0, 0, 0, 1],
+                    "/skybox": [0, 0, 1, 0]},
+          f"launches (march, march_band, march_batch, march_progressive) "
+          f"per route: {rises}")
     log(f"viewer on {base} ({card}): /galaxies, /params = galaxy_to_dict; "
         f"/render {VIEWER_SIZE}^2 LOD {VIEWER_LOD} bit-equal to render_scene"
         f", /set changes it; /fullrender?stream=1 {VIEWER_FULL}^2: "
         f"{len(parts)} parts, the last bit-equal to render_scene; /skybox "
         f"{VIEWER_FACE}^2 faces bit-equal to render_batch; launches "
-        f"(march, march_band, march_batch) per route {rises}")
+        f"(march, march_band, march_batch, march_progressive) per route "
+        f"{rises}")
     log(f"timing [{card}] viewer (host clock, request -> last byte): "
         f"/render {VIEWER_SIZE}^2 LOD {VIEWER_LOD}, {VIEWER_REQUESTS} "
         f"sequential: p50 {np.percentile(lat, 50):.3f} ms, p95 "
         f"{np.percentile(lat, 95):.3f} ms; /fullrender?stream=1 "
-        f"{VIEWER_FULL}^2 in {BANDS} bands with a PNG per band: {full_ms:.1f} "
-        f"ms; /skybox 6 x {VIEWER_FACE}^2: {sky_ms:.1f} ms")
+        f"{VIEWER_FULL}^2 in {BANDS} bands (one launch) with a PNG per band: "
+        f"{full_ms:.1f} ms; /skybox 6 x {VIEWER_FACE}^2: {sky_ms:.1f} ms")
 
     # --- each route's kernel against its plain version ----------------------
     # on the card, on the inputs the route gave its kernel and the output the
     # kernel gave the route: /render's page (LOD 4), the middle band of the
-    # 512^2 /fullrender and the six /skybox faces; a few rays may take one
+    # 512^2 /fullrender's progressive launch (its plain version over those
+    # rows) and the six /skybox faces; a few rays may take one
     # more or fewer march step (f32 ulps at the exit test), so the gate is
     # the whole-frame one of the 512^2 checks
     def held(label, scene, out, plain_fn):
@@ -1625,19 +1767,22 @@ def frontend_phases(card: str, dev) -> None:
               and mean_d < 0.05,
               f"viewer {label} kernel vs plain: {frac:.4f} differ, mean "
               f"{mean_d}, max_abs_err {err}")
+        return err
 
     seen = {r: len(taken.get(r, ())) for r in ("/render", "/fullrender",
                                                 "/skybox")}
-    check(seen == {"/render": 1, "/fullrender": BANDS, "/skybox": 1},
+    check(seen == {"/render": 1, "/fullrender": 1, "/skybox": 1},
           f"march launches seen per route: {seen}")
     (pages, table, size, _), out = taken["/render"][0]
     held(f"/render {VIEWER_SIZE}^2 LOD {VIEWER_LOD} (march)", view_scene,
          out[0], lambda: cr.march_plain(pages[0], table, size))
-    (pages, table, size, rows), out = taken["/fullrender"][BANDS // 2]
-    row0 = BANDS // 2 * rows
-    held(f"/fullrender {VIEWER_FULL}^2 band rows {row0}-{row0 + rows - 1} "
-         f"(march_band)", full_scene, out[0],
-         lambda: cr.march_band_plain(pages[0], table, size, rows, row0))
+    (page, table, size, rows, n_bands), launch = taken["/fullrender"][0]
+    row0 = n_bands // 2 * rows
+    full_err = held(f"/fullrender {VIEWER_FULL}^2 band rows {row0}-"
+                    f"{row0 + rows - 1} (march_progressive)", full_scene,
+                    launch.bands(n_bands // 2, 1),
+                    lambda: cr.march_band_plain(page, table, size, rows,
+                                                row0))
     (pages, table, size, _), out = taken["/skybox"][0]
     held(f"/skybox {len(pages)} x {VIEWER_FACE}^2 (march_batch)", sky_scene,
          out, lambda: cr.march_batch_plain(pages, table, size))
@@ -1721,6 +1866,7 @@ def frontend_phases(card: str, dev) -> None:
         f"samples per pixel from the oracle): {summary}")
     log(f"front-end phase: {time.perf_counter() - t_phase:.1f} s (host "
         f"clock)")
+    return full_err
 
 
 def main() -> int:
@@ -1743,8 +1889,9 @@ def main() -> int:
     from gamer_tpu_torch.ops import noise as tnoise
 
     wrappers = (cr.march, cr.march_band, cr.march_batch, cr.march_rays,
-                cr.march_rowshard, cr.march_batch_rowshard,
-                cr.march_rays_rowshard, tnoise.noise_probe)
+                cr.march_progressive, cr.march_rowshard,
+                cr.march_batch_rowshard, cr.march_rays_rowshard,
+                tnoise.noise_probe)
 
     def reset_counts():
         for fn in wrappers:
@@ -2055,8 +2202,22 @@ def main() -> int:
             f"of pixels differ, linear max_abs_err "
             f"{float((k[i].cpu() - p[i]).abs().max()):.3g}")
         check(mx <= 2, f"march_batch vs plain frame {i}: {mx} LSB > 2")
+    # the progressive launch: the 64^2 frame in its 2 bands of 32 rows
+    rows_s, n_s = cr.band_geometry(size_s, 1, BANDS)
+    launch_s = cr.march_progressive(page_s.to(dev), table_s.to(dev), size_s,
+                                    rows_s, n_s)
+    launch_s.stop()
+    k, flags_s = launch_s.out, launch_s.flags.tolist()
+    p = cr.march_progressive_plain(page_s, table_s, size_s, rows_s, n_s)
+    mx, frac, _ = lsb_diff(post_cpu(k, small), post_cpu(p, small))
+    log(f"march_progressive vs plain 64^2 ({n_s} bands of {rows_s} rows): "
+        f"max {mx} LSB, {frac:.4f} of pixels differ, linear max_abs_err "
+        f"{float((k.cpu() - p).abs().max()):.3g}; band flags {flags_s}")
+    check(mx <= 2 and flags_s == [1] * n_s,
+          f"march_progressive vs plain: {mx} LSB, flags {flags_s}")
 
-    # --- the band main path: the 512^2 frame in 16 row bands ----------------
+    # --- the band main path: the 512^2 frame in 16 row bands, one launch --
+    band_rows, n_bands = cr.band_geometry(MAIN_SIZE, 1, BANDS)
     gt.render_progressive(main_scene, bands=BANDS, device="cuda")  # warm-up
     torch.cuda.synchronize()
     ticks = []
@@ -2066,30 +2227,65 @@ def main() -> int:
                                  on_progress=lambda f, _: ticks.append(f))
     prog_wall_ms = (time.perf_counter() - t) * 1e3
     band_launches = read_counts()
-    check(band_launches["march_band"] == BANDS,
+    check(band_launches["march_progressive"] == 1
+          and band_launches["march_band"] == 0
+          and band_launches["march"] == 0,
           f"the band path launched {band_launches}")
-    check(ticks == sorted(ticks) and len(ticks) == BANDS and ticks[-1] == 1.0,
+    check(ticks == [(b + 1) / n_bands for b in range(n_bands)],
           f"progress ticks {ticks}")
     check(np.array_equal(prog, frame),
           "the banded 512^2 frame differs from the fused frame")
     log(f"band main path: render_progressive(spiral {MAIN_SIZE}^2, "
         f"bands={BANDS}, device='cuda') launched {band_launches}, "
-        f"{prog_wall_ms:.1f} ms wall with download, {len(ticks)} ticks; "
-        f"bit-equal to render_scene")
-    aborted = gt.render_progressive(main_scene, bands=BANDS, device="cuda",
-                                    on_progress=lambda f, _: False)
-    band_rows = cr.band_geometry(MAIN_SIZE, 1, BANDS)[0]
-    check(np.array_equal(aborted[:band_rows], frame[:band_rows])
+        f"{prog_wall_ms:.1f} ms wall with download, {len(ticks)} ticks in "
+        f"order; bit-equal to render_scene")
+    # the ticks against the launch, on the host clock: without host work,
+    # and with a viewer's PNG encode in every tick
+    runs = [progressive_ticks(main_scene, BANDS) for _ in range(3)]
+    runs.append(progressive_ticks(main_scene, BANDS,
+                                  stall_ms=TICK_STALL_MS))
+    for i, r in enumerate(runs):
+        check(np.array_equal(r["img"], frame) and r["fracs"] == ticks,
+              f"tick run {i}: frame or ticks {r['fracs']} differ")
+        log(f"timing [{card}] render_progressive {MAIN_SIZE}^2 ticks (host "
+            f"clock, ms after the call began"
+            f"{f', {TICK_STALL_MS:g} ms of host work a tick' if i == 3 else ''}"
+            f"): {[round(x, 3) for x in r['ticks_ms']]}; the launch from "
+            f"{r['start_ms']:.3f} to {r['end_ms']:.3f} ms (CUDA events); "
+            f"{sum(x < r['end_ms'] for x in r['ticks_ms'])} of {n_bands} "
+            f"ticks before its end; wall {r['wall_ms']:.3f} ms")
+        check(r["ticks_ms"][0] < r["end_ms"],
+              f"tick run {i}: the first tick ({r['ticks_ms'][0]:.3f} ms) "
+              f"came after the launch's end ({r['end_ms']:.3f} ms); host "
+              f"phases {r['phases']}")
+    first_tick_ms = float(np.median([r["ticks_ms"][0] for r in runs[:3]]))
+    # abort at the first tick: band 0, black below, and the launch stopped
+    # before it took every tile (its tile counter)
+    ab = progressive_ticks(main_scene, BANDS, on_tick=lambda f: False)
+    aborted, counts = ab["img"], ab["tiles"]
+    n_tiles = cr.frame_tiles(MAIN_SIZE, n_bands * band_rows)
+    per_band = cr.frame_tiles(MAIN_SIZE, band_rows)
+    check(ab["fracs"] == [1 / n_bands]
+          and np.array_equal(aborted[:band_rows], frame[:band_rows])
           and int(aborted[band_rows:].sum()) == 0,
           "abort after the first band: wrong rows")
+    check(counts[0] < n_tiles,
+          f"the aborted launch took {counts[0]} of {n_tiles} tiles")
+    log(f"band path: abort at the first tick leaves rows {band_rows}- "
+        f"black; the launch took {counts[0]} of {n_tiles} tiles and "
+        f"finished {sum(counts[1:])} ({sum(c == per_band for c in counts[1:])}"
+        f" of {n_bands} bands whole); abort latency {ab['abort_ms']:.3f} ms "
+        f"(host clock, from the tick's return to the call's), first tick at "
+        f"{ab['ticks_ms'][0]:.3f} ms, the launch "
+        f"{ab['start_ms']:.3f}-{ab['end_ms']:.3f} ms")
     ss_scene = spiral_scene(256, supersample=2, no_stars=200, star_size=3.0,
                             star_seed=7)
     check(np.array_equal(gt.render_progressive(ss_scene, bands=BANDS,
                                                device="cuda"),
                          gt.render_scene(ss_scene, device="cuda")),
           "supersample=2 + stars: bands differ from the fused frame")
-    log(f"band path: abort after band 1 leaves rows {band_rows}- black; "
-        f"supersample=2 + 200 stars at 256^2 bit-equal to the fused frame")
+    log("band path: supersample=2 + 200 stars at 256^2 bit-equal to the "
+        "fused frame")
 
     # --- the batch main path: an 8-frame orbit in one launch ---------------
     fly_cams = orbit_path(main_scene.camera, FLY_FRAMES, horizontal_deg=120.0)
@@ -2195,13 +2391,24 @@ def main() -> int:
         "chunks: interrupted and resumed, bitwise equal to the CLI run")
 
     # --- timing of the band and batch launches at 512^2 ---------------------
-    n_bands = cr.band_geometry(MAIN_SIZE, 1, BANDS)[1]
-
-    def band_sweep():
+    def band_sweep():  # the progressive frame's earlier form, for comparison
         for b in range(n_bands):
             cr.march_band(page, table, MAIN_SIZE, band_rows, b * band_rows)
 
+    held = []  # each launch's words live until the launch has ended
+
+    def progressive_launch():
+        held.append(cr.march_progressive(page, table, MAIN_SIZE, band_rows,
+                                         n_bands))
+        return held[-1].out
+
     sweep_ms, _ = cuda_ms(band_sweep, 5)
+    prog_k_ms, prog_lin = cuda_ms(progressive_launch, 5)
+    check(all(x.flags.tolist() == [1] * n_bands for x in held),
+          "a timed progressive launch left a band flag unset")
+    held.clear()
+    check(torch.equal(prog_lin[:MAIN_SIZE], lin_k),
+          "the progressive launch's radiance differs from march's")
     st, fly_pages, _ = _scene_groups(fly_scenes)[0]
     fly_tab = torch.as_tensor(cr._build_table(st, cr._build_layout(st)),
                               device=dev)
@@ -2215,9 +2422,23 @@ def main() -> int:
         gt.render_progressive(main_scene, bands=BANDS, device="cuda")
         walls.append((time.perf_counter() - t) * 1e3)
     prog_ms = float(np.median(walls))
+    # the earlier form's first tick: band 0's own launch, its epilogue and
+    # its download
+    firsts = []
+    for _ in range(5):
+        torch.cuda.synchronize()
+        t = time.perf_counter()
+        post_process(cr.march_band(page, table, MAIN_SIZE, band_rows, 0),
+                     f32(1.0), f32(1.0), f32(1.0)).cpu()
+        firsts.append((time.perf_counter() - t) * 1e3)
     log(f"timing [{card}] {MAIN_SIZE}^2 spiral (median of 5): K1 march "
-        f"{kern_ms:.3f} ms; {n_bands} march_band launches {sweep_ms:.3f} ms "
-        f"together ({sweep_ms / kern_ms:.3f} x K1); march_batch of "
+        f"{kern_ms:.3f} ms; the progressive launch (K5, {n_bands} bands) "
+        f"{prog_k_ms:.3f} ms ({prog_k_ms / kern_ms:.3f} x K1), bit-equal to "
+        f"K1's radiance; the earlier form, {n_bands} march_band launches "
+        f"{sweep_ms:.3f} ms together ({sweep_ms / kern_ms:.3f} x K1); first "
+        f"tick {first_tick_ms:.3f} ms after the call (host clock, median of "
+        f"3) against the earlier form's band 0 with its epilogue and "
+        f"download {float(np.median(firsts)):.3f} ms; march_batch of "
         f"{FLY_FRAMES} orbit frames {batch_ms:.3f} ms = {batch_ms / FLY_FRAMES:.3f}"
         f" ms per frame ({batch_ms / FLY_FRAMES / kern_ms:.3f} x K1); "
         f"render_progressive {prog_ms:.3f} ms wall with download (host clock)"
@@ -2452,18 +2673,27 @@ def main() -> int:
               f"{kind} kernel vs plain at {MAIN_SIZE}^2: {frac:.4f} differ, "
               f"mean {mean_d}, {within} within 2 LSB")
         kind_rows[kind] = (counts[kind], err_k, ms_k, plain_k_ms, bound_k)
+        # the progressive frame of this kind: one launch, bit-equal to the
+        # kind's still
+        reset_counts()
+        prog_k = gt.render_progressive(scene_k, bands=BANDS, device="cuda")
+        counts = read_counts()
+        check(counts["march_progressive"] == 1 and counts["march_band"] == 0
+              and counts[kind] == 1 and counts["simplex"] == 0,
+              f"the {kind} bands launched {counts}")
+        check(np.array_equal(prog_k, frame_k),
+              f"{kind} bands differ from the {kind} still")
+        log(f"{kind} progressive frame {MAIN_SIZE}^2: one march_progressive "
+            f"launch of {BANDS} bands, bit-equal to the {kind} still")
         if kind == "perlin":
-            # every launch form with a second kind: one band sweep and a
-            # 2-frame batch, bit-equal to the perlin still
+            # every launch form with a second kind: a 2-frame batch and a
+            # ray list
             reset_counts()
-            prog_k = gt.render_progressive(scene_k, bands=BANDS, device="cuda")
             fly_k = gt.render_flythrough(scene_k, fly_cams[:2], device="cuda")
             counts = read_counts()
-            check(counts["march_band"] == BANDS and counts["march_batch"] == 1
-                  and counts["perlin"] == BANDS + 1 and counts["simplex"] == 0,
-                  f"perlin bands and batch launched {counts}")
-            check(np.array_equal(prog_k, frame_k),
-                  "perlin bands differ from the perlin still")
+            check(counts["march_batch"] == 1 and counts["perlin"] == 1
+                  and counts["simplex"] == 0,
+                  f"the perlin batch launched {counts}")
             for i in range(2):
                 check(np.array_equal(fly_k[i], gt.render_scene(
                     dataclasses.replace(scene_k, camera=fly_cams[i]),
@@ -2473,9 +2703,9 @@ def main() -> int:
                                      device="cuda")
             check(np.isfinite(sky_p32).all() and (sky_p32.sum(1) > 0).all(),
                   "perlin ray list")
-            log(f"perlin launch forms: {BANDS} bands and a 2-frame batch "
-                f"bit-equal to the perlin still ({counts}); a perlin ray "
-                f"list of 768 rays is finite and non-zero")
+            log(f"perlin launch forms: a 2-frame batch bit-equal to the "
+                f"perlin still ({counts}); a perlin ray list of 768 rays is "
+                f"finite and non-zero")
 
     # --- the CLI commands of the all-sky path -------------------------------
     with tempfile.TemporaryDirectory() as tmp:
@@ -2802,14 +3032,15 @@ def main() -> int:
         job = done(svc, jid)
         counts = read_counts()
         steps = sorted(set(seen))
-        check(counts["march_band"] == BANDS and seen == sorted(seen)
-              and len(steps) >= 3 and np.array_equal(job.image, frame),
+        check(counts["march_progressive"] == 1 and counts["march_band"] == 0
+              and seen == sorted(seen) and len(steps) >= 3
+              and np.array_equal(job.image, frame),
               f"progressive single: {counts}, progress values {steps}")
         log(f"service: 8 concurrent {SERVE_SIZE}^2 requests were 1 "
             f"march_batch launch, each image bit-equal to its render_scene; "
             f"a {SERVE_SIZE}^2 single 1 march launch; a {MAIN_SIZE}^2 single "
-            f"{BANDS} march_band launches with {len(steps)} rising progress "
-            f"values seen, bit-equal to render_scene")
+            f"1 march_progressive launch of {BANDS} bands with {len(steps)} "
+            f"rising progress values seen, bit-equal to render_scene")
         # abort in mid-frame keeps the partial frame (1024^2: 16 bands of
         # 64 rows, long enough to be caught between two bands)
         big = spiral_scene(1024)
@@ -3093,7 +3324,7 @@ def main() -> int:
     # the XLA-form surfaces: the sharded frame, the sky, the queue, the CLI
     xla_surface_phases(card, dev)
     # the front end: the viewer, the dry run, the entry step, profiling
-    frontend_phases(card, dev)
+    full_err = frontend_phases(card, dev)
 
     for pkg in ("jax", "gamer_tpu"):
         check(pkg not in sys.modules, f"{pkg} was imported")
@@ -3109,8 +3340,17 @@ def main() -> int:
     log(json.dumps({"kernels": [
         entry("march", "gamer_tpu/engine/pallas_render.py:1094", launches,
               max_abs, k_ms, plain_ms, k1_bound),
+        # the progressive frame (render_progressive_pallas's bands of
+        # _compiled_band) in one launch: at 512^2 its 16 bands of 32 rows
+        # pad nothing, so its plain version is march_plain over K1's rays
+        # (K1's plain time, at plain_size) and its bound K1's; its error is
+        # the viewer's 512^2 launch in 16 bands against the plain version
+        entry("march_progressive", "gamer_tpu/engine/pallas_render.py:1243",
+              band_launches["march_progressive"], full_err, prog_k_ms,
+              plain_ms, k1_bound),
+        # a row band: S1's launch on each mesh entry (its main path)
         entry("march_band", "gamer_tpu/engine/pallas_render.py:1243",
-              band_launches["march_band"], band_err, band_k_ms,
+              s1_launches["march_band"], band_err, band_k_ms,
               band_plain_ms, band_bound),
         entry("march_batch", "gamer_tpu/engine/pallas_render.py:1294",
               batch_launches["march_batch"], batch_err, batch_k_ms,

@@ -49,6 +49,18 @@
 // band's rows or the list stay in the warp for the next shuffle and write
 // nothing; rows of a band past the frame's last row write 0.
 //
+// The progressive frame (K5's render_progressive_pallas, :1526-1618, which
+// runs _compiled_band once a band to get progress out of the TPU's grid) is
+// one launch here: march_progressive_kernel marches the whole frame padded
+// to its bands, tiles in the still's order, and reports each band while it
+// runs. A warp counts each finished tile in its band's device counter; the
+// warp that finishes a band sets the band's flag in pinned host memory,
+// which the host polls (gamer_progress_wait) to run that band's epilogue
+// and progress tick while later bands are marched; an abort word in the
+// same memory, read after each tile, stops the launch. A lone band filled
+// under half the card (64 blocks for 512 tiles at 512^2), so 16 launches
+// of one band took 3.7 x the still's time (PERF.md).
+//
 // Noise kinds. The raw noise backend (simplex, perlin, iq) is the same for
 // every component of a scene; it is a template parameter of both kernels
 // and of everything between them and the noise, so each kind is its own
@@ -76,6 +88,9 @@
 // operations do not depend on the launch form, its tile or its warp, so a
 // band, a batch frame or a listed ray is bit-equal to the still's ray.
 #include <cuda_runtime.h>
+
+#include <chrono>
+#include <thread>
 
 #include "noise.cuh"
 
@@ -429,18 +444,56 @@ __device__ __forceinline__ unsigned next_tile(unsigned* counter, int lane) {
     return __shfl_sync(0xffffffffu, t, 0);
 }
 
-// The persistent body of both kernels. RAYS false: n_frames frames of one
+// The progressive frame (K5 as one launch). Its rows are n_bands bands of
+// band_tile_rows tile rows each, so the tiles of band b are the tile rows
+// [b, b + 1) * band_tile_rows, taken in order from the tile counter like
+// any frame's. A warp that finished a tile of band b counts it in
+// done[b]; the warp that counts the band's last tile raises the band's
+// word in host memory the device can reach (flags[b] = 1), which the host
+// reads while the launch runs. Release order: every lane's stores, a
+// device fence, the count; then, in the warp that completes the band, a
+// system fence and the flag. The host reads a band's rows only after it
+// saw the flag.
+__device__ __forceinline__ void band_tile_done(unsigned* done,
+                                               unsigned band_tiles,
+                                               int* flag, int lane) {
+    __threadfence();
+    __syncwarp();
+    if (lane == 0) {
+        __threadfence();
+        if (atomicAdd(done, 1u) + 1u == band_tiles) {
+            __threadfence_system();
+            *(volatile int*)flag = 1;
+        }
+    }
+}
+
+// The host's abort word, read by lane 0 after each tile (one read over
+// the bus per tile) and handed to the warp: a set word stops the launch
+// within one tile of each warp.
+__device__ __forceinline__ bool aborted(const int* abort_word, int lane) {
+    int a = 0;
+    if (lane == 0) a = *(const volatile int*)abort_word;
+    return __shfl_sync(0xffffffffu, a, 0) != 0;
+}
+
+// The persistent body of the kernels. RAYS false: n_frames frames of one
 // structure, page f at pages + f * page_stride, rows [0, rows) at global
 // rows row0 + [0, rows) into out (n_frames, rows, frame_size, 3). RAYS
 // true: the n_rays directions dirs (n_rays, 3) from the one page's camera
-// point into out (n_rays, 3).
-template <int KIND, bool RAYS>
+// point into out (n_rays, 3). PROGRESS (one frame, row0 0, rows a whole
+// number of bands of band_tile_rows tile rows): the band flags and the
+// abort word above, with the band counts at counter + 1. The flag code is
+// compiled into the PROGRESS instantiation alone, so the other kernels
+// are the same code as without it.
+template <int KIND, bool RAYS, bool PROGRESS = false>
 __device__ __forceinline__ void march_tiles(
     const float* __restrict__ pages, int n_page, int page_stride,
     int n_frames, const int* __restrict__ table, int n_table,
     const int* __restrict__ noise_g, const float* __restrict__ dirs,
     int n_rays, float* __restrict__ out, int frame_size, int rows,
-    unsigned* __restrict__ counter) {
+    unsigned* __restrict__ counter, int band_tile_rows = 0,
+    int* flags = nullptr, const int* abort_word = nullptr) {
     extern __shared__ int smem[];
     const int* tab = smem;
     float* slots = reinterpret_cast<float*>(smem + n_table);
@@ -464,7 +517,19 @@ __device__ __forceinline__ void march_tiles(
     const float fsize = (float)frame_size;
     const float half = F32((double)frame_size * 0.5);
     int frame_in_slot = one_page ? 0 : -1;
+    [[maybe_unused]] int done_band = -1;  // PROGRESS: the warp's last band
     for (;;) {
+        if constexpr (PROGRESS) {
+            // after each tile: count it, then look at the abort word (not
+            // before the first: the first wave's ~3,000 reads at once
+            // queue on the bus)
+            if (done_band >= 0) {
+                band_tile_done(counter + 1 + done_band,
+                               (unsigned)(tiles_x * band_tile_rows),
+                               flags + done_band, lane);
+                if (aborted(abort_word, lane)) break;
+            }
+        }
         const unsigned t = next_tile(counter, lane);
         if (t >= n_tiles) break;
         if constexpr (RAYS) {
@@ -482,6 +547,7 @@ __device__ __forceinline__ void march_tiles(
             const int f = (int)(t / (unsigned)per_frame);
             const int rem = (int)t - f * per_frame;
             const int ty = rem / tiles_x;
+            if constexpr (PROGRESS) done_band = ty / band_tile_rows;
             if (f != frame_in_slot) {  // warp-uniform: t is the warp's
                 __syncwarp();
                 const float* src = pages + (size_t)f * page_stride;
@@ -550,6 +616,27 @@ march_rays_kernel(const float* __restrict__ page, int n_page,
                             dirs, n_rays, out, 0, 0, counter);
 }
 
+// K5 as one launch: the progressive frame of n_bands bands of
+// band_tile_rows * TILE_H rows from row 0 (the page's row0 must be 0), every
+// ray the still's; rows past the frame are 0. counters[0] is the tile
+// counter and counters[1 + b] band b's count of finished tiles (all 0 at
+// the launch); flags (n_bands) and abort_word are host memory the device
+// reaches (see band_tile_done and aborted).
+template <int KIND>
+__global__ void __launch_bounds__(BLOCK_THREADS, MIN_BLOCKS)
+march_progressive_kernel(const float* __restrict__ page, int n_page,
+                         const int* __restrict__ table, int n_table,
+                         const int* __restrict__ noise_g,
+                         float* __restrict__ out, int frame_size,
+                         int band_tile_rows, int n_bands,
+                         unsigned* __restrict__ counters, int* flags,
+                         const int* abort_word) {
+    march_tiles<KIND, false, true>(
+        page, n_page, n_page, 1, table, n_table, noise_g, nullptr, 0, out,
+        frame_size, n_bands * band_tile_rows * TILE_H, counters,
+        band_tile_rows, flags, abort_word);
+}
+
 // Dynamic shared memory above 48 KB has to be granted to the kernel first.
 template <typename Kernel>
 static cudaError_t reserve_smem(Kernel kernel, size_t smem) {
@@ -587,6 +674,34 @@ static int launch_rays(const float* page, int n_page, const int* table,
     return (int)cudaGetLastError();
 }
 
+template <int KIND>
+static int launch_progressive(const float* page, int n_page,
+                              const int* table, int n_table,
+                              const int* noise, float* out, int frame_size,
+                              int band_tile_rows, int n_bands, int grid,
+                              unsigned* counters, int* flags,
+                              const int* abort_word, cudaStream_t stream) {
+    const size_t smem = smem_bytes(n_table, n_page, 1);
+    cudaError_t e = reserve_smem(march_progressive_kernel<KIND>, smem);
+    if (e != cudaSuccess) return (int)e;
+    march_progressive_kernel<KIND><<<grid, BLOCK_THREADS, smem, stream>>>(
+        page, n_page, table, n_table, noise, out, frame_size, band_tile_rows,
+        n_bands, counters, flags, abort_word);
+    return (int)cudaGetLastError();
+}
+
+// The address at which the current device reaches host memory ``p``
+// (pinned, hence mapped under unified addressing), or nullptr where it
+// cannot reach it.
+static void* device_view(const void* p) {
+    cudaPointerAttributes a{};
+    if (cudaPointerGetAttributes(&a, p) != cudaSuccess) {
+        cudaGetLastError();  // not sticky: leave no error for the launch
+        return nullptr;
+    }
+    return a.type == cudaMemoryTypeHost ? a.devicePointer : nullptr;
+}
+
 template <typename Kernel>
 static int blocks_per_sm(Kernel kernel, size_t smem) {
     int n = 0;
@@ -596,12 +711,17 @@ static int blocks_per_sm(Kernel kernel, size_t smem) {
 }
 
 // With the dynamic shared memory of a small scene's table and page: a
-// launch's own table and page (a few KB) leave the count as it is.
+// launch's own table and page (a few KB) leave the count as it is. form: 0
+// the frame kernel, 1 the ray-list kernel, 2 the progressive kernel.
 template <int KIND>
-static int occupancy(int rays) {
+static int occupancy(int form) {
     const size_t smem = smem_bytes(256, 256, 1);
-    return rays ? blocks_per_sm(march_rays_kernel<KIND>, smem)
-                : blocks_per_sm(march_kernel<KIND>, smem);
+    switch (form) {
+    case 0: return blocks_per_sm(march_kernel<KIND>, smem);
+    case 1: return blocks_per_sm(march_rays_kernel<KIND>, smem);
+    case 2: return blocks_per_sm(march_progressive_kernel<KIND>, smem);
+    }
+    return -(int)cudaErrorInvalidValue;
 }
 
 }  // namespace gamer
@@ -676,18 +796,111 @@ extern "C" int gamer_march_rays(const float* page, int n_page,
     return (int)cudaErrorInvalidValue;
 }
 
-// Resident blocks per SM of the kind's frame kernel (rays = 0) or ray-list
-// kernel (rays = 1) on the current device; minus the CUDA error on failure.
-extern "C" int gamer_march_occupancy(int kind, int rays) {
+// K5 as one launch: the progressive frame, n_bands bands of band_rows rows
+// (a multiple of the tile height) from row 0 of a frame_size frame into out
+// (n_bands * band_rows, frame_size, 3), with the page's row0 at 0. counters
+// holds 1 + n_bands unsigned ints, all 0 and of this launch alone (the tile
+// counter, then each band's count of finished tiles). flags (n_bands ints,
+// 0 at the launch) and abort_word (one int) are pinned host memory: the
+// launch sets flags[b] to 1 once band b's rows are stored, and stops within
+// one tile of each warp once the host sets abort_word. Returns
+// cudaErrorInvalidValue where the device cannot reach flags or abort_word;
+// ``kind``, ``noise``, ``grid`` and ``stream`` as in gamer_march_batch.
+extern "C" int gamer_march_progressive(const float* page, int n_page,
+                                       const int* table, int n_table,
+                                       const int* noise, float* out,
+                                       int frame_size, int band_rows,
+                                       int n_bands, int kind, int grid,
+                                       unsigned* counters, int* flags,
+                                       const int* abort_word, void* stream) {
+    if (frame_size <= 0 || band_rows <= 0 || n_bands <= 0 || grid <= 0
+        || band_rows % gamer::TILE_H != 0)
+        return (int)cudaErrorInvalidValue;
+    const long long rows = (long long)band_rows * n_bands;
+    const long long n_tiles =
+        (long long)((frame_size + gamer::TILE_W - 1) / gamer::TILE_W)
+        * (rows / gamer::TILE_H);
+    if (rows >= (1LL << 24)
+        || n_tiles + (long long)grid * gamer::BLOCK_WARPS >= (1LL << 31))
+        return (int)cudaErrorInvalidValue;
+    int* dflags = static_cast<int*>(gamer::device_view(flags));
+    const int* dabort =
+        static_cast<const int*>(gamer::device_view(abort_word));
+    if (dflags == nullptr || dabort == nullptr)
+        return (int)cudaErrorInvalidValue;
+    const int tile_rows = band_rows / gamer::TILE_H;
+    cudaStream_t st = (cudaStream_t)stream;
     switch (kind) {
-    case gamer::NOISE_SIMPLEX: return gamer::occupancy<gamer::NOISE_SIMPLEX>(rays);
-    case gamer::NOISE_PERLIN: return gamer::occupancy<gamer::NOISE_PERLIN>(rays);
-    case gamer::NOISE_IQ: return gamer::occupancy<gamer::NOISE_IQ>(rays);
+    case gamer::NOISE_SIMPLEX:
+        return gamer::launch_progressive<gamer::NOISE_SIMPLEX>(
+            page, n_page, table, n_table, noise, out, frame_size, tile_rows,
+            n_bands, grid, counters, dflags, dabort, st);
+    case gamer::NOISE_PERLIN:
+        return gamer::launch_progressive<gamer::NOISE_PERLIN>(
+            page, n_page, table, n_table, noise, out, frame_size, tile_rows,
+            n_bands, grid, counters, dflags, dabort, st);
+    case gamer::NOISE_IQ:
+        return gamer::launch_progressive<gamer::NOISE_IQ>(
+            page, n_page, table, n_table, noise, out, frame_size, tile_rows,
+            n_bands, grid, counters, dflags, dabort, st);
+    }
+    return (int)cudaErrorInvalidValue;
+}
+
+// gamer_progress_wait's own results besides a count of bands and a CUDA
+// error (as its negative).
+constexpr int GAMER_WAIT_ENDED = -1000000;    // launch over, band unset
+constexpr int GAMER_WAIT_TIMEOUT = -1000001;  // timeout_ms passed
+
+// The host's side of the band flags: spins (yielding the thread) until
+// flags[next_band] is set, then returns how many consecutive bands from
+// next_band on are set. Returns GAMER_WAIT_ENDED when ``event`` (recorded
+// after the launch) has completed with flags[next_band] still 0 (the launch
+// was aborted or failed), minus the CUDA error when the event reports one,
+// and GAMER_WAIT_TIMEOUT after timeout_ms. Called through ctypes, which
+// lets other Python threads run while it waits.
+extern "C" int gamer_progress_wait(const int* flags, int n_bands,
+                                   int next_band, void* event,
+                                   int timeout_ms) {
+    if (n_bands <= 0 || next_band < 0 || next_band >= n_bands)
+        return -(int)cudaErrorInvalidValue;
+    const volatile int* f = flags;
+    auto done_from = [&]() {
+        int k = next_band;
+        while (k < n_bands && f[k] != 0) ++k;
+        return k - next_band;
+    };
+    const auto t0 = std::chrono::steady_clock::now();
+    for (;;) {
+        int n = done_from();
+        if (n > 0) return n;
+        const cudaError_t e = cudaEventQuery((cudaEvent_t)event);
+        if (e == cudaSuccess) {
+            // the launch is over: its last flag may have landed just now
+            n = done_from();
+            return n > 0 ? n : GAMER_WAIT_ENDED;
+        }
+        if (e != cudaErrorNotReady) return -(int)e;
+        if (std::chrono::steady_clock::now() - t0
+            > std::chrono::milliseconds(timeout_ms))
+            return GAMER_WAIT_TIMEOUT;
+        std::this_thread::yield();
+    }
+}
+
+// Resident blocks per SM of the kind's frame kernel (form 0), ray-list
+// kernel (1) or progressive kernel (2) on the current device; minus the
+// CUDA error on failure.
+extern "C" int gamer_march_occupancy(int kind, int form) {
+    switch (kind) {
+    case gamer::NOISE_SIMPLEX: return gamer::occupancy<gamer::NOISE_SIMPLEX>(form);
+    case gamer::NOISE_PERLIN: return gamer::occupancy<gamer::NOISE_PERLIN>(form);
+    case gamer::NOISE_IQ: return gamer::occupancy<gamer::NOISE_IQ>(form);
     }
     return -(int)cudaErrorInvalidValue;
 }
 
-// Threads of a block of both march kernels.
+// Threads of a block of the march kernels.
 extern "C" int gamer_march_block_threads() { return gamer::BLOCK_THREADS; }
 
 extern "C" const char* gamer_error_string(int code) {

@@ -12,6 +12,7 @@ from __future__ import annotations
 import ctypes
 import hashlib
 import os
+import re
 import shutil
 import subprocess
 import tempfile
@@ -125,12 +126,21 @@ def load(path) -> ctypes.CDLL:
     # counter, stream
     lib.gamer_march_rays.argtypes = [p, i, p, i, p, p, i, p, i, i, p, p]
     lib.gamer_march_rays.restype = i
+    # page, n_page, table, n_table, noise, out, frame_size, band_rows,
+    # n_bands, kind, grid, counters, flags, abort_word, stream
+    lib.gamer_march_progressive.argtypes = [p, i, p, i, p, p, i, i, i, i, i,
+                                            p, p, p, p]
+    lib.gamer_march_progressive.restype = i
+    # flags, n_bands, next_band, event, timeout_ms (CDLL: the GIL is
+    # released while it waits)
+    lib.gamer_progress_wait.argtypes = [p, i, i, p, i]
+    lib.gamer_progress_wait.restype = i
     # points, n, perm, octaves, persistence, scale, weights, n_weights,
     # lacunarity, offset, gain, out, kind, stream
     lib.gamer_noise_probe.argtypes = [p, i, p, i, f, f, p, i, f, f, f, p,
                                       i, p]
     lib.gamer_noise_probe.restype = i
-    # kind, rays
+    # kind, form (0 frames, 1 ray list, 2 progressive)
     lib.gamer_march_occupancy.argtypes = [i, i]
     lib.gamer_march_occupancy.restype = i
     lib.gamer_march_block_threads.argtypes = []
@@ -177,36 +187,72 @@ SASS_CLASSES = {
 }
 
 
-def sass_mix(lib_path, patterns) -> dict | None:
-    """Static instruction counts, by SASS_CLASSES (and "other", "total"), of
-    the first function in the built library whose mangled name contains each
-    of ``patterns``, from one ``cuobjdump -sass``: {pattern: counts, or None
-    where no function matches}; None without cuobjdump."""
+def ptxas_report(log_text: str) -> dict:
+    """{mangled kernel name: (registers, spill store bytes, spill load
+    bytes)} from a build log's ``-Xptxas -v`` report: the first register
+    and the first spill line after each "Compiling entry function" line."""
+    found, cur = {}, None
+    for line in log_text.splitlines():
+        m = re.search(r"Compiling entry function '(\S+)'", line)
+        if m:
+            cur = found[m.group(1)] = {}
+            continue
+        if cur is None:
+            continue
+        m = re.search(r"(\d+) bytes spill stores, (\d+) bytes spill loads",
+                      line)
+        if m:
+            cur.setdefault("spill", (int(m.group(1)), int(m.group(2))))
+        m = re.search(r"Used (\d+) registers", line)
+        if m:
+            cur.setdefault("registers", int(m.group(1)))
+    return {name: (got["registers"], *got["spill"])
+            for name, got in found.items() if len(got) == 2}
+
+
+def sass_functions(lib_path) -> dict | None:
+    """{function name: [its SASS instructions, without addresses and
+    encodings]} of a built library, in cuobjdump's order, from one
+    ``cuobjdump -sass``; None without cuobjdump."""
     tool = cuobjdump_path()
     if tool is None:
         return None
     text = subprocess.run([tool, "-sass", str(lib_path)], capture_output=True,
                           text=True, check=True).stdout
-    mixes = dict.fromkeys(patterns)
-    counts = None
+    funcs, cur = {}, None
     for line in text.splitlines():
-        if "Function :" in line:
-            counts = None
-            for pat in patterns:
-                if pat in line and mixes[pat] is None:
-                    counts = mixes[pat] = dict.fromkeys(
-                        (*SASS_CLASSES, "other", "total"), 0)
+        m = re.search(r"Function : (\S+)", line)
+        if m:
+            cur = funcs.setdefault(m.group(1), [])
             continue
-        if counts is None or "/*" not in line or ";" not in line:
+        if cur is None or "/*" not in line or ";" not in line:
             continue
         body = line.split("*/", 1)[1].strip()
-        if not body or body.startswith("/*"):
+        if body and not body.startswith("/*"):
+            cur.append(" ".join(body.split(";")[0].split()))
+    return funcs
+
+
+def sass_mix(lib_path, patterns) -> dict | None:
+    """Static instruction counts, by SASS_CLASSES (and "other", "total"), of
+    the first function in the built library whose mangled name contains each
+    of ``patterns`` (``sass_functions``): {pattern: counts, or None where no
+    function matches}; None without cuobjdump."""
+    funcs = sass_functions(lib_path)
+    if funcs is None:
+        return None
+    mixes = dict.fromkeys(patterns)
+    for pat in patterns:
+        name = next((n for n in funcs if pat in n), None)
+        if name is None:
             continue
-        words = body.split()
-        op = words[1] if words[0].startswith("@") else words[0]
-        op = op.split(".", 1)[0].rstrip(";")
-        cls = next((c for c, ops in SASS_CLASSES.items() if op in ops),
-                   "other")
-        counts[cls] += 1
-        counts["total"] += 1
+        counts = mixes[pat] = dict.fromkeys((*SASS_CLASSES, "other",
+                                             "total"), 0)
+        for ins in funcs[name]:
+            words = ins.split()
+            op = words[1] if words[0].startswith("@") else words[0]
+            op = op.split(".", 1)[0]
+            counts[next((c for c, ops in SASS_CLASSES.items() if op in ops),
+                        "other")] += 1
+            counts["total"] += 1
     return mixes

@@ -1,7 +1,8 @@
 """The band path (K5): ``gamer_tpu_torch.render_progressive`` against the
 JAX package's ``render_progressive_pallas`` (interpreted Pallas), against
 the port's own fused frame, and the ``march_band`` wrapper against its
-plain version, on the CPU.
+plain version, on the CPU (the progressive launch's own CPU tests are in
+tests/test_torch_progressive.py).
 
 Below 1024 rows the band quantum is 32 march rows, so a frame needs more
 than 32 rows to have a second band: the spiral at 40^2 gives two bands,
@@ -179,12 +180,16 @@ def test_band_wrapper_rejects_bad_inputs():
 
 
 def test_band_path_launches_nothing_on_cpu():
-    before = (cr.march.launch_count, cr.march_band.launch_count)
+    def counts():
+        return (cr.march.launch_count, cr.march_band.launch_count,
+                cr.march_progressive.launch_count)
+
+    before = counts()
     scene = _scene(6)
     scene.config.ray_step = 0.1
     img = gt.render_progressive(scene, bands=4, device="cpu")
     assert img.shape == (6, 6, 3)
-    assert (cr.march.launch_count, cr.march_band.launch_count) == before
+    assert counts() == before
 
 
 def test_band_path_needs_a_card_for_cuda():

@@ -1,7 +1,7 @@
 """The CUDA march kernel against its plain torch version: every launch
-form (frame, band, batch, ray list) and every noise kind (simplex, perlin,
-iq). These run only where a CUDA card and nvcc are present
-(``pytest -m cuda`` on the card); elsewhere they skip.
+form (frame, band, progressive frame, batch, ray list) and every noise
+kind (simplex, perlin, iq). These run only where a CUDA card and nvcc
+are present (``pytest -m cuda`` on the card); elsewhere they skip.
 
 Gates: <= 2 uint8 LSB between a kernel and its plain version for simplex
 and perlin; for iq, whose sin-hash amplifies the last ulps of two sine
@@ -84,17 +84,102 @@ def test_noise_probe_matches_plain(cuda):
 
 def test_band_frame_equals_fused_frame(cuda):
     """render_progressive's bands (K5) reassemble the fused frame bit for
-    bit, supersampled and starred too; one march_band launch per band."""
+    bit, supersampled and starred too; one march_progressive launch for all
+    the bands, none of march_band, and one tick per band in order."""
     for scene, bands in ((_scene(presets.spiral(), 80), 3),
                          (_scene(presets.spiral(), 40, supersample=2,
                                  no_stars=40, star_size=40.0), 2)):
-        before = cr.march_band.launch_count
-        prog = gt.render_progressive(scene, bands=bands, device="cuda")
+        before = (cr.march_progressive.launch_count,
+                  cr.march_band.launch_count)
+        ticks = []
+        prog = gt.render_progressive(scene, bands=bands, device="cuda",
+                                     on_progress=lambda f, _: ticks.append(f))
         n_bands = cr.band_geometry(scene.config.size,
                                    scene.config.supersample, bands)[1]
-        assert cr.march_band.launch_count == before + n_bands
+        assert (cr.march_progressive.launch_count,
+                cr.march_band.launch_count) == (before[0] + 1, before[1])
+        assert ticks == [(b + 1) / n_bands for b in range(n_bands)]
         np.testing.assert_array_equal(prog, gt.render_scene(scene,
                                                             device="cuda"))
+
+
+def test_progressive_kernel_matches_plain(cuda):
+    """march_progressive against march_progressive_plain at 40^2: <= 2
+    uint8 LSB, every band flag set, rows past the frame 0; on the card the
+    frame's rows are bit-equal to march's."""
+    post = (np.float32(1.0),) * 3
+    scene = _scene(presets.spiral(), 40)
+    page, table, size, _ = cr.prepare(scene, "cpu")
+    before = cr.march_progressive.launch_count
+    launch = cr.march_progressive(page.to(cuda), table.to(cuda), size, 32, 2)
+    assert launch.flags.is_pinned() and launch.abort.is_pinned()
+    assert launch.wait(0) >= 1
+    launch.stop()
+    assert cr.march_progressive.launch_count == before + 1
+    assert launch.flags.tolist() == [1, 1] and launch.abort.tolist() == [1]
+    got = launch.out
+    want = cr.march_progressive_plain(page, table, size, 32, 2)
+    a = post_process(got.cpu(), *post).numpy().astype(np.int16)
+    b = post_process(want, *post).numpy().astype(np.int16)
+    assert int(np.abs(a - b).max()) <= 2
+    assert float(got[size:].abs().max()) == 0.0
+    assert torch.equal(got[:size], cr.march(page.to(cuda), table.to(cuda),
+                                            size))
+
+
+def test_progressive_abort_and_refused_words(cuda):
+    """An abort at the first tick returns band 0 and black below; flag
+    words the card cannot reach are refused before anything runs."""
+    import ctypes
+
+    from gamer_tpu_torch.kernels import library
+
+    scene = _scene(presets.spiral(), 256)
+    want = gt.render_scene(scene, device="cuda")
+    band_rows = cr.band_geometry(256, 1, 8)[0]
+    got = gt.render_progressive(scene, bands=8, device="cuda",
+                                on_progress=lambda f, _: False)
+    np.testing.assert_array_equal(got[:band_rows], want[:band_rows])
+    assert int(got[band_rows:].sum()) == 0
+    page, table, size, _ = cr.prepare(scene, cuda)
+    words = (ctypes.c_int * 9)()  # pageable host memory
+    out = torch.empty((8 * band_rows, size, 3), device=cuda)
+    counters = torch.zeros(9, dtype=torch.int32, device=cuda)
+    noise = cr.noise_table(cr.NOISE_KINDS[cr._table_kind(table)], cuda)
+    rc = library().gamer_march_progressive(
+        page.data_ptr(), page.numel(), table.data_ptr(), table.numel(),
+        noise.data_ptr(), out.data_ptr(), size, band_rows, 8, 0, 1,
+        counters.data_ptr(), ctypes.addressof(words),
+        ctypes.addressof(words) + 32, torch.cuda.current_stream().cuda_stream)
+    torch.cuda.synchronize()
+    assert rc != 0 and list(words) == [0] * 9
+    assert counters.cpu().tolist() == [0] * 9
+
+
+def test_progressive_on_a_card_that_is_not_current(cuda):
+    """render_progressive on the second card while the first is current
+    (a service, a viewer or a mesh entry on cuda:1): the launch's events
+    are its own card's, so the frame is bit-equal to that card's still, the
+    16 ticks come in order, an abort returns band 0 and black below, and
+    every call waits for its launch."""
+    if torch.cuda.device_count() < 2:
+        pytest.skip("needs a second CUDA card")
+    other = torch.device("cuda", 1)
+    scene = _scene(presets.spiral(), 512)
+    assert torch.cuda.current_device() == 0
+    want = gt.render_scene(scene, device=other)
+    band_rows = cr.band_geometry(512, 1, 16)[0]
+    for _ in range(3):
+        ticks = []
+        got = gt.render_progressive(scene, bands=16, device=other,
+                                    on_progress=lambda f, _: ticks.append(f))
+        np.testing.assert_array_equal(got, want)
+        assert ticks == [(b + 1) / 16 for b in range(16)]
+        got = gt.render_progressive(scene, bands=16, device=other,
+                                    on_progress=lambda f, _: False)
+        np.testing.assert_array_equal(got[:band_rows], want[:band_rows])
+        assert int(got[band_rows:].sum()) == 0
+        assert torch.cuda.current_device() == 0
 
 
 def test_batch_frame_equals_single_frame(cuda):
@@ -366,11 +451,12 @@ def test_concurrent_launches_keep_their_own_counters(cuda):
 
 
 def test_occupancy_meets_the_register_budget(cuda):
-    """Both kernels of every kind hold at least MIN_BLOCKS blocks of 256
-    threads per SM, and a launch's grid is the card's resident blocks."""
+    """The frame, ray-list and progressive kernels of every kind hold at
+    least MIN_BLOCKS blocks of 256 threads per SM, and a launch's grid is
+    the card's resident blocks."""
     for kind in range(len(cr.NOISE_KINDS)):
-        for rays in (False, True):
-            blocks, sms, warps = cr.occupancy(cuda, kind, rays)
+        for form in (cr.FORM_FRAMES, cr.FORM_RAYS, cr.FORM_PROGRESSIVE):
+            blocks, sms, warps = cr.occupancy(cuda, kind, form)
             assert warps == 8 and blocks >= MIN_BLOCKS
             assert sms == torch.cuda.get_device_properties(
                 cuda).multi_processor_count

@@ -224,3 +224,6 @@ def test_persistent_grid_from_occupancy():
     # no more blocks than give each warp one tile
     assert cr.persistent_grid(3, 132, 512, 8) == 64
     assert cr.persistent_grid(4, 132, 1, 8) == 1
+    # the progressive launch leaves spare blocks out of full residency
+    assert cr.persistent_grid(3, 132, 8192, 8, spare=2) == 394
+    assert cr.persistent_grid(3, 132, 512, 8, spare=2) == 64
