@@ -20,6 +20,7 @@ import sys
 import time
 from pathlib import Path
 
+from .io.gif import write_gif
 from .io.png import write_png
 from .scene import gax
 from .scene.schema import (
@@ -231,16 +232,18 @@ def cmd_info(argv, device) -> int:
     return 0
 
 
-def _save_frames(imgs, prefix: str) -> None:
+def _save_frames(imgs, prefix: str, duration_ms: int) -> None:
+    """<prefix>_NNN.png per frame and the animated <prefix>.gif, looping,
+    ``duration_ms`` a frame (gamer_tpu/cli.py's PIL GIF)."""
     for i, frame in enumerate(imgs):
         write_png(f"{prefix}_{i:03d}.png", frame)
-    print(f"Saved {len(imgs)} frames to {prefix}_NNN.png (no animated GIF: "
-          "it needs PIL, which gamer_tpu_torch does not use)")
+    write_gif(f"{prefix}.gif", imgs, duration_ms, loop=0)
+    print(f"Saved {len(imgs)} frames to {prefix}_NNN.png and {prefix}.gif")
 
 
 def cmd_flythrough(argv, device) -> int:
     """An orbit of <frames> cameras rendered as one batched launch (K4);
-    writes <outprefix>_NNN.png per frame."""
+    writes <outprefix>_NNN.png per frame and the animated <outprefix>.gif."""
     if len(argv) != 5:
         print(USAGE)
         return 1
@@ -252,13 +255,14 @@ def cmd_flythrough(argv, device) -> int:
     cams = orbit_path(scene.camera, frames)
     with ScopedTimer(f"{frames}-frame fly-through"):
         imgs = render_flythrough(scene, cams, device=device)
-    _save_frames(imgs, argv[4])
+    _save_frames(imgs, argv[4], 80)
     return 0
 
 
 def cmd_morph(argv, device) -> int:
     """Morph one galaxy into another: each frame a parameter interpolation,
-    all in one batched launch; writes <outprefix>_NNN.png per frame."""
+    all in one batched launch; writes <outprefix>_NNN.png per frame and the
+    animated <outprefix>.gif."""
     if len(argv) != 6:
         print(USAGE)
         return 1
@@ -274,7 +278,7 @@ def cmd_morph(argv, device) -> int:
     except ValueError as e:
         print(f"morph: {e}")
         return 1
-    _save_frames(imgs, argv[5])
+    _save_frames(imgs, argv[5], 120)
     return 0
 
 

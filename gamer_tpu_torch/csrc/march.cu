@@ -66,7 +66,8 @@
 // and of everything between them and the noise, so each kind is its own
 // instantiation, chosen by the launch, and stages only its own lookup
 // table (noise.cuh: the paired simplex tables, the paired Perlin
-// permutation, nothing for iq).
+// permutation; for iq the address of the hash table, which fill_iq_table
+// writes once per device and the loads read through L2).
 //
 // Bound. Instruction issue and the instruction cache, then the SFU: exp,
 // pow, sin/cos and sqrt per sample and ~20 raw noise evaluations per step
@@ -501,6 +502,7 @@ __device__ __forceinline__ void march_tiles(
     const bool one_page = n_frames == 1;
     float* pg = slots + (one_page ? 0 : (threadIdx.x >> 5) * n_page);
 
+    stage_iq_pairs<KIND>(noise_g);
     for (int k = threadIdx.x; k < noise_table_size(KIND); k += BLOCK_THREADS)
         noise_smem[k] = noise_g[k];
     for (int k = threadIdx.x; k < n_table; k += BLOCK_THREADS)
@@ -637,6 +639,44 @@ march_progressive_kernel(const float* __restrict__ page, int n_page,
         band_tile_rows, flags, abort_word);
 }
 
+// The iq hash table (noise.cuh: IQ_TABLE_PAIRS float2): thread j writes
+// pair j with the march's own iq_hash. One launch per device.
+__global__ void fill_iq_table(float2* __restrict__ tab) {
+    const int j = blockIdx.x * blockDim.x + threadIdx.x;
+    if (j >= IQ_TABLE_PAIRS) return;
+    const float n = (float)(j - IQ_TABLE_R);
+    tab[j] = make_float2(iq_hash(n), iq_hash(n + 1.0f));
+}
+
+// The table's exhaustive check. For each pair j: the stored pair against
+// iq_hash at its two arguments (bad[0] counts the pairs that differ in a
+// bit). For each integer n in [lo, lo + n_args): iq_corners against the
+// eight iq_hash calls of the sines (bad[1] counts the n whose corners
+// differ in a bit, bad[2] the n that took iq_corners_far).
+__global__ void check_iq_table(const float2* __restrict__ tab, int lo,
+                               int n_args, unsigned* bad) {
+    const int k = blockIdx.x * blockDim.x + threadIdx.x;
+    if (k < IQ_TABLE_PAIRS) {
+        const float n = (float)(k - IQ_TABLE_R);
+        const float2 t = tab[k];
+        if (__float_as_uint(t.x) != __float_as_uint(iq_hash(n))
+            || __float_as_uint(t.y) != __float_as_uint(iq_hash(n + 1.0f)))
+            atomicAdd(bad, 1u);
+    }
+    if (k >= n_args) return;
+    const float n = (float)(lo + k);
+    const IqCorners g = iq_corners(tab, n);
+    const float got[8] = {g.a.x, g.a.y, g.b.x, g.b.y,
+                          g.c.x, g.c.y, g.d.x, g.d.y};
+    const float off[8] = {0.0f, 1.0f, 157.0f, 158.0f,
+                          113.0f, 114.0f, 270.0f, 271.0f};
+    bool same = true;
+    for (int i = 0; i < 8; ++i)
+        same &= __float_as_uint(got[i]) == __float_as_uint(iq_hash(n + off[i]));
+    if (!same) atomicAdd(bad + 1, 1u);
+    if (!(fabsf(n) <= (float)IQ_TABLE_R)) atomicAdd(bad + 2, 1u);
+}
+
 // Dynamic shared memory above 48 KB has to be granted to the kernel first.
 template <typename Kernel>
 static cudaError_t reserve_smem(Kernel kernel, size_t smem) {
@@ -733,7 +773,8 @@ static int occupancy(int form) {
 // frame_size, 3). The still frame (K1) is n_frames = 1, rows = frame_size; a
 // row band (K5) is one frame with rows = the band height; a batch (K4) is
 // rows = frame_size. ``kind`` picks the instantiation (0 simplex, 1 perlin,
-// 2 iq) and ``noise`` is that kind's lookup table (unread for iq). The
+// 2 iq) and ``noise`` is that kind's lookup table (for iq the hash table
+// of gamer_iq_table_fill on the launch's device). The
 // launch runs ``grid`` blocks of gamer_march_block_threads() threads that
 // take the tiles from ``counter``, one unsigned int that must be 0 and
 // belong to this launch alone.
@@ -845,6 +886,30 @@ extern "C" int gamer_march_progressive(const float* page, int n_page,
             n_bands, grid, counters, dflags, dabort, st);
     }
     return (int)cudaErrorInvalidValue;
+}
+
+// The iq hash table: its IQ_TABLE_PAIRS pairs of floats (noise.cuh), the
+// caller's ``pairs``, into ``table`` on the current device, on ``stream``;
+// cudaErrorInvalidValue where ``pairs`` is another count.
+extern "C" int gamer_iq_table_fill(float* table, int pairs, void* stream) {
+    if (pairs != gamer::IQ_TABLE_PAIRS) return (int)cudaErrorInvalidValue;
+    gamer::fill_iq_table<<<(pairs + 255) / 256, 256, 0,
+                           (cudaStream_t)stream>>>(
+        reinterpret_cast<float2*>(table));
+    return (int)cudaGetLastError();
+}
+
+// The table's exhaustive check (check_iq_table) over every pair and the
+// integers [lo, lo + n_args): three unsigned counts into ``bad``, which
+// must be 0 at the launch.
+extern "C" int gamer_iq_table_check(const float* table, int lo, int n_args,
+                                    unsigned* bad, void* stream) {
+    if (n_args < 0) return (int)cudaErrorInvalidValue;
+    const int n = n_args > gamer::IQ_TABLE_PAIRS ? n_args
+                                                 : gamer::IQ_TABLE_PAIRS;
+    gamer::check_iq_table<<<(n + 255) / 256, 256, 0, (cudaStream_t)stream>>>(
+        reinterpret_cast<const float2*>(table), lo, n_args, bad);
+    return (int)cudaGetLastError();
 }
 
 // gamer_progress_wait's own results besides a count of bands and a CUDA

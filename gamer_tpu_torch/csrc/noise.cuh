@@ -26,6 +26,20 @@
 // evaluations in flight per trip tripled the raw backend's copies and cost
 // 13-43 %.
 //
+// The iq hash. iq_raw_3d hashes eight integer-valued floats per evaluation
+// (n = px + 157 py + 113 pz plus 0, 1, 157, 158, 113, 114, 270, 271: floors
+// and integers, whose f32 sums are integers at every magnitude), and the
+// library sinf each hash takes is ~25 f32 instructions with a Payne-Hanek
+// branch for large arguments. So h(n) = frac(sinf(n) * 753.5453123) is
+// read from a table of pairs (h(n), h(n + 1)) over |n| <= IQ_TABLE_R that
+// march.cu's fill_iq_table writes with this same iq_hash: four 8-byte loads
+// through the read-only path in place of eight sines, the same bits by
+// construction. Arguments outside the table (NaN and inf included) take
+// iq_corners_far, the sines in one non-inlined copy. The table is built
+// once per device (ops/noise.py::iq_hash_table) and reaches the kernels as
+// their noise-table argument, whose address the kernel stages in
+// iq_pairs; simplex and perlin never read it.
+//
 // Every expression keeps the JAX evaluation order, and every non-trivial
 // constant is written F32(double literal): JAX rounds a Python float to
 // float32 from its double value, and so does this cast.
@@ -286,6 +300,40 @@ __device__ __forceinline__ float iq_hash(float n) {
     return v - iq_floor(v);
 }
 
+// The hash table: pair j holds (h(j - IQ_TABLE_R), h(j - IQ_TABLE_R + 1))
+// for j in [0, IQ_TABLE_PAIRS), so the pairs at n, n + 157, n + 113 and
+// n + 270 hold a cell's eight corners for every integer |n| <= IQ_TABLE_R.
+// 2^20 covers every preset's arguments about twice (the largest are the
+// spiral's, from its ridged dust's 9th octave: 538,428 at 64^2;
+// tests/test_torch_iq_hash.py holds every preset inside): 16 MB, a third
+// of the H100's L2. A persisting-L2 window over it bought nothing.
+constexpr int IQ_TABLE_R = 1 << 20;
+constexpr int IQ_TABLE_PAIRS = 2 * IQ_TABLE_R + 271;
+
+// The table's address, staged by the iq kernels at block start.
+__shared__ const float2* iq_pairs;
+
+// A cell's eight hashes as the pairs at n, n + 157, n + 113 and n + 270.
+struct IqCorners {
+    float2 a, b, c, d;
+};
+
+// The corners outside the table, by the sines themselves: one shared copy
+// of the eight inlined sinf, out of the noise loops' code.
+static __noinline__ __device__ IqCorners iq_corners_far(float n) {
+    return {{iq_hash(n + 0.0f), iq_hash(n + 1.0f)},
+            {iq_hash(n + 157.0f), iq_hash(n + 158.0f)},
+            {iq_hash(n + 113.0f), iq_hash(n + 114.0f)},
+            {iq_hash(n + 270.0f), iq_hash(n + 271.0f)}};
+}
+
+// n is integer-valued (or NaN or inf, which fail the range test).
+__device__ __forceinline__ IqCorners iq_corners(const float2* tab, float n) {
+    if (!(fabsf(n) <= (float)IQ_TABLE_R)) return iq_corners_far(n);
+    const float2* p = tab + (__float2int_rz(n) + IQ_TABLE_R);
+    return {__ldg(p), __ldg(p + 157), __ldg(p + 113), __ldg(p + 270)};
+}
+
 inline __device__ float iq_raw_3d(float x, float y, float z) {
     float px = iq_floor(x), py = iq_floor(y), pz = iq_floor(z);
     float fx = x - px, fy = y - py, fz = z - pz;
@@ -293,12 +341,11 @@ inline __device__ float iq_raw_3d(float x, float y, float z) {
     fy = s_curve(fy);
     fz = s_curve(fz);
     float n = px + py * 157.0f + 113.0f * pz;
+    const IqCorners h = iq_corners(iq_pairs, n);
     return lerp_w(
         fz,
-        lerp_w(fy, lerp_w(fx, iq_hash(n + 0.0f), iq_hash(n + 1.0f)),
-             lerp_w(fx, iq_hash(n + 157.0f), iq_hash(n + 158.0f))),
-        lerp_w(fy, lerp_w(fx, iq_hash(n + 113.0f), iq_hash(n + 114.0f)),
-             lerp_w(fx, iq_hash(n + 270.0f), iq_hash(n + 271.0f))));
+        lerp_w(fy, lerp_w(fx, h.a.x, h.a.y), lerp_w(fx, h.b.x, h.b.y)),
+        lerp_w(fy, lerp_w(fx, h.c.x, h.c.y), lerp_w(fx, h.d.x, h.d.y)));
 }
 
 // --- the raw backend as a compile-time kind ---------------------------------
@@ -307,9 +354,21 @@ enum { NOISE_SIMPLEX = 0, NOISE_PERLIN = 1, NOISE_IQ = 2, N_NOISE_KINDS = 3 };
 
 // Entries of the kind's lookup table, which the caller stages in shared
 // memory: [P2[512] | GI[512]] for simplex, the paired Perlin permutation
-// [1024], or none.
+// [1024], or none (iq's table stays in device memory: stage_iq_pairs
+// stages its address).
 __host__ __device__ constexpr int noise_table_size(int kind) {
     return kind == NOISE_IQ ? 0 : 1024;
+}
+
+// The iq kernels' staging at block start, before their __syncthreads: the
+// hash table's address into iq_pairs (the other kinds stage their table
+// into noise_smem and leave this empty).
+template <int KIND>
+__device__ __forceinline__ void stage_iq_pairs(const int* noise_g) {
+    if constexpr (KIND == NOISE_IQ) {
+        if (threadIdx.x == 0)
+            iq_pairs = reinterpret_cast<const float2*>(noise_g);
+    }
 }
 
 template <int KIND>

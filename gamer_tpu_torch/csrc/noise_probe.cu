@@ -6,7 +6,9 @@
 // (tests/test_pallas.py:36-66), which checked the byte-packed permutation
 // lookups the Pallas kernel used; here the kind's table (the paired simplex
 // tables or the paired Perlin permutation, ops/noise.py::kernel_noise_table)
-// is staged in noise_smem and read exactly as the march kernel reads it.
+// is staged in noise_smem and read exactly as the march kernel reads it;
+// for iq, perm is the hash table (gamer_iq_table_fill), read as the march
+// kernel reads it.
 // The raw backend is the template parameter the march kernel uses
 // (0 simplex, 1 perlin, 2 iq).
 //
@@ -27,6 +29,7 @@ noise_probe_kernel(const float* __restrict__ xyz, int n,
                    float lacunarity, float offset, float gain,
                    float* __restrict__ out) {
     __shared__ float sw[32];
+    stage_iq_pairs<KIND>(perm_g);
     for (int k = threadIdx.x; k < noise_table_size(KIND); k += blockDim.x)
         noise_smem[k] = perm_g[k];
     for (int k = threadIdx.x; k < n_sw; k += blockDim.x) sw[k] = sw_g[k];

@@ -140,6 +140,12 @@ def load(path) -> ctypes.CDLL:
     lib.gamer_noise_probe.argtypes = [p, i, p, i, f, f, p, i, f, f, f, p,
                                       i, p]
     lib.gamer_noise_probe.restype = i
+    # table, pairs, stream
+    lib.gamer_iq_table_fill.argtypes = [p, i, p]
+    lib.gamer_iq_table_fill.restype = i
+    # table, lo, n_args, bad (3 unsigned), stream
+    lib.gamer_iq_table_check.argtypes = [p, i, i, p, p]
+    lib.gamer_iq_table_check.restype = i
     # kind, form (0 frames, 1 ray list, 2 progressive)
     lib.gamer_march_occupancy.argtypes = [i, i]
     lib.gamer_march_occupancy.restype = i

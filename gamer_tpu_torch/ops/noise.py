@@ -19,7 +19,9 @@ precision, as the kernel's float registers do.
 
 from __future__ import annotations
 
+import contextlib
 import functools
+import threading
 
 import numpy as np
 import torch
@@ -330,13 +332,129 @@ def kernel_noise_table(kind: str) -> np.ndarray:
 
 
 def noise_table(kind: str, device) -> torch.Tensor:
-    """``kernel_noise_table(kind)`` as an int32 tensor on ``device``,
-    uploaded once per device."""
+    """The table a kernel of noise kind ``kind`` reads on ``device``:
+    ``kernel_noise_table(kind)`` as an int32 tensor, uploaded once per
+    device; for iq on a CUDA device the hash table ``iq_hash_table``."""
     resolve_raw(kind)  # an unknown kind raises ValueError
     if kind == "iq":
+        if torch.device(device).type == "cuda":
+            return iq_hash_table(device)
         kind = "simplex"
     return device_table(f"kernel_{kind}", kernel_noise_table(kind), device,
                         torch.int32)
+
+
+# The iq kernels' hash table (csrc/noise.cuh): pair j holds (h(n), h(n + 1))
+# at n = j - IQ_TABLE_R, h(n) = frac(sinf(n) * 753.5453123), so a cell whose
+# hash argument n has |n| <= IQ_TABLE_R reads its eight corners from the
+# pairs at n + IQ_CORNER_PAIRS; other arguments take the sines.
+IQ_TABLE_R = 1 << 20
+IQ_TABLE_PAIRS = 2 * IQ_TABLE_R + 271
+IQ_CORNER_PAIRS = (0, 157, 113, 270)
+
+_IQ_TABLES: dict = {}
+_IQ_LOCK = threading.Lock()
+
+
+def iq_hash_table(device) -> torch.Tensor:
+    """The iq kernels' hash table on a CUDA device, (IQ_TABLE_PAIRS, 2)
+    float32, filled by the kernel library (``gamer_iq_table_fill``, the
+    kernels' own sinf) at the first call for that device, under a lock (the
+    service renders from threads); later calls return the same tensor.
+    ``iq_hash_table.launch_count`` counts the builds (one launch of the
+    fill kernel each) and ``iq_hash_table.build_ms`` holds each device's
+    fill time (CUDA events). A failed build raises."""
+    device = torch.device(device)
+    if device.type != "cuda":
+        raise ValueError(f"the iq hash table lives on a CUDA device, got "
+                         f"{device}")
+    if device.index is None:
+        device = torch.device("cuda", torch.cuda.current_device())
+    table = _IQ_TABLES.get(device.index)
+    if table is None:
+        with _IQ_LOCK:
+            table = _IQ_TABLES.get(device.index)
+            if table is None:
+                table = _IQ_TABLES[device.index] = _build_iq_table(device)
+    return table
+
+
+def _build_iq_table(device: torch.device) -> torch.Tensor:
+    from ..kernels import library
+
+    lib = library()
+    table = torch.empty((IQ_TABLE_PAIRS, 2), dtype=torch.float32,
+                        device=device)
+    with torch.cuda.device(device):
+        stream = torch.cuda.current_stream(device)
+        start = torch.cuda.Event(enable_timing=True)
+        end = torch.cuda.Event(enable_timing=True)
+        start.record(stream)
+        rc = lib.gamer_iq_table_fill(table.data_ptr(), IQ_TABLE_PAIRS,
+                                     stream.cuda_stream)
+        if rc != 0:
+            raise RuntimeError(f"iq hash table build failed: CUDA error {rc} "
+                               f"({lib.gamer_error_string(rc).decode()})")
+        end.record(stream)
+        # every launch of any stream may read it from now on
+        end.synchronize()
+    iq_hash_table.launch_count += 1
+    iq_hash_table.build_ms[device.index] = start.elapsed_time(end)
+    return table
+
+
+iq_hash_table.launch_count = 0
+iq_hash_table.build_ms = {}
+
+
+def iq_hash_table_plain(device) -> torch.Tensor:
+    """The iq hash table with torch ops on ``device``: (IQ_TABLE_PAIRS, 2)
+    float32, h(n) = frac(sin(n) * 753.5453123) in float32 as
+    ops/altnoise.py hashes, pair j at n = j - IQ_TABLE_R."""
+    n = torch.arange(-IQ_TABLE_R, IQ_TABLE_R + 272, dtype=torch.float32,
+                     device=device)
+    v = torch.sin(n) * 753.5453123
+    h = v - torch.floor(v)
+    return torch.stack([h[:-1], h[1:]], dim=1)
+
+
+@contextlib.contextmanager
+def iq_census(keep: bool = False):
+    """Counts the hash arguments of the plain iq raw evaluations made
+    inside the block (``altnoise.iq_value_noise_3d``, as ``resolve_raw``
+    hands it to the plain march and the plain probe; for one thread):
+    yields a dict of ``evaluations``, ``max_abs`` (the largest finite
+    |n|), ``outside`` (evaluations whose n the kernels' table does not
+    hold: |n| > IQ_TABLE_R, NaN or inf; on the card they take the sines)
+    and ``non_integer`` (finite n that are not integers: none may be);
+    with ``keep``, ``arguments`` too: the distinct finite n, sorted."""
+    from . import altnoise
+
+    twin = altnoise.iq_value_noise_3d
+    got = {"evaluations": 0, "max_abs": 0.0, "outside": 0, "non_integer": 0}
+    seen = []
+
+    def counted(x, y, z):
+        # the hash argument, as csrc/noise.cuh and ops/altnoise.py form it
+        n = torch.floor(x) + torch.floor(y) * 157.0 + 113.0 * torch.floor(z)
+        finite = torch.isfinite(n)
+        got["evaluations"] += n.numel()
+        if bool(finite.any()):
+            got["max_abs"] = max(got["max_abs"], float(n[finite].abs().max()))
+            if keep:
+                seen.append(torch.unique(n[finite]).cpu())
+        got["outside"] += int((~(n.abs() <= IQ_TABLE_R)).sum())
+        got["non_integer"] += int((finite & (n != torch.floor(n))).sum())
+        return twin(x, y, z)
+
+    altnoise.iq_value_noise_3d = counted
+    try:
+        yield got
+    finally:
+        altnoise.iq_value_noise_3d = twin
+        if keep:
+            got["arguments"] = (torch.unique(torch.cat(seen)).numpy() if seen
+                                else np.zeros(0, np.float32))
 
 
 def noise_probe_plain(points, octaves: int, persistence, scale,

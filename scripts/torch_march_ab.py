@@ -13,15 +13,19 @@ default one variant, csrc/ as it is). Then, on the same inputs:
   against the old build's: which of the old build's functions changed, the
   static instruction count of ``march_kernel<0>``, each new function's,
   and the resident blocks per SM of every kernel form;
+- the iq hash table: its fill time and bytes, and its exhaustive check
+  (``chip_smoke.iq_table_check``) under the first variant;
 - holds every variant's radiance against the old kernels' bit for bit: the
   512^2 spiral still for each noise kind, its 16 row bands, the progressive
   launch of those 16 bands for each noise kind (one launch on the variant,
   against the old build's 16 ``march_band`` launches; every band flag set,
   the tile counter at its end), the 8-frame orbit batch, the nside-512
-  all-sky ray list, two instances at 64^2, dusty_disk with dither at
-  256^2, odd shapes (size 100, a band past the frame's last row, 3 frames,
-  1000 rays), and the still as 2 and 4 concurrent row slabs on one card
-  (S1's pattern) and as 2 slabs one after another;
+  all-sky ray list and the still as 2 and 4 concurrent row slabs on one
+  card (S1's pattern) and as 2 slabs one after another, each for simplex
+  and iq; the iq scene whose hash arguments pass the table
+  (``chip_smoke.iq_far_scene``: still and progressive launch), two
+  instances at 64^2, dusty_disk with dither at 256^2, odd shapes (size
+  100, a band past the frame's last row, 3 frames, 1000 rays);
 - times K1 (each kind), the 16 bands, the progressive launch, the batch,
   the ray list and the slabs: CUDA events, median of the samples of two
   rounds taken in turns (old, variants..., variants reversed, old);
@@ -44,11 +48,13 @@ default one variant, csrc/ as it is). Then, on the same inputs:
     for f in march.cu noise.cuh noise_probe.cu; do
         git show COMMIT:gamer_tpu_torch/csrc/$f > build/old_csrc/$f; done
     python3 scripts/torch_march_ab.py --old build/old_csrc --same-code \\
-        --spare 2 --cold 5 --out chiprun_out/march_ab.json
+        --changed ILi2E --out chiprun_out/march_ab.json
 
 Exits non-zero if a variant's radiance differs from the old kernels', a
-progressive frame or its ticks differ from the still's, or (``--same-code``)
-a variant changed an old function's ptxas report or SASS.
+progressive frame or its ticks differ from the still's, the iq table
+check finds a differing bit, or (``--same-code``) a variant changed an old
+function's ptxas report or SASS, except the functions ``--changed``
+matches (``ILi2E``: the iq instantiations).
 """
 
 from __future__ import annotations
@@ -92,6 +98,7 @@ ABLATIONS = {
 # --wait-ab: a copy of csrc/ whose gamer_progress_wait spins without
 # yielding its thread between two looks at the flags
 SPIN_WAIT = [(r"std::this_thread::yield\(\);", "")]
+IQ_KERNEL_SASS = "12march_kernelILi2E"
 
 
 def edited_sources(name: str, src: Path, edits) -> Path:
@@ -117,12 +124,16 @@ def budget_edits(threads: int, min_blocks: int) -> list:
 
 def load_old(path: Path) -> ctypes.CDLL:
     """The earlier build, with the C signatures the frame and ray-list
-    wrappers call (it may have no progressive entry)."""
+    wrappers call, and the progressive ones where it has them."""
     lib = ctypes.CDLL(str(path))
     p, i = ctypes.c_void_p, ctypes.c_int
     lib.gamer_march_batch.argtypes = [p, i, i, i, p, i, p, p, i, i, i, i,
                                       p, p]
     lib.gamer_march_rays.argtypes = [p, i, p, i, p, p, i, p, i, i, p, p]
+    if hasattr(lib, "gamer_march_progressive"):
+        lib.gamer_march_progressive.argtypes = [p, i, p, i, p, p, i, i, i, i,
+                                                i, p, p, p, p]
+        lib.gamer_progress_wait.argtypes = [p, i, i, p, i]
     lib.gamer_march_occupancy.argtypes = [i, i]
     lib.gamer_march_block_threads.argtypes = []
     lib.gamer_error_string.argtypes = [i]
@@ -136,20 +147,28 @@ def use(lib) -> None:
     cr._OCCUPANCY.clear()
 
 
-def code_report(path: Path, old: dict) -> dict:
+def code_report(path: Path, old: dict, changed: str | None = None) -> dict:
     """A build's ptxas report and SASS against the old build's (``old``:
     {"ptxas": ..., "sass": ...} of the old build, or None for the old
-    build itself)."""
+    build itself); the functions whose name matches ``changed`` are listed
+    apart (``allowed_changed``)."""
     ptxas = kernels.ptxas_report(path.with_suffix(".log").read_text())
     sass = kernels.sass_functions(path) or {}
+    mix = (kernels.sass_mix(path, [IQ_KERNEL_SASS]) or {}).get(IQ_KERNEL_SASS)
     report = {"ptxas": ptxas, "sass": sass,
               "k1_instructions": [len(v) for n, v in sass.items()
-                                  if K1_SASS in n]}
+                                  if K1_SASS in n],
+              "iq_kernel_mix": mix}
     if old is not None:
-        report["ptxas_changed"] = [n for n in old["ptxas"]
-                                   if ptxas.get(n) != old["ptxas"][n]]
-        report["sass_changed"] = [n for n in old["sass"]
-                                  if sass.get(n) != old["sass"][n]]
+        moved = [n for n in old["ptxas"] if ptxas.get(n) != old["ptxas"][n]]
+        moved += [n for n in old["sass"] if sass.get(n) != old["sass"][n]
+                  and n not in moved]
+        allowed = [n for n in moved if changed and re.search(changed, n)]
+        report["allowed_changed"] = allowed
+        report["ptxas_changed"] = [n for n in old["ptxas"] if n not in allowed
+                                   and ptxas.get(n) != old["ptxas"][n]]
+        report["sass_changed"] = [n for n in old["sass"] if n not in allowed
+                                  and sass.get(n) != old["sass"][n]]
         report["new_functions"] = {n: len(v) for n, v in sass.items()
                                    if n not in old["sass"]}
     return report
@@ -188,19 +207,52 @@ def cases(dev, held: list):
             same(f"K5 {n_bands} bands of {SIZE}^2", sweep, True)
         out[f"K5 {kind} as one launch of {n_bands} bands"] = (
             sweep, progressive, kind == "simplex")
-    page, table, _, _ = cr.prepare(cs.spiral_scene(SIZE), dev)
-    main = cs.spiral_scene(SIZE)
-    fly = [dataclasses.replace(main, camera=c)
-           for c in orbit_path(main.camera, FRAMES, horizontal_deg=120.0)]
-    st, pages, _ = _scene_groups(fly)[0]
-    fly_pages = torch.as_tensor(pages, device=dev)
-    fly_tab = cr.upload_table(cr._build_table(st, cr._build_layout(st)), dev)
-    same(f"K4 {FRAMES}-frame orbit {SIZE}^2",
-         lambda: cr.march_batch(fly_pages, fly_tab, SIZE), True)
-    sky_page, sky_tab, _, _ = cr.prepare(cs.allsky_scene(), dev)
+    far = cs.iq_far_scene(SIZE)
+    still(f"K1 iq past the table {SIZE}^2", far, True)
+    page, table, _, _ = cr.prepare(far, dev)
+
+    def far_sweep(page=page, table=table):
+        return torch.cat([cr.march_band(page, table, SIZE, band_rows,
+                                        b * band_rows)
+                          for b in range(n_bands)])
+
+    def far_progressive(page=page, table=table):
+        held.append(cr.march_progressive(page, table, SIZE, band_rows,
+                                         n_bands))
+        return held[-1].out
+
+    out[f"K5 iq past the table as one launch of {n_bands} bands"] = (
+        far_sweep, far_progressive, False)
     sky = torch.as_tensor(allsky_dirs(NSIDE), device=dev)
-    same(f"K6 nside {NSIDE}", lambda: cr.march_rays(sky_page, sky_tab, sky),
-         True)
+    for kind in ("simplex", "iq"):
+        label = "" if kind == "simplex" else f" {kind}"
+        main = cs.spiral_scene(SIZE, noise_kind=kind)
+        fly = [dataclasses.replace(main, camera=c)
+               for c in orbit_path(main.camera, FRAMES, horizontal_deg=120.0)]
+        st, pages, _ = _scene_groups(fly)[0]
+        fly_pages = torch.as_tensor(pages, device=dev)
+        fly_tab = cr.upload_table(cr._build_table(st, cr._build_layout(st)),
+                                  dev)
+        same(f"K4{label} {FRAMES}-frame orbit {SIZE}^2",
+             lambda p=fly_pages, t=fly_tab: cr.march_batch(p, t, SIZE), True)
+        sky_page, sky_tab, _, _ = cr.prepare(cs.allsky_scene(noise_kind=kind),
+                                             dev)
+        same(f"K6{label} nside {NSIDE}",
+             lambda p=sky_page, t=sky_tab: cr.march_rays(p, t, sky), True)
+        page, table, _, _ = cr.prepare(main, dev)
+        # S1 on a mesh that names the card n times: n concurrent slab
+        # launches
+        for n in (2, 4):
+            mesh = Mesh(["cuda:0"] * n)
+            same(f"S1{label} {SIZE}^2 on {n} entries of one card",
+                 lambda m=mesh, p=page, t=table: cr.march_rowshard(
+                     p, t, SIZE, m), kind == "simplex")
+        half = SIZE // 2
+        same(f"2{label} slabs of {half} rows, one stream",
+             lambda p=page, t=table: torch.cat(
+                 [cr.march_band(p, t, SIZE, half, r) for r in (0, half)]),
+             kind == "simplex")
+    sky_page, sky_tab, _, _ = cr.prepare(cs.allsky_scene(), dev)
     still("two_instance 64^2", cs.two_instance_scene(64))
     still("dusty_disk dither 256^2",
           cs.spiral_scene(256, presets.dusty_disk(), dither=True))
@@ -218,15 +270,6 @@ def cases(dev, held: list):
     same("3 frames of 100", lambda: cr.march_batch(pages3, tab3, 100))
     d1000 = sky[::3145][:1000].contiguous()
     same("1000 rays", lambda: cr.march_rays(sky_page, sky_tab, d1000))
-    # S1 on a mesh that names the card n times: n concurrent slab launches
-    for n in (2, 4):
-        mesh = Mesh(["cuda:0"] * n)
-        same(f"S1 {SIZE}^2 on {n} entries of one card",
-             lambda m=mesh: cr.march_rowshard(page, table, SIZE, m), True)
-    half = SIZE // 2
-    same(f"2 slabs of {half} rows, one stream",
-         lambda: torch.cat([cr.march_band(page, table, SIZE, half, r)
-                            for r in (0, half)]), True)
     return out
 
 
@@ -345,6 +388,8 @@ def main() -> int:
                          "it is)")
     ap.add_argument("--same-code", action="store_true",
                     help="fail if a variant changed an old function's code")
+    ap.add_argument("--changed", help="a regex of the functions --same-code "
+                                      "lets change (ILi2E: the iq kernels)")
     ap.add_argument("--reps", type=int, default=3)
     ap.add_argument("--ablate", action="store_true")
     ap.add_argument("--spare", type=int, nargs="*", default=[])
@@ -403,7 +448,7 @@ def main() -> int:
     variants, record = {}, {"card": card, "cases": {}, "variants": {}}
     for name, path in paths.items():
         lib = variants[name] = kernels.load(path)
-        code = code_report(path, old_code)
+        code = code_report(path, old_code, args.changed)
         with torch.cuda.device(dev):
             occ = {f"{kind} form {form}": lib.gamer_march_occupancy(k, form)
                    for k, kind in enumerate(cr.NOISE_KINDS)
@@ -413,8 +458,9 @@ def main() -> int:
                   "blocks_per_sm": occ,
                   "ptxas": {n: v for n, v in code["ptxas"].items()
                             if "march" in n},
-                  **{k: code[k] for k in ("k1_instructions", "ptxas_changed",
-                                          "sass_changed", "new_functions")}}
+                  **{k: code[k] for k in (
+                      "k1_instructions", "iq_kernel_mix", "ptxas_changed",
+                      "sass_changed", "allowed_changed", "new_functions")}}
         same_code = not code["ptxas_changed"] and not code["sass_changed"]
         if args.same_code:
             ok &= same_code and bool(old_code["sass"])
@@ -422,10 +468,27 @@ def main() -> int:
         print(f"variant {name}: {json.dumps(report)}; the old build's "
               f"{len(old_code['sass'])} functions "
               f"{'unchanged' if same_code else 'CHANGED'}", flush=True)
+    print(f"old: iq kernel SASS mix {old_code['iq_kernel_mix']}", flush=True)
+
+    # --- the iq hash table: built once, by the first variant ---------------
+    from gamer_tpu_torch.ops import noise as tnoise
+
+    first = next(iter(variants))
+    use(variants[first])
+    iq_table = tnoise.iq_hash_table(dev)
+    table_bad, check_ms = cs.iq_table_check(dev)
+    table_ok = (table_bad["pairs"] == table_bad["corners"] == 0
+                and table_bad["fallback"] == table_bad["fallback_expected"])
+    ok &= table_ok
+    record["iq_table"] = {"build_ms": tnoise.iq_hash_table.build_ms[0],
+                          "bytes": iq_table.numel() * 4,
+                          "r": tnoise.IQ_TABLE_R, "check": table_bad,
+                          "check_ms": check_ms}
+    print(f"iq table [{first}]: {json.dumps(record['iq_table'])}: "
+          f"{'bit-equal' if table_ok else 'DIFFERS'}", flush=True)
 
     # --- every case: bit for bit against the old build, timed in turns -----
     held = []
-    first = next(iter(variants))
     for case, (run_old, run_new, timed) in cases(dev, held).items():
         use(old)
         want = run_old()

@@ -338,6 +338,137 @@ def test_noise_probe_kind_matches_plain(cuda, kind):
         assert float(d[:, 0].mean()) < 1e-3
 
 
+# --- the iq hash table (csrc/noise.cuh: iq_corners, march.cu: fill) -------
+
+
+def _smoke():
+    import sys
+    from pathlib import Path
+
+    sys.path.insert(0, str(Path(__file__).resolve().parent.parent))
+    import chip_smoke
+
+    return chip_smoke
+
+
+def test_iq_table_equals_the_sines(cuda):
+    """Every pair of the table, and the corners of every integer in
+    [-2R - 300, 2R + 300], bit-equal to the kernels' own sinf; the
+    fallback taken exactly past +-R."""
+    bad, _ = _smoke().iq_table_check(cuda)
+    assert bad["pairs"] == 0 and bad["corners"] == 0, bad
+    assert bad["fallback"] == bad["fallback_expected"], bad
+
+
+def test_iq_scene_past_the_table_matches_plain(cuda):
+    """The spiral with its ridged dust scaled up: some hash arguments pass
+    R (the census of the plain run), and the kernel, taking the sines
+    there, passes the iq gate against the plain version."""
+    from gamer_tpu_torch.ops import noise as tnoise
+
+    scene = _smoke().iq_far_scene(48)
+    page, table, size, _ = cr.prepare(scene, "cpu")
+    lin_k = cr.march(page.to(cuda), table.to(cuda), size)
+    torch.cuda.synchronize()
+    with tnoise.iq_census() as census:
+        lin_p = cr.march_plain(page, table, size)
+    assert census["outside"] > 0 and census["non_integer"] == 0, census
+    assert bool(torch.isfinite(lin_k).all()) and float(lin_k.sum()) > 0
+    assert _lsb_gate(lin_k, lin_p, "iq")
+
+
+def test_iq_table_is_built_on_the_launch_card(cuda):
+    """A launch on cuda:1 while card 0 is current builds cuda:1's own
+    table, once, and its frame is bit-equal to card 0's."""
+    if torch.cuda.device_count() < 2:
+        pytest.skip("needs a second CUDA card")
+    from gamer_tpu_torch.ops import noise as tnoise
+
+    other = torch.device("cuda", 1)
+    scene = _scene(presets.spiral(), 64, noise_kind="iq")
+    assert torch.cuda.current_device() == 0
+    tnoise._IQ_TABLES.pop(1, None)
+    before = tnoise.iq_hash_table.launch_count
+    got = gt.render_scene(scene, device=other)
+    assert tnoise.iq_hash_table.launch_count == before + 1
+    assert tnoise.iq_hash_table(other).device == other
+    gt.render_scene(scene, device=other)
+    assert tnoise.iq_hash_table.launch_count == before + 1
+    np.testing.assert_array_equal(got, gt.render_scene(scene, device="cuda"))
+
+
+def test_iq_tables_on_every_card_from_threads_and_a_mesh(cuda):
+    """Every visible card (needs at least two): two threads a card render
+    the iq still at once, which builds each card's table once under the
+    lock, on its own card, where it passes the exhaustive check; then S1
+    over a mesh of every card gives card 0's frame bit for bit and builds
+    nothing more."""
+    import gamer_tpu_torch.parallel as par
+    from concurrent.futures import ThreadPoolExecutor
+
+    from gamer_tpu_torch.ops import noise as tnoise
+
+    n = torch.cuda.device_count()
+    if n < 2:
+        pytest.skip("needs at least two CUDA cards")
+    scene = _scene(presets.spiral(), 200, noise_kind="iq")
+    still = gt.render_scene(scene, device="cuda")
+    for k in range(1, n):
+        tnoise._IQ_TABLES.pop(k, None)
+    before = tnoise.iq_hash_table.launch_count
+    cards = [torch.device("cuda", k) for k in range(n)] * 2
+    with ThreadPoolExecutor(len(cards)) as pool:
+        frames = list(pool.map(
+            lambda d: gt.render_scene(scene, device=d), cards))
+    assert tnoise.iq_hash_table.launch_count == before + n - 1
+    for frame in frames:
+        np.testing.assert_array_equal(frame, still)
+    for k in range(n):
+        assert tnoise.iq_hash_table(cards[k]).device == cards[k]
+        assert k in tnoise.iq_hash_table.build_ms
+        bad, _ = _smoke().iq_table_check(cards[k])
+        assert bad["pairs"] == bad["corners"] == 0, (k, bad)
+        assert bad["fallback"] == bad["fallback_expected"], (k, bad)
+    mesh = par.make_pixel_mesh()
+    assert mesh.size == n and len(set(mesh.devices)) == n
+    before_s1 = cr.march_rowshard.launch_count
+    np.testing.assert_array_equal(gt.render_scene(scene, mesh=mesh), still)
+    assert cr.march_rowshard.launch_count == before_s1 + n
+    assert tnoise.iq_hash_table.launch_count == before + n - 1
+
+
+def test_sharded_plain_equals_unsharded_plain_on_the_card(cuda):
+    """The plain versions on the card, where every element of a torch op
+    takes the same code: S1, S2 and S3's plain versions give the unsharded
+    plain radiance bit for bit (chip_smoke.py holds the sharded kernels
+    against the unsharded plain runs)."""
+    from gamer_tpu_torch.engine.allsky import allsky_dirs
+    from gamer_tpu_torch.engine.batch import _scene_groups
+    from gamer_tpu_torch.scene.cameracontrols import orbit_path
+
+    scene = _scene(presets.spiral(), 64)
+    page, table, size, _ = cr.prepare(scene, cuda)
+    want = cr.march_plain(page, table, size)
+    assert torch.equal(cr.march_rowshard_plain(page, table, size,
+                                               _one_card_mesh(4)), want)
+    cams = orbit_path(scene.camera, 2, horizontal_deg=90.0)
+    st, pages, _ = _scene_groups([dataclasses.replace(scene, camera=c)
+                                  for c in cams])[0]
+    tab = torch.as_tensor(cr._build_table(st, cr._build_layout(st)),
+                          device=cuda)
+    pages = torch.as_tensor(pages, device=cuda)
+    assert torch.equal(
+        cr.march_batch_rowshard_plain(
+            pages, tab, 64, _one_card_mesh(4, ("batch", "rows"), (2, 2))),
+        cr.march_batch_plain(pages, tab, 64))
+    sky_page, sky_tab, _, _ = cr.prepare(_inside_scene(), cuda)
+    dirs = torch.as_tensor(allsky_dirs(16), device=cuda)
+    assert torch.equal(
+        cr.march_rays_rowshard_plain(sky_page, sky_tab, dirs,
+                                     _one_card_mesh(3)),
+        cr.march_rays_plain(sky_page, sky_tab, dirs))
+
+
 # --- the persistent warp-tile launch: odd shapes, streams, occupancy -------
 
 # resident blocks of 256 threads per SM that csrc/march.cu's register budget
