@@ -6,11 +6,12 @@ ticks against the launch, an abort inside it), an 8-frame orbit fly-through
 in one batched launch (``render_flythrough``, K4), the all-sky image at
 nside 512 (``render_allsky_image``, K6: 3,145,728 rays in one ray-list
 launch) and the still with the perlin and the iq noise backends (K1-perlin,
-K1-iq; the iq hash table every pair of which is checked against the kernels'
-sine), the same frame, orbit and sky spread over a mesh that names the card
-several times (S1-S3: one launch per mesh entry, each on a stream of its
-own) and the render service on all of them, through the library and over
-HTTP on a loopback port. Each launch form and each noise kind is checked
+K1-iq; the perlin gradient table and the iq hash table, every entry of which
+is checked against the kernels' own hash or sine), the same frame, orbit
+and sky spread over a mesh that names the card several times (S1-S3: one
+launch per mesh entry, each on a stream of its own) and the render service
+on all of them, through the library and over HTTP on a loopback port. Each
+launch form and each noise kind is checked
 against its plain torch version; the frames against each other (bands, batch
 frames and the ray list are bit-equal to the still frame), the spec oracle
 and the CLI commands (``render``, ``galaxy``, ``skybox``, ``dataset``,
@@ -73,6 +74,7 @@ import sys
 import tempfile
 import threading
 import time
+import unittest.mock
 import urllib.error
 import urllib.request
 import warnings
@@ -107,13 +109,28 @@ WORK = {
     "arm_gated": (130, 13),  # two-arm pow ladder, atan2, winding
     "emitting": (40, 3),     # twirl (sin, cos, quat rotate), accumulate
 }
-# One raw 3-D noise evaluation per kind, from csrc/noise.cuh. simplex: skew,
-# 4 corners, gradients. perlin: 3 cell setups, 8 hashed gradient dots of
-# ~26 integer and f32 ops, 3 s-curves, 7 lerps; no SFU. iq: 8 sin-hashes of
-# ~15 ops (the build has no fast math, so sinf is a polynomial on the f32
-# pipes and no MUFU.SIN: at least 10 ops, counted as f32), 3 floors, 3
-# s-curves, 7 lerps.
-RAW_NOISE_WORK = {"simplex": (100, 0), "perlin": (260, 0), "iq": (170, 0)}
+# One raw 3-D noise evaluation per kind, from csrc/noise.cuh, as the least
+# work of the function: (f32 ops, SFU ops, 4-byte words read from a table in
+# shared memory). simplex: skew, 4 corners, gradients. perlin: 3 cell
+# setups, 3 reads of the paired permutation, 8 gradient dots of 5 ops, 3
+# s-curves, 7 lerps, and the 8 corners' decoded gradients read from a
+# table, 3 words each: the gradient hash and its decode (~21 ops a corner)
+# are a function of a 10-bit index, which a table answers with one read.
+# iq: 3 floors, the cell's hash argument and its range test, 3 s-curves, 7
+# lerps; its 8 corner hashes frac(sin(n) * 753.5453123) are a function of
+# an integer n, which the kernels read as 4 pairs from a table in L2 (not
+# counted: the L2's rate is not published, so the bound is lower for it).
+RAW_NOISE_WORK = {"simplex": (100, 0, 0), "perlin": (100, 0, 27),
+                  "iq": (50, 0, 0)}
+# perlin and iq as counted before their tables: perlin's 8 hashed gradient
+# dots of ~26 ops (260 in all); iq's 8 sin-hashes of ~15 ops (the build has
+# no fast math, so sinf is a polynomial on the f32 pipes and no MUFU.SIN: at
+# least 10 ops, counted as f32; 170 in all). Their bounds are logged beside
+# the ones above, so that a share can be compared with earlier rows'.
+HASHED_NOISE_WORK = {"perlin": (260, 0, 0), "iq": (170, 0, 0)}
+# shared-memory reads: 32 banks of one 4-byte word a clock per SM (132 SMs
+# at the 1.98 GHz boost clock)
+SMEM_WORDS_PEAK = 32 * 132 * 1.98e9
 # The iq gate, kernel against plain: the hash frac(sin(n) * 753.5453123)
 # amplifies the last ulps of two sine implementations, so single lattice
 # corners may hash differently.
@@ -227,6 +244,35 @@ def iq_table_check(dev):
              "fallback_expected": 2 * (r + 300)}, e0.elapsed_time(e1))
 
 
+def perlin_grad_check(dev):
+    """The perlin gradient table's check on the card
+    (csrc/march.cu::check_perlin_grads): each of its 1,024 entries against
+    the gradient hash's decode (noise.cuh's perlin_grad_hashed), and the
+    kernels' own perlin_grad_dot, reading the table as the perlin kernels
+    stage it, at the unit offsets for every lattice index in [0, 2048)
+    (the & 1023 wrap) against the same decode. Returns ({"entries":
+    entries that differ in a bit, "dots": indices whose dots differ}, ms)."""
+    from gamer_tpu_torch.kernels import library
+    from gamer_tpu_torch.ops import noise as tnoise
+
+    lib = library()
+    table = tnoise.noise_table("perlin", dev)
+    bad = torch.zeros(2, dtype=torch.int32, device=dev)
+    stream = torch.cuda.current_stream(dev)
+    e0 = torch.cuda.Event(enable_timing=True)
+    e1 = torch.cuda.Event(enable_timing=True)
+    with torch.cuda.device(dev):
+        e0.record(stream)
+        rc = lib.gamer_perlin_grad_check(table.data_ptr(),
+                                         2 * tnoise.PERLIN_GRADS,
+                                         bad.data_ptr(), stream.cuda_stream)
+        e1.record(stream)
+    check(rc == 0, f"perlin gradient check launch failed: CUDA error {rc}")
+    e1.synchronize()
+    entries, dots = bad.tolist()
+    return {"entries": entries, "dots": dots}, e0.elapsed_time(e1)
+
+
 def two_instance_scene(size):
     """The multi-instance geometry of tests/test_pallas.py:142-162."""
     import gamer_tpu_torch as gt
@@ -279,19 +325,25 @@ def iq_gate(a: np.ndarray, b: np.ndarray):
 
 
 def march_bound(stats: dict, in_bytes: int, out_bytes: int,
-                kind: str = "simplex"):
+                kind: str = "simplex", raw_work=None):
     """(bound ms, "bytes" or "operations", detail): the least time the card
     could take for the counted work, the larger of the operation bound (f32
-    ops at the f32 peak, SFU ops at the SFU peak) and the byte bound (each
-    input read once, each output written once, at the HBM rate)."""
-    work = dict(WORK, raw_noise=RAW_NOISE_WORK[kind])
+    ops at the f32 peak, SFU ops at the SFU peak, shared-memory word reads
+    at the shared memory's rate) and the byte bound (each input read once,
+    each output written once, at the HBM rate). ``raw_work`` replaces the
+    kind's RAW_NOISE_WORK."""
+    raw = RAW_NOISE_WORK[kind] if raw_work is None else raw_work
+    work = dict(WORK, raw_noise=raw[:2])
     ops = sum(stats.get(k, 0) * w[0] for k, w in work.items())
     sfu = sum(stats.get(k, 0) * w[1] for k, w in work.items())
+    words = stats.get("raw_noise", 0) * raw[2]
     t_ops, t_sfu = ops / F32_PEAK, sfu / SFU_PEAK
+    t_smem = words / SMEM_WORDS_PEAK
     t_bytes = (in_bytes + out_bytes) / HBM_PEAK
-    t = max(t_ops, t_sfu, t_bytes)
+    t = max(t_ops, t_sfu, t_smem, t_bytes)
     detail = (f"{ops:.4g} f32 ops -> {t_ops * 1e3:.4f} ms, {sfu:.4g} SFU ops "
-              f"-> {t_sfu * 1e3:.4f} ms, {in_bytes + out_bytes} B -> "
+              f"-> {t_sfu * 1e3:.4f} ms, {words:.4g} shared-memory word "
+              f"reads -> {t_smem * 1e3:.4f} ms, {in_bytes + out_bytes} B -> "
               f"{t_bytes * 1e3:.5f} ms")
     return t * 1e3, ("bytes" if t == t_bytes else "operations"), detail
 
@@ -463,6 +515,11 @@ def report_build() -> None:
                 log(f"occupancy: {name}<{kind}> {n} resident blocks of "
                     f"{threads} threads per SM ({n * threads // 32} warps of "
                     f"64)")
+                # the perlin gradients' shared memory and the iq table's
+                # address cost no resident block
+                simplex = lib.gamer_march_occupancy(0, form)
+                check(n == simplex, f"{name}<{kind}> holds {n} blocks per SM,"
+                                    f" the simplex kernel {simplex}")
     names = [f"{len(n)}{n}ILi{i}E" for _, n in forms
              for i in range(len(NOISE_KINDS))]
     mixes = kernels.sass_mix(info["path"], names)
@@ -2727,6 +2784,15 @@ def main() -> int:
         f", {iq_table_bytes} B; exhaustive check {json.dumps(bad)} in "
         f"{check_ms:.3f} ms (CUDA events): every pair and every corner "
         f"bit-equal to the sines, the fallback taken past +-R")
+    # the perlin gradient table (csrc/noise.cuh): every entry, and the
+    # kernels' own gradient reads, against the gradient hash's decode
+    grads_bad, grads_ms = perlin_grad_check(dev)
+    check(grads_bad == {"entries": 0, "dots": 0},
+          f"the perlin gradient table check failed: {grads_bad}")
+    log(f"perlin gradient table: {tnoise.PERLIN_GRADS} float4 entries after "
+        f"the paired permutation; check {json.dumps(grads_bad)} in "
+        f"{grads_ms:.4f} ms (CUDA events): every entry and every staged "
+        f"read of lattice indices 0-2047 bit-equal to the hash's decode")
     for kind in ("perlin", "iq"):
         # kernel vs plain (CPU) at 64^2; for iq the scene whose hash
         # arguments pass the table too, with the plain run's census
@@ -2819,15 +2885,23 @@ def main() -> int:
         ia, ib = post_cpu(lin_kk, scene_k), post_cpu(lin_pp, scene_k)
         mx, frac, mean_d = lsb_diff(ia, ib)
         ok, within, _ = iq_gate(ia, ib)
-        bound_k = march_bound(stats_k, pg_d.numel() * 4 + tb_d.numel() * 4
-                              + 4096, MAIN_SIZE * MAIN_SIZE * 12, kind)
+        in_bytes_k = (pg_d.numel() + tb_d.numel()
+                      + tnoise.noise_table(kind, dev).numel()) * 4
+        bound_k = march_bound(stats_k, in_bytes_k,
+                              MAIN_SIZE * MAIN_SIZE * 12, kind)
+        hashed_k = march_bound(stats_k, in_bytes_k,
+                               MAIN_SIZE * MAIN_SIZE * 12, kind,
+                               HASHED_NOISE_WORK[kind])
         log(f"timing [{card}] {kind} still {MAIN_SIZE}^2 (median of 5): march "
             f"kernel {ms_k:.3f} ms ({ms_k / kern_ms:.3f} x simplex "
             f"{kern_ms:.3f} ms), plain on cuda {plain_k_ms:.1f} ms with its "
             f"counters; kernel vs plain: linear max_abs_err {err_k:.3g}, "
             f"uint8 max {mx} LSB, {frac:.5f} of pixels differ, mean "
             f"{mean_d:.4f} LSB, {within:.5f} within 2 LSB; bound "
-            f"{bound_k[0]:.4f} ms by {bound_k[1]} ({bound_k[2]}; {stats_k})")
+            f"{bound_k[0]:.4f} ms by {bound_k[1]} ({bound_k[2]}; {stats_k}); "
+            f"counted with the hashes as before their table "
+            f"{HASHED_NOISE_WORK[kind][0]} ops a raw evaluation: "
+            f"{hashed_k[0]:.4f} ms, a share of {hashed_k[0] / ms_k:.4f}")
         check((frac < 0.01 and mean_d < 0.05) if kind == "perlin" else ok,
               f"{kind} kernel vs plain at {MAIN_SIZE}^2: {frac:.4f} differ, "
               f"mean {mean_d}, {within} within 2 LSB")
@@ -3171,26 +3245,48 @@ def main() -> int:
               and counts["march_band"] == 0 and not job.batched
               and np.array_equal(job.image, still_256),
               f"fused single: {svc.metrics}, {counts}")
-        # a 512^2 single is progressive, with rising progress
+        # a 512^2 single is progressive, with rising progress: the value
+        # the job holds after each of the service's ticks, recorded in the
+        # tick (a thread that polls the job sees as many as the host's
+        # timing lets it; it is held only to an order)
+        published = []
+        render_progressive = cr.render_progressive
+
+        def recording(scene, *args, on_progress, **kw):
+            job = next(j for j in svc.jobs.values() if j.scene is scene)
+
+            def tick(frac, partial):
+                go = on_progress(frac, partial)
+                published.append(job.progress)
+                return go
+
+            return render_progressive(scene, *args, on_progress=tick, **kw)
+
+        n_bands = cr.band_geometry(MAIN_SIZE, main_scene.config.supersample,
+                                   BANDS)[1]
         reset_counts()
-        jid = svc.submit(main_scene)
-        job, seen = svc.jobs[jid], []
-        deadline = time.time() + SERVE_WAIT_S
-        while job.state != DONE and time.time() < deadline:
-            seen.append(job.progress)
-            time.sleep(0.0005)
-        job = done(svc, jid)
+        with unittest.mock.patch.object(cr, "render_progressive", recording):
+            jid = svc.submit(main_scene)
+            job, seen = svc.jobs[jid], []
+            deadline = time.time() + SERVE_WAIT_S
+            while job.state != DONE and time.time() < deadline:
+                seen.append(job.progress)
+                time.sleep(0.0005)
+            job = done(svc, jid)
         counts = read_counts()
         steps = sorted(set(seen))
         check(counts["march_progressive"] == 1 and counts["march_band"] == 0
-              and seen == sorted(seen) and len(steps) >= 3
+              and published == [(b + 1) / n_bands for b in range(n_bands)]
+              and seen == sorted(seen)
               and np.array_equal(job.image, frame),
-              f"progressive single: {counts}, progress values {steps}")
+              f"progressive single: {counts}, progress values published "
+              f"{published}, seen by a poller {steps}")
         log(f"service: 8 concurrent {SERVE_SIZE}^2 requests were 1 "
             f"march_batch launch, each image bit-equal to its render_scene; "
             f"a {SERVE_SIZE}^2 single 1 march launch; a {MAIN_SIZE}^2 single "
-            f"1 march_progressive launch of {BANDS} bands with {len(steps)} "
-            f"rising progress values seen, bit-equal to render_scene")
+            f"1 march_progressive launch of {n_bands} bands, which published "
+            f"{len(published)} rising progress values on the job ({len(steps)}"
+            f" seen by a thread polling it), bit-equal to render_scene")
         # abort in mid-frame keeps the partial frame (1024^2: 16 bands of
         # 64 rows, long enough to be caught between two bands)
         big = spiral_scene(1024)

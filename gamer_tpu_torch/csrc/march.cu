@@ -505,6 +505,7 @@ __device__ __forceinline__ void march_tiles(
     stage_iq_pairs<KIND>(noise_g);
     for (int k = threadIdx.x; k < noise_table_size(KIND); k += BLOCK_THREADS)
         noise_smem[k] = noise_g[k];
+    stage_perlin_grads<KIND>(noise_g, BLOCK_THREADS);
     for (int k = threadIdx.x; k < n_table; k += BLOCK_THREADS)
         smem[k] = table[k];
     if (one_page)
@@ -677,10 +678,47 @@ __global__ void check_iq_table(const float2* __restrict__ tab, int lo,
     if (!(fabsf(n) <= (float)IQ_TABLE_R)) atomicAdd(bad + 2, 1u);
 }
 
-// Dynamic shared memory above 48 KB has to be granted to the kernel first.
+// The perlin gradient table's check (noise.cuh: the perlin kernels' table
+// is the paired permutation, then PERLIN_GRADS float4 gradients). Each
+// block stages the gradients as the perlin kernels do; for each idx in
+// [0, n_idx): bad[0] counts the stored entries (idx < PERLIN_GRADS) whose
+// (gx, gy, gz, 0) differ in a bit from perlin_grad_hashed(idx), bad[1] the
+// idx whose perlin_grad_dot at the unit offsets (1,0,0), (0,1,0), (0,0,1),
+// which return each component exactly, differs from the hash's.
+__global__ void check_perlin_grads(const int* __restrict__ table, int n_idx,
+                                   unsigned* bad) {
+    stage_perlin_grads<NOISE_PERLIN>(table, blockDim.x);
+    __syncthreads();
+    const int idx = blockIdx.x * blockDim.x + threadIdx.x;
+    if (idx >= n_idx) return;
+    const float3 h = perlin_grad_hashed(idx);
+    if (idx < PERLIN_GRADS) {
+        const float4 t = reinterpret_cast<const float4*>(
+            table + PERLIN_PERM_WORDS)[idx];
+        if (__float_as_uint(t.x) != __float_as_uint(h.x)
+            || __float_as_uint(t.y) != __float_as_uint(h.y)
+            || __float_as_uint(t.z) != __float_as_uint(h.z)
+            || __float_as_uint(t.w) != 0u)
+            atomicAdd(bad, 1u);
+    }
+    const float gx = perlin_grad_dot(idx, 1.0f, 0.0f, 0.0f);
+    const float gy = perlin_grad_dot(idx, 0.0f, 1.0f, 0.0f);
+    const float gz = perlin_grad_dot(idx, 0.0f, 0.0f, 1.0f);
+    if (__float_as_uint(gx) != __float_as_uint(h.x)
+        || __float_as_uint(gy) != __float_as_uint(h.y)
+        || __float_as_uint(gz) != __float_as_uint(h.z))
+        atomicAdd(bad + 1, 1u);
+}
+
+// A block's shared memory above 48 KB, static and dynamic together, has to
+// be granted to the kernel first (the perlin kernels hold 20 KB of static
+// shared memory, noise_smem and perlin_grads; the others at most 4 KB).
 template <typename Kernel>
 static cudaError_t reserve_smem(Kernel kernel, size_t smem) {
-    if (smem <= 48 * 1024) return cudaSuccess;
+    cudaFuncAttributes attr{};
+    cudaError_t e = cudaFuncGetAttributes(&attr, kernel);
+    if (e != cudaSuccess) return e;
+    if (attr.sharedSizeBytes + smem <= 48 * 1024) return cudaSuccess;
     return cudaFuncSetAttribute(
         kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
 }
@@ -909,6 +947,18 @@ extern "C" int gamer_iq_table_check(const float* table, int lo, int n_args,
                                                  : gamer::IQ_TABLE_PAIRS;
     gamer::check_iq_table<<<(n + 255) / 256, 256, 0, (cudaStream_t)stream>>>(
         reinterpret_cast<const float2*>(table), lo, n_args, bad);
+    return (int)cudaGetLastError();
+}
+
+// The perlin gradient table's check (check_perlin_grads) over the lattice
+// indices [0, n_idx): two unsigned counts into ``bad``, which must be 0 at
+// the launch; ``table`` is the perlin kernels' noise table.
+extern "C" int gamer_perlin_grad_check(const int* table, int n_idx,
+                                       unsigned* bad, void* stream) {
+    if (n_idx < 0) return (int)cudaErrorInvalidValue;
+    if (n_idx == 0) return 0;
+    gamer::check_perlin_grads<<<(n_idx + 255) / 256, 256, 0,
+                                (cudaStream_t)stream>>>(table, n_idx, bad);
     return (int)cudaGetLastError();
 }
 

@@ -18,6 +18,20 @@
 // each kind is its own instantiation and the simplex one carries no trace
 // of the others.
 //
+// The perlin gradients. The TPU kernel regenerates each lattice corner's
+// gradient in registers from a hash of its 10-bit index (_perlin_grad_dot:
+// its gathers were the frame's cost on the TPU); here that hash and its
+// three int->float decodes (~21 integer, conversion and f32 operations of
+// the 26 per corner, 8 corners a raw evaluation) depend on the index alone,
+// so the 1,024 decoded gradients are a table: built on the host by the same
+// f32 arithmetic (ops/noise.py::perlin_grad_table), after the paired
+// permutation in the perlin kernels' table, staged at block start into
+// perlin_grads (shared memory that only the perlin instantiations
+// reference), one 16-byte shared load a corner and the dot in its order.
+// The same bits by construction: the decode is two exact-or-once-rounded
+// f32 operations on an integer below 1,024 (march.cu's check_perlin_grads
+// holds the table against the hash on the card).
+//
 // Code size. The octave and ridged combinators are not inlined: the march
 // calls them from six places, and a copy of the octave loop (with its raw
 // backend) inlined at each one makes the kernel's hot code larger; measured
@@ -208,22 +222,38 @@ inline __device__ float raw_noise_3d(const int* tab, float x, float y, float z) 
 // run in uint32, where overflow is defined) and arithmetic right shifts,
 // keyed for table seed 94; the three 10-bit fields decode to gradient
 // components (q - 511.5) / 511.5 with both constants rounded to float32.
+// The march reads these from perlin_grads; the hash stays as the table's
+// definition, which check_perlin_grads (march.cu) holds the table to.
 constexpr uint32_t PERLIN_SEEDK = 0x185EB1EEu;  // grad_hash_seedk(94)
 constexpr uint32_t GRAD_HASH_M1 = 0x7FEB352Du;
 constexpr uint32_t GRAD_HASH_M2 = 0x846CA68Bu;
 
-__device__ __forceinline__ float perlin_grad_dot(int idx, float rx, float ry,
-                                                 float rz) {
+__device__ __forceinline__ float3 perlin_grad_hashed(int idx) {
     int h = (int)(((uint32_t)(idx & 1023) ^ PERLIN_SEEDK) * GRAD_HASH_M1);
     h = h ^ (h >> 15);
     h = (int)((uint32_t)h * GRAD_HASH_M2);
     h = h ^ (h >> 13);
     const float mid = F32(511.5);
     const float inv = F32(1.0 / 511.5);
-    float gx = ((float)(h & 1023) - mid) * inv;
-    float gy = ((float)((h >> 10) & 1023) - mid) * inv;
-    float gz = ((float)((h >> 20) & 1023) - mid) * inv;
-    return rx * gx + ry * gy + rz * gz;
+    return make_float3(((float)(h & 1023) - mid) * inv,
+                       ((float)((h >> 10) & 1023) - mid) * inv,
+                       ((float)((h >> 20) & 1023) - mid) * inv);
+}
+
+// The perlin kernels' table: PERLIN_PERM_WORDS words of the paired
+// permutation (staged in noise_smem), then PERLIN_GRADS gradients as
+// float4 (gx, gy, gz, 0), 16-byte aligned.
+constexpr int PERLIN_PERM_WORDS = 1024;
+constexpr int PERLIN_GRADS = 1024;
+
+// The gradients, staged by the perlin kernels at block start (16 KB; the
+// other kinds never reference it, so their kernels do not allocate it).
+__shared__ float4 perlin_grads[PERLIN_GRADS];
+
+__device__ __forceinline__ float perlin_grad_dot(int idx, float rx, float ry,
+                                                 float rz) {
+    const float4 g = perlin_grads[idx & 1023];
+    return rx * g.x + ry * g.y + rz * g.z;
 }
 
 // The setup() macro (perlin.cpp:24-29): the cast truncates, which is the
@@ -354,8 +384,9 @@ enum { NOISE_SIMPLEX = 0, NOISE_PERLIN = 1, NOISE_IQ = 2, N_NOISE_KINDS = 3 };
 
 // Entries of the kind's lookup table, which the caller stages in shared
 // memory: [P2[512] | GI[512]] for simplex, the paired Perlin permutation
-// [1024], or none (iq's table stays in device memory: stage_iq_pairs
-// stages its address).
+// [1024] (the perlin table's gradients after it go to perlin_grads:
+// stage_perlin_grads), or none (iq's table stays in device memory:
+// stage_iq_pairs stages its address).
 __host__ __device__ constexpr int noise_table_size(int kind) {
     return kind == NOISE_IQ ? 0 : 1024;
 }
@@ -368,6 +399,19 @@ __device__ __forceinline__ void stage_iq_pairs(const int* noise_g) {
     if constexpr (KIND == NOISE_IQ) {
         if (threadIdx.x == 0)
             iq_pairs = reinterpret_cast<const float2*>(noise_g);
+    }
+}
+
+// The perlin kernels' staging at block start, before their __syncthreads:
+// the gradients into perlin_grads (the other kinds stage nothing here).
+template <int KIND>
+__device__ __forceinline__ void stage_perlin_grads(const int* noise_g,
+                                                   int n_threads) {
+    if constexpr (KIND == NOISE_PERLIN) {
+        const float4* g =
+            reinterpret_cast<const float4*>(noise_g + PERLIN_PERM_WORDS);
+        for (int k = threadIdx.x; k < PERLIN_GRADS; k += n_threads)
+            perlin_grads[k] = g[k];
     }
 }
 

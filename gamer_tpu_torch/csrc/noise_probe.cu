@@ -5,8 +5,9 @@
 // The counterpart of the TPU repo's inline test kernel
 // (tests/test_pallas.py:36-66), which checked the byte-packed permutation
 // lookups the Pallas kernel used; here the kind's table (the paired simplex
-// tables or the paired Perlin permutation, ops/noise.py::kernel_noise_table)
-// is staged in noise_smem and read exactly as the march kernel reads it;
+// tables or the paired Perlin permutation with the perlin gradients,
+// ops/noise.py::kernel_noise_table) is staged in shared memory and read
+// exactly as the march kernel reads it;
 // for iq, perm is the hash table (gamer_iq_table_fill), read as the march
 // kernel reads it.
 // The raw backend is the template parameter the march kernel uses
@@ -32,6 +33,7 @@ noise_probe_kernel(const float* __restrict__ xyz, int n,
     stage_iq_pairs<KIND>(perm_g);
     for (int k = threadIdx.x; k < noise_table_size(KIND); k += blockDim.x)
         noise_smem[k] = perm_g[k];
+    stage_perlin_grads<KIND>(perm_g, blockDim.x);
     for (int k = threadIdx.x; k < n_sw; k += blockDim.x) sw[k] = sw_g[k];
     __syncthreads();
     const int i = blockIdx.x * blockDim.x + threadIdx.x;

@@ -146,6 +146,9 @@ def load(path) -> ctypes.CDLL:
     # table, lo, n_args, bad (3 unsigned), stream
     lib.gamer_iq_table_check.argtypes = [p, i, i, p, p]
     lib.gamer_iq_table_check.restype = i
+    # table, n_idx, bad (2 unsigned), stream
+    lib.gamer_perlin_grad_check.argtypes = [p, i, p, p]
+    lib.gamer_perlin_grad_check.restype = i
     # kind, form (0 frames, 1 ray list, 2 progressive)
     lib.gamer_march_occupancy.argtypes = [i, i]
     lib.gamer_march_occupancy.restype = i
@@ -195,8 +198,9 @@ SASS_CLASSES = {
 
 def ptxas_report(log_text: str) -> dict:
     """{mangled kernel name: (registers, spill store bytes, spill load
-    bytes)} from a build log's ``-Xptxas -v`` report: the first register
-    and the first spill line after each "Compiling entry function" line."""
+    bytes, static shared memory bytes)} from a build log's ``-Xptxas -v``
+    report: the first register and the first spill line after each
+    "Compiling entry function" line."""
     found, cur = {}, None
     for line in log_text.splitlines():
         m = re.search(r"Compiling entry function '(\S+)'", line)
@@ -212,8 +216,10 @@ def ptxas_report(log_text: str) -> dict:
         m = re.search(r"Used (\d+) registers", line)
         if m:
             cur.setdefault("registers", int(m.group(1)))
-    return {name: (got["registers"], *got["spill"])
-            for name, got in found.items() if len(got) == 2}
+            m = re.search(r"(\d+) bytes smem", line)
+            cur.setdefault("smem", int(m.group(1)) if m else 0)
+    return {name: (got["registers"], *got["spill"], got["smem"])
+            for name, got in found.items() if len(got) == 3}
 
 
 def sass_functions(lib_path) -> dict | None:

@@ -18,9 +18,11 @@ numpy versions. The torch ops also take another table ``seed``, for parity
 with the JAX package's functions: that seed's tables are drawn on every
 call by the JAX package's recipe (``_perlin_build``, ``_perlin_build2``),
 so they depend on numpy's stream, and they never enter the cached tables
-of the render path. The 3-D gradient triples need no table: they are an
-integer hash of the lattice index (``grad_hash_q``), computed the same way
-by the kernel, so the 1024-entry permutation is indexed directly
+of the render path. The 3-D gradient triples are an integer hash of the
+lattice index (``grad_hash_q``), decoded here at each corner; the kernels
+read the same decoded values from a table built by this hash on the host
+(``ops/noise.py::perlin_grad_table``), so this version stays an independent
+check of that table. The 1024-entry permutation is indexed directly
 (``p[idx & 1023]``); the packed, chunked and one-hot lookup forms of the
 JAX package answer a TPU constraint and are not ported.
 """

@@ -317,17 +317,49 @@ def _paired(perm: np.ndarray) -> np.ndarray:
     return perm | (np.roll(perm, -1) << 16)
 
 
+# The perlin kernels' table (csrc/noise.cuh): PERLIN_PERM_WORDS int32 words
+# of the paired permutation, then PERLIN_GRADS gradients (perlin_grads), one
+# float4 (gx, gy, gz, 0) per lattice index k = idx & 1023.
+PERLIN_PERM_WORDS = 1024
+PERLIN_GRADS = 1024
+
+
+def split_perlin_table(table: np.ndarray) -> tuple:
+    """The two parts of ``kernel_noise_table("perlin")``: (the paired
+    permutation (PERLIN_PERM_WORDS,) int32, the gradients (PERLIN_GRADS, 4)
+    float32)."""
+    return (table[:PERLIN_PERM_WORDS],
+            table[PERLIN_PERM_WORDS:].view(np.float32).reshape(PERLIN_GRADS,
+                                                               4))
+
+
+def perlin_grad_table() -> np.ndarray:
+    """(PERLIN_GRADS, 4) float32: row k the decoded gradient of lattice
+    index k, (q - 511.5) * (1 / 511.5) of ``altnoise.grad_hash_q(k)``'s
+    three fields in float32 (the kernels' and the plain noise's decode,
+    both constants rounded to float32 first; the subtraction is exact and
+    the product rounds once), then a 0 that pads the row to 16 bytes."""
+    from .altnoise import _GRAD_INV, _GRAD_MID, grad_hash_q
+
+    q = torch.stack(grad_hash_q(torch.arange(PERLIN_GRADS)), dim=1).numpy()
+    g = (q.astype(np.float32) - np.float32(_GRAD_MID)) * np.float32(_GRAD_INV)
+    return np.concatenate([g, np.zeros((PERLIN_GRADS, 1), np.float32)],
+                          axis=1)
+
+
 @functools.lru_cache(maxsize=None)
 def kernel_noise_table(kind: str) -> np.ndarray:
     """The int32 lookup table csrc/noise.cuh reads for a noise kind:
     simplex [P2[512] | GI[512]] with P2 = PERM paired with its successor and
     GI = PERM % 12; perlin the seed-94 permutation paired with its
-    successor (1024); iq reads none and gets the simplex table as a valid
+    successor (PERLIN_PERM_WORDS words), then ``perlin_grad_table()``'s
+    float32 bits (``split_perlin_table`` parts them again); iq reads none and gets the simplex table as a valid
     pointer."""
     if kind == "perlin":
         from .altnoise import perlin_tables
 
-        return _paired(perlin_tables()[0])
+        return np.concatenate([_paired(perlin_tables()[0]),
+                               perlin_grad_table().view(np.int32).ravel()])
     return np.concatenate([_paired(PERM), PERM % 12]).astype(np.int32)
 
 

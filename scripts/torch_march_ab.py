@@ -10,24 +10,29 @@ default one variant, csrc/ as it is). Then, on the same inputs:
 
 - code: each variant's ptxas registers and spills per kernel and its SASS
   per function (``kernels.ptxas_report``, ``kernels.sass_functions``)
-  against the old build's: which of the old build's functions changed, the
-  static instruction count of ``march_kernel<0>``, each new function's,
-  and the resident blocks per SM of every kernel form;
+  against the old build's (registers, spills and static shared memory):
+  which of the old build's functions changed, the static instruction count
+  of ``march_kernel<0>``, each new function's, the SASS mix of the perlin
+  and iq frame kernels, and the resident blocks per SM of every kernel
+  form;
 - the iq hash table: its fill time and bytes, and its exhaustive check
-  (``chip_smoke.iq_table_check``) under the first variant;
+  (``chip_smoke.iq_table_check``) under the first variant; the perlin
+  gradient table's check (``chip_smoke.perlin_grad_check``) there too;
 - holds every variant's radiance against the old kernels' bit for bit: the
   512^2 spiral still for each noise kind, its 16 row bands, the progressive
   launch of those 16 bands for each noise kind (one launch on the variant,
   against the old build's 16 ``march_band`` launches; every band flag set,
-  the tile counter at its end), the 8-frame orbit batch, the nside-512
-  all-sky ray list and the still as 2 and 4 concurrent row slabs on one
-  card (S1's pattern) and as 2 slabs one after another, each for simplex
-  and iq; the iq scene whose hash arguments pass the table
+  the tile counter at its end), the perlin progressive launch on both
+  builds, the 8-frame orbit batch, the nside-512 all-sky ray list and the
+  still as 2 and 4 concurrent row slabs on one card (S1's pattern) and as
+  2 slabs one after another, each for simplex, perlin and iq; the iq
+  scene whose hash arguments pass the table
   (``chip_smoke.iq_far_scene``: still and progressive launch), two
   instances at 64^2, dusty_disk with dither at 256^2, odd shapes (size
   100, a band past the frame's last row, 3 frames, 1000 rays);
-- times K1 (each kind), the 16 bands, the progressive launch, the batch,
-  the ray list and the slabs: CUDA events, median of the samples of two
+- times K1 (each kind), the 16 bands, the progressive launch (simplex;
+  perlin on both builds), the batch and the ray list (each kind) and the
+  simplex slabs: CUDA events, median of the samples of two
   rounds taken in turns (old, variants..., variants reversed, old);
 - ``--ablate``: the progressive launch and K1 on copies of csrc/ without
   the abort read and without the band flags, in turns with csrc/;
@@ -48,13 +53,15 @@ default one variant, csrc/ as it is). Then, on the same inputs:
     for f in march.cu noise.cuh noise_probe.cu; do
         git show COMMIT:gamer_tpu_torch/csrc/$f > build/old_csrc/$f; done
     python3 scripts/torch_march_ab.py --old build/old_csrc --same-code \\
-        --changed ILi2E --out chiprun_out/march_ab.json
+        --changed ILi1E --out chiprun_out/march_ab.json
 
 Exits non-zero if a variant's radiance differs from the old kernels', a
-progressive frame or its ticks differ from the still's, the iq table
-check finds a differing bit, or (``--same-code``) a variant changed an old
-function's ptxas report or SASS, except the functions ``--changed``
-matches (``ILi2E``: the iq instantiations).
+progressive frame or its ticks differ from the still's, the iq table or
+the perlin gradient check finds a differing bit, or (``--same-code``) a
+variant changed an old function's ptxas report or SASS, except the
+functions ``--changed`` matches: ``ILi1E`` the perlin instantiations
+(against a tree from before the perlin gradient table), ``ILi2E`` the iq
+ones (before the iq hash table), ``ILi[12]E`` both.
 """
 
 from __future__ import annotations
@@ -98,7 +105,8 @@ ABLATIONS = {
 # --wait-ab: a copy of csrc/ whose gamer_progress_wait spins without
 # yielding its thread between two looks at the flags
 SPIN_WAIT = [(r"std::this_thread::yield\(\);", "")]
-IQ_KERNEL_SASS = "12march_kernelILi2E"
+# the frame kernels whose SASS mix the code report prints (perlin, iq)
+MIX_SASS = ("12march_kernelILi1E", "12march_kernelILi2E")
 
 
 def edited_sources(name: str, src: Path, edits) -> Path:
@@ -154,11 +162,10 @@ def code_report(path: Path, old: dict, changed: str | None = None) -> dict:
     apart (``allowed_changed``)."""
     ptxas = kernels.ptxas_report(path.with_suffix(".log").read_text())
     sass = kernels.sass_functions(path) or {}
-    mix = (kernels.sass_mix(path, [IQ_KERNEL_SASS]) or {}).get(IQ_KERNEL_SASS)
     report = {"ptxas": ptxas, "sass": sass,
               "k1_instructions": [len(v) for n, v in sass.items()
                                   if K1_SASS in n],
-              "iq_kernel_mix": mix}
+              "kernel_mix": kernels.sass_mix(path, MIX_SASS)}
     if old is not None:
         moved = [n for n in old["ptxas"] if ptxas.get(n) != old["ptxas"][n]]
         moved += [n for n in old["sass"] if sass.get(n) != old["sass"][n]
@@ -207,6 +214,8 @@ def cases(dev, held: list):
             same(f"K5 {n_bands} bands of {SIZE}^2", sweep, True)
         out[f"K5 {kind} as one launch of {n_bands} bands"] = (
             sweep, progressive, kind == "simplex")
+        if kind == "perlin":
+            same("K5 perlin one launch on both builds", progressive, True)
     far = cs.iq_far_scene(SIZE)
     still(f"K1 iq past the table {SIZE}^2", far, True)
     page, table, _, _ = cr.prepare(far, dev)
@@ -224,7 +233,7 @@ def cases(dev, held: list):
     out[f"K5 iq past the table as one launch of {n_bands} bands"] = (
         far_sweep, far_progressive, False)
     sky = torch.as_tensor(allsky_dirs(NSIDE), device=dev)
-    for kind in ("simplex", "iq"):
+    for kind in cr.NOISE_KINDS:
         label = "" if kind == "simplex" else f" {kind}"
         main = cs.spiral_scene(SIZE, noise_kind=kind)
         fly = [dataclasses.replace(main, camera=c)
@@ -389,7 +398,8 @@ def main() -> int:
     ap.add_argument("--same-code", action="store_true",
                     help="fail if a variant changed an old function's code")
     ap.add_argument("--changed", help="a regex of the functions --same-code "
-                                      "lets change (ILi2E: the iq kernels)")
+                                      "lets change (ILi1E: the perlin kernels, "
+                                      "ILi2E: the iq kernels)")
     ap.add_argument("--reps", type=int, default=3)
     ap.add_argument("--ablate", action="store_true")
     ap.add_argument("--spare", type=int, nargs="*", default=[])
@@ -459,7 +469,7 @@ def main() -> int:
                   "ptxas": {n: v for n, v in code["ptxas"].items()
                             if "march" in n},
                   **{k: code[k] for k in (
-                      "k1_instructions", "iq_kernel_mix", "ptxas_changed",
+                      "k1_instructions", "kernel_mix", "ptxas_changed",
                       "sass_changed", "allowed_changed", "new_functions")}}
         same_code = not code["ptxas_changed"] and not code["sass_changed"]
         if args.same_code:
@@ -468,7 +478,8 @@ def main() -> int:
         print(f"variant {name}: {json.dumps(report)}; the old build's "
               f"{len(old_code['sass'])} functions "
               f"{'unchanged' if same_code else 'CHANGED'}", flush=True)
-    print(f"old: iq kernel SASS mix {old_code['iq_kernel_mix']}", flush=True)
+    print(f"old: perlin and iq kernel SASS mix {old_code['kernel_mix']}",
+          flush=True)
 
     # --- the iq hash table: built once, by the first variant ---------------
     from gamer_tpu_torch.ops import noise as tnoise
@@ -486,6 +497,11 @@ def main() -> int:
                           "check_ms": check_ms}
     print(f"iq table [{first}]: {json.dumps(record['iq_table'])}: "
           f"{'bit-equal' if table_ok else 'DIFFERS'}", flush=True)
+    grads_bad, grads_ms = cs.perlin_grad_check(dev)
+    ok &= grads_bad == {"entries": 0, "dots": 0}
+    record["perlin_grads"] = {"check": grads_bad, "check_ms": grads_ms}
+    print(f"perlin gradient table [{first}]: {json.dumps(grads_bad)} in "
+          f"{grads_ms:.4f} ms", flush=True)
 
     # --- every case: bit for bit against the old build, timed in turns -----
     held = []

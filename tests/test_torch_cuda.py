@@ -225,6 +225,44 @@ def test_band_and_batch_kernels_match_plain(cuda):
     assert got.shape == (2, size, size, 3) and int(np.abs(a - b).max()) <= 2
 
 
+@pytest.mark.parametrize("kind", ["simplex", "perlin", "iq"])
+def test_batch_past_48k_of_shared_memory(cuda, kind):
+    """A fly-through of ten spirals: the structure table and the batch's
+    eight page slots take 32-44 KB of dynamic shared memory a block, which
+    with the perlin kernels' 20 KB of static shared memory passes the 48 KB
+    a launch gets without asking. Every kind's batch launches once, matches
+    its plain version and is bit-equal to its stills."""
+    from gamer_tpu_torch.engine.batch import _scene_groups
+    from gamer_tpu_torch.kernels import library
+    from gamer_tpu_torch.scene.cameracontrols import orbit_path
+
+    galaxy = presets.spiral()
+    scene = dataclasses.replace(
+        _scene(galaxy, 32, noise_kind=kind),
+        instances=[gt.GalaxyInstance(galaxy=galaxy, position=(0.0, 0.0, z))
+                   for z in np.linspace(-0.9, 0.9, 10)])
+    cams = orbit_path(scene.camera, 2, horizontal_deg=45.0)
+    scenes = [dataclasses.replace(scene, camera=c) for c in cams]
+    st, pages, _ = _scene_groups(scenes)[0]
+    tab = cr._build_table(st, cr._build_layout(st))
+    warps = library().gamer_march_block_threads() // 32
+    dynamic = (tab.size + warps * pages.shape[1]) * 4
+    assert 32 * 1024 <= dynamic <= 44 * 1024, dynamic
+
+    pages = torch.as_tensor(pages, device=cuda)
+    tab = cr.upload_table(tab, cuda)
+    before = cr.march_batch.launch_count
+    got = cr.march_batch(pages, tab, 32)
+    torch.cuda.synchronize()
+    assert cr.march_batch.launch_count == before + 1
+    assert float(got.sum()) > 0
+    assert _lsb_gate(got, cr.march_batch_plain(pages, tab, 32), kind)
+    frames = gt.render_flythrough(scene, cams, device="cuda")
+    for frame, s in zip(frames, scenes):
+        np.testing.assert_array_equal(frame,
+                                      gt.render_scene(s, device="cuda"))
+
+
 def test_batch_device_out_stays_on_card(cuda):
     scenes = [_scene(presets.spiral(), 24), _scene(presets.ring(), 24)]
     img = gt.render_batch(scenes, device="cuda", device_out=True)
@@ -358,6 +396,14 @@ def test_iq_table_equals_the_sines(cuda):
     bad, _ = _smoke().iq_table_check(cuda)
     assert bad["pairs"] == 0 and bad["corners"] == 0, bad
     assert bad["fallback"] == bad["fallback_expected"], bad
+
+
+def test_perlin_grad_table_equals_the_hash(cuda):
+    """Every entry of the perlin gradient table, and the perlin kernels'
+    own staged reads of it for every lattice index in [0, 2048), bit-equal
+    to the gradient hash's decode on the card."""
+    bad, _ = _smoke().perlin_grad_check(cuda)
+    assert bad == {"entries": 0, "dots": 0}, bad
 
 
 def test_iq_scene_past_the_table_matches_plain(cuda):

@@ -56,8 +56,12 @@ def test_simplex_tables_decode_to_perm():
 
 def test_perlin_table_decodes_to_seed94_permutation():
     perm = perlin_tables()[0]
-    q = tnoise.kernel_noise_table("perlin")
-    assert q.dtype == np.int32 and q.shape == (1024,)
+    tab = tnoise.kernel_noise_table("perlin")
+    # the paired permutation, then the gradient table's 1024 float4
+    # (tests/test_torch_perlin_grad.py)
+    assert tab.dtype == np.int32 and tab.shape == (
+        tnoise.PERLIN_PERM_WORDS + 4 * tnoise.PERLIN_GRADS,)
+    q, _ = tnoise.split_perlin_table(tab)
     np.testing.assert_array_equal(_lo(q), perm)
     np.testing.assert_array_equal(_hi(q), perm[(np.arange(1024) + 1) & 1023])
     with pytest.raises(ValueError, match="gabor"):
@@ -133,7 +137,8 @@ def test_perlin_index_chain_matches_the_reference_chain():
     p[2 * n:3 * n] = (f32(1023.0 - 4096.0) + 1024.0 * rng.integers(
         -2, 5, (n, 3)) + rng.uniform(0.0, 0.999, (n, 3))).astype(f32)
     perm = perlin_tables()[0].astype(np.int64)
-    q = tnoise.kernel_noise_table("perlin").astype(np.int64)
+    q = tnoise.split_perlin_table(
+        tnoise.kernel_noise_table("perlin"))[0].astype(np.int64)
 
     def setup(v):
         it = np.trunc(v + f32(4096.0)).astype(np.int64)

@@ -401,8 +401,11 @@ def test_noise_probe_plain_takes_every_kind(points, kind):
     table = tnoise.noise_table(kind, "cpu")
     assert table.dtype == torch.int32
     # the paired tables of csrc/noise.cuh (iq reads none and is handed the
-    # simplex one)
-    assert table.numel() == 1024
+    # simplex one); perlin's paired permutation is followed by its 1024
+    # float4 gradients
+    assert table.numel() == (
+        tnoise.PERLIN_PERM_WORDS + 4 * tnoise.PERLIN_GRADS
+        if kind == "perlin" else 1024)
     with pytest.raises(ValueError, match="gabor"):
         tnoise.noise_probe(p, 6, 0.7, 0.35, sw, 2.5, 1.0, 0.8, "gabor")
 
