@@ -16,6 +16,11 @@ against its plain torch version; the frames against each other (bands, batch
 frames and the ray list are bit-equal to the still frame), the spec oracle
 and the CLI commands (``render``, ``galaxy``, ``skybox``, ``dataset``,
 ``flythrough`` and ``morph`` with their GIFs, ``allsky``, ``renderhpx``).
+Beside the spec oracle's 48x48 frame, each of the seven presets' 512x512
+kernel frame is held to the oracle's stored frame, and the spiral runs
+above 512x512: at 1024, 2048 and 4096 (each noise kind at 4096; frame,
+kernel and host prep times, march Msamples/s), the 4096x4096 progressive
+frame bit-equal to the still and its middle rows against the plain version.
 Then the fit path: ``fit_scene_fd`` at 128x128 (each step's probe set is one
 ``march_batch`` launch, held to the plain version), ``fit_scene`` on the
 tensor and frozen marches at 128x128 and the scan march at 32x32 (step times
@@ -54,6 +59,8 @@ and ``RenderStats``.
     python3 chip_smoke.py --fit-only   # the build report, the fit paths,
                                        # the sharded fits, the XLA surfaces
     python3 chip_smoke.py --frontend-only  # the build report, the front end
+    python3 chip_smoke.py --production-only  # the build report, the 512^2
+                                       # oracle frames, the ladder
     python3 chip_smoke.py --profiler-loss [N ...]  # kernel records lost
                                        # after a session of N launches
 
@@ -101,7 +108,11 @@ HBM_PEAK = 3.35e12
 # reciprocal, two per pow; nothing for their extra instructions. The counts
 # come from the plain version on the same inputs (march_plain's stats).
 WORK = {
-    "samples": (35, 2),      # exit test, step, dott, radius, advance, floor
+    "samples": (83, 3),      # exit test (distance along the chord), step
+                             # (|p - cam|), dott, radius, advance, floor;
+                             # the ~22 float64 operations of the step's
+                             # bookkeeping count twice (the H100's FP64
+                             # rate is half its FP32 rate)
     "bulge": (58, 6),        # quat rotate, radius, pow, two sqrt, exp
     "triggers": (5, 1),      # |dott/z0| and the radial cutoff, per component
     "triggered": (14, 5),    # sech^2 and the intensity exp: the exact gates
@@ -154,13 +165,14 @@ FIT_PROBE_RTOL = 1e-4
 FIT_CPU_RTOL = 1e-3
 LAUNCH_API = ("cudaLaunchKernel", "cudaLaunchKernelExC", "cuLaunchKernel",
               "cuLaunchKernelEx")
-# march_kernel<0> (K1, simplex) as built before the progressive kernel
-# joined march.cu: ptxas's registers and spill bytes and the static SASS
-# instruction count. The progressive kernel is a template flag of the same
-# body and must leave the other kernels' code as it was
+# march_kernel<0> (K1, simplex) as built since the march keeps the
+# reference's double bookkeeping (until then 80 registers, 92/132 B of
+# spills, 4,320 instructions): ptxas's registers and spill bytes and the
+# static SASS instruction count. The progressive kernel is a template flag
+# of the same body and must leave the other kernels' code as it is
 # (scripts/torch_march_ab.py compares the whole code of two builds).
-K1_CODE = {"registers": 80, "spill_stores": 92, "spill_loads": 132,
-           "sass": 4320}
+K1_CODE = {"registers": 80, "spill_stores": 152, "spill_loads": 188,
+           "sass": 4736}
 # the host work a viewer does in each tick of a streamed /fullrender (a
 # stdlib PNG of 512^2, ~8 ms)
 TICK_STALL_MS = 8.0
@@ -485,6 +497,140 @@ def log_abort(ab: dict, size: int, band_rows: int, n_bands: int,
         f"{ab['start_ms']:.3f}-{ab['end_ms']:.3f} ms")
 
 
+def oracle_512_phase() -> float:
+    """Each preset's 512^2 kernel frame (``render_scene``, K1) against the
+    spec oracle's frame stored in the port (gamer_tpu_torch/golden.py;
+    tests/test_torch_conformance_512.py holds the files to their presets'
+    scenes and to a fresh oracle run): one record a preset in
+    scripts/conformance_512.py's form, then the oracle gate on each. The
+    frame oracle marches simplex noise only: perlin and iq stay held to
+    their plain versions and to their raw-noise gates. Returns the
+    spiral's oracle samples per pixel."""
+    import gamer_tpu_torch as gt
+    from gamer_tpu_torch.golden import (ORACLE_SIZE, PRESETS, diff_record,
+                                        load_oracle_frame, oracle_gate,
+                                        oracle_scene)
+
+    t0 = time.perf_counter()
+    recs = {}
+    for preset in PRESETS:
+        gold = load_oracle_frame(preset)
+        ours = gt.render_scene(oracle_scene(preset, ORACLE_SIZE),
+                               device="cuda")
+        recs[preset] = {"preset": preset, "size": ORACLE_SIZE,
+                        **diff_record(gold["image"], ours),
+                        "samples_per_px": gold["samples"] / gold["pixels"]}
+        log(f"kernel vs oracle {ORACLE_SIZE}^2 record: "
+            f"{json.dumps(recs[preset])}")
+    bad = [p for p, r in recs.items() if not oracle_gate(r)]
+    log(f"kernel vs oracle at {ORACLE_SIZE}^2: {len(recs) - len(bad)} of "
+        f"{len(recs)} presets within 3 LSB with < 5 % of pixels differing "
+        f"(stored oracle frames, simplex: the frame oracle marches no perlin "
+        f"or iq, which are held to their plain versions and raw-noise "
+        f"oracles); phase {time.perf_counter() - t0:.1f} s")
+    check(not bad, f"kernel vs oracle at {ORACLE_SIZE}^2 failed on {bad}: "
+                   f"{[recs[p] for p in bad]}")
+    return recs["spiral"]["samples_per_px"]
+
+
+# the frame sizes above 512^2: bench.py's ladder (512, 4096, 2048, 1024);
+# each noise kind at the largest; reps of CUDA events a size
+LADDER = ((1024, "simplex", 3), (2048, "simplex", 3), (4096, "simplex", 2),
+          (4096, "perlin", 2), (4096, "iq", 2))
+# the rows of the largest frame held to the plain version: 4 at its middle
+LADDER_BAND_ROWS = 4
+
+
+def ladder_phase(card: str, dev, samples_per_px: float) -> None:
+    """The spiral above 512^2: per rung of LADDER the frame
+    (``render_scene(..., device_out=True)``), the march kernel and the host
+    prep, with march Msamples/s from the oracle's samples per pixel at
+    512^2; at the largest rung the progressive frame (16 bands, one launch)
+    bit-equal to the still with its ticks in order, and the kernel's middle
+    rows (``march_band``) held to the plain version on the card; the
+    phase's peak device memory."""
+    import gamer_tpu_torch as gt
+    from gamer_tpu_torch.engine import cuda_render as cr
+    from gamer_tpu_torch.engine.render import post_process
+
+    t0 = time.perf_counter()
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats(dev)
+    big = None
+    for size, kind, reps in LADDER:
+        scene = spiral_scene(size, noise_kind=kind)
+        gt.render_scene(scene, device="cuda", device_out=True)  # warm-up
+        frame_ms, img = cuda_ms(lambda: gt.render_scene(
+            scene, device="cuda", device_out=True), reps)
+        prep = []
+        for _ in range(reps):
+            torch.cuda.synchronize()
+            t = time.perf_counter()
+            page, table, _, _ = cr.prepare(scene, dev)
+            torch.cuda.synchronize()
+            prep.append((time.perf_counter() - t) * 1e3)
+        kern_ms, lin = cuda_ms(lambda: cr.march(page, table, size), reps)
+        check(tuple(img.shape) == (size, size, 3) and int(img.sum()) > 0
+              and bool(torch.isfinite(lin).all()),
+              f"{kind} {size}^2: frame {tuple(img.shape)}, black or "
+              f"non-finite")
+        px = size * size
+        log(f"timing [{card}] ladder {kind} spiral {size}^2 (median of "
+            f"{reps}): frame {frame_ms:.3f} ms, march kernel {kern_ms:.3f} ms "
+            f"({samples_per_px * px / (kern_ms * 1e-3) / 1e6:.1f} march "
+            f"Msamples/s at the oracle's {samples_per_px:.1f} samples/px of "
+            f"512^2), host prep + page upload {float(np.median(prep)):.3f} "
+            f"ms (host clock)")
+        if size == LADDER[-1][0] and kind == "simplex":
+            big = (scene, page, table, img.cpu().numpy())
+        del img, lin
+    scene, page, table, still = big
+    size = scene.config.size
+    ticks = []
+    before = cr.march_progressive.launch_count
+    t = time.perf_counter()
+    prog = gt.render_progressive(scene, bands=BANDS, device="cuda",
+                                 on_progress=lambda f, _: ticks.append(f))
+    prog_s = time.perf_counter() - t
+    n_bands = cr.band_geometry(size, 1, BANDS)[1]
+    check(cr.march_progressive.launch_count - before == 1,
+          f"the {size}^2 progressive frame was not one launch")
+    check(ticks == [(b + 1) / n_bands for b in range(n_bands)],
+          f"{size}^2 progress ticks {ticks}")
+    same = np.array_equal(prog, still)
+    check(same, f"the {size}^2 progressive frame differs from the still: "
+                f"{None if same else lsb_diff(prog, still)}")
+    log(f"ladder: render_progressive(spiral {size}^2, bands={BANDS}) one "
+        f"launch, {prog_s * 1e3:.1f} ms wall with download, {len(ticks)} "
+        f"ticks in order; bit-equal to render_scene")
+    row0 = size // 2 - LADDER_BAND_ROWS // 2
+    c = scene.config
+    post = (np.float32(c.exposure), np.float32(c.gamma),
+            np.float32(c.saturation))
+    k = cr.march_band(page, table, size, LADDER_BAND_ROWS, row0)
+    t = time.perf_counter()
+    p = cr.march_band_plain(page, table, size, LADDER_BAND_ROWS, row0)
+    torch.cuda.synchronize()
+    plain_s = time.perf_counter() - t
+    check(np.array_equal(post_process(k, *post).cpu().numpy(),
+                         still[row0:row0 + LADDER_BAND_ROWS]),
+          f"march_band rows {row0}- differ from the {size}^2 still")
+    mx, frac, mean_d = lsb_diff(post_process(k.cpu(), *post).numpy(),
+                                post_process(p.cpu(), *post).numpy())
+    log(f"march_band vs plain (on the card, {plain_s:.1f} s) {size}^2 rows "
+        f"{row0}-{row0 + LADDER_BAND_ROWS - 1} ({LADDER_BAND_ROWS * size} "
+        f"rays): max {mx} LSB, {frac:.5f} of pixels differ, mean "
+        f"{mean_d:.4f} LSB, linear max_abs_err "
+        f"{float((k - p).abs().max()):.3g}; the band is the still's rows")
+    check(mx <= 2, f"march_band vs plain at {size}^2: {mx} LSB > 2")
+    torch.cuda.synchronize()
+    peak = torch.cuda.max_memory_allocated(dev)
+    log(f"ladder: peak device memory {peak / 2 ** 30:.3f} GiB "
+        f"(max_memory_allocated); phase {time.perf_counter() - t0:.1f} s")
+    del big, page, table, k, p
+    torch.cuda.empty_cache()
+
+
 def report_build() -> None:
     """Build the kernels and print the toolchain, ptxas's register and spill
     report, and each march kernel's resident blocks per SM and static SASS
@@ -527,7 +673,7 @@ def report_build() -> None:
         log(f"sass mix {name} (static instruction counts, cuobjdump -sass): "
             + (json.dumps(mixes[name]) if mixes else "not measured (no "
                "cuobjdump)"))
-    # the frame kernel's code is as it was before the progressive kernel
+    # the frame kernel's code is as recorded (K1_CODE)
     counts = next((v for k, v in kernels.ptxas_report(
         info.get("log", "")).items() if "12march_kernelILi0E" in k), None)
     check(counts is not None, "no ptxas report of march_kernel<0> in the "
@@ -536,8 +682,7 @@ def report_build() -> None:
     if mixes:  # the static SASS count where cuobjdump exists
         got["sass"] = mixes["12march_kernelILi0E"]["total"]
     want = {k: K1_CODE[k] for k in got}
-    log(f"march_kernel<0> code: {got}, as before the progressive kernel: "
-        f"{K1_CODE}")
+    log(f"march_kernel<0> code: {got}, as recorded (K1_CODE): {K1_CODE}")
     check(got == want, f"march_kernel<0> code changed: {got} against {want}")
 
 
@@ -2004,7 +2149,7 @@ def main() -> int:
     import gamer_tpu_torch as gt
     from gamer_tpu_torch.engine import cuda_render as cr
     from gamer_tpu_torch.engine.render import pool_linear, post_process
-    from gamer_tpu_torch.golden import golden_scene, load_oracle_golden
+    from gamer_tpu_torch.golden import load_oracle_golden, oracle_scene
     from gamer_tpu_torch.io.png import decode_png
     from gamer_tpu_torch.models import presets
     from gamer_tpu_torch.post.stars import (pad_star_rows, star_field_device,
@@ -2056,6 +2201,10 @@ def main() -> int:
     if "--frontend-only" in sys.argv[1:]:
         # development: the build report and the front-end phase alone
         frontend_phases(card, dev)
+        return 0
+    if "--production-only" in sys.argv[1:]:
+        # development: the build report and the production-size phases
+        ladder_phase(card, dev, oracle_512_phase())
         return 0
 
     # --- the kernel's noise device functions vs their plain versions -------
@@ -2157,11 +2306,15 @@ def main() -> int:
     # hold the file to a fresh oracle run
     gold = load_oracle_golden()
     samples_per_px = gold["samples"] / gold["pixels"]
-    ours = gt.render_scene(golden_scene(48), device="cuda")
+    ours = gt.render_scene(oracle_scene("spiral", 48), device="cuda")
     mx, frac, _ = lsb_diff(ours, gold["image"])
     log(f"kernel vs oracle spiral 48^2: max {mx} LSB, {frac:.4f} of pixels "
         f"differ (stored oracle frame, {samples_per_px:.1f} samples/px)")
     check(mx <= 3 and frac < 0.05, f"kernel vs oracle: {mx} LSB, {frac:.3f}")
+
+    # --- production size: every preset against the oracle at 512^2, and the
+    # spiral above 512^2 (the ladder to 4096^2, its progressive frame) ------
+    ladder_phase(card, dev, oracle_512_phase())
 
     # --- statistical phases: hash-driven pixels ----------------------------
     sg = presets.spiral()

@@ -21,8 +21,25 @@
 // (engine/cuda_render.py); one precompiled kernel walks the table at run
 // time. The table is the same for every thread of a launch, so the class
 // switch does not diverge, and a new scene never needs a rebuild. The march
-// state (p, I, tacc, step_prev) lives in registers; I carries across
-// instances and each instance has its own MAX_ITERS counter.
+// state (p, I, step_prev) lives in registers; I carries across instances
+// and each instance has its own MAX_ITERS counter.
+//
+// The march's bookkeeping is the reference's (rasterizer.cpp:379-470), as
+// the spec oracle transcribes it: each step's length from the sample's own
+// distance to the camera, |p - cam|, the loop's exit on the sample's
+// distance along the chord, dot(p - far point, chord direction), against
+// the chord and the last step, and where the reference keeps C++ doubles
+// beside Qt's float vectors (the ellipsoid's quadratic, the step, the exit
+// sum, vector lengths) the kernel computes in double too, with the scene's
+// own double ray step and least step (each page's float plus its low word,
+// the page's last two entries). Whether a ray takes its last sample by the
+// camera, where the presets' stars, disks and dust are densest, turns on
+// the last bits of that bookkeeping: the TPU kernel's accumulated path
+// length (|p - cam| = -t0 - tacc, exit on tacc) put the irregular and
+// dusty_disk presets 6-7 uint8 LSB from the oracle on 190-355 pixels at
+// 512^2, the reference's recurrence in float 3-6 LSB on 13-18, its doubles
+// with float steps 3-6 LSB on 3-6; with the scene's steps every preset is
+// within 1 LSB of the oracle.
 //
 // Work distribution: persistent warps. The grid is the resident blocks of
 // the card (blocks per SM from the occupancy query times the SMs, capped
@@ -83,9 +100,10 @@
 //
 // Numerics. Built with -fmad=false and without --use_fast_math, so every
 // a*b+c rounds twice as in the JAX expressions (contraction alone moves
-// frames by ~1 uint8 LSB). Ray normalization is 1.0f/sqrtf (IEEE sqrt and
-// division), not rsqrtf. Masked updates are selects, never multiplies by
-// a mask, and min/max propagate NaN like jnp.maximum/jnp.minimum. A ray's
+// frames by ~1 uint8 LSB). Vectors are normalized as QVector3D does: the
+// double norm rounded to float, then an IEEE division. Masked updates are
+// selects, never multiplies by a mask, and min/max propagate NaN like
+// jnp.maximum/jnp.minimum. A ray's
 // operations do not depend on the launch form, its tile or its warp, so a
 // band, a batch frame or a listed ray is bit-equal to the still's ray.
 #include <cuda_runtime.h>
@@ -310,11 +328,37 @@ __device__ __forceinline__ void apply_bulge(const float* ip, const float* cp,
     I.I2 = I.I2 + cp[C_SPEC + 2] * add;
 }
 
+// QVector3D::length: the double norm of float components, rounded to float.
+__device__ __forceinline__ float length_qt(float x, float y, float z) {
+    const double xd = x, yd = y, zd = z;
+    return (float)sqrt((xd * xd + yd * yd) + zd * zd);
+}
+
+// QVector3D::normalized: v / length, v itself where the length is within
+// 1e-5 of 1, and 0 where it is within 1e-5 of 0.
+__device__ __forceinline__ void normalize_qt(float& x, float& y, float& z) {
+    const float n = length_qt(x, y, z);
+    if (fabsf(n) <= F32(1e-5)) {
+        x = y = z = 0.0f;
+    } else if (!(fabsf(n - 1.0f) <= F32(1e-5))) {
+        x = x / n;
+        y = y / n;
+        z = z / n;
+    }
+}
+
+// Util::clamp in double: max(lo, min(hi, v)); a NaN becomes hi.
+__device__ __forceinline__ double qt_clamp_d(double v, double lo, double hi) {
+    double r = v < hi ? v : hi;
+    return r > lo ? r : lo;
+}
+
 // Intersect and march one instance (rasterizer.cpp:379-483).
 template <int KIND>
 __device__ void march_instance(const int* tab,
-                               const float* pg, const int* it, bool dither,
-                               float dx, float dy, float dz, Ray& I) {
+                               const float* pg, int n_page, const int* it,
+                               bool dither, float dx, float dy, float dz,
+                               Ray& I) {
     const int n_comps = it[0], max_arms = it[1];
     const float* ip = pg + it[2];
     const int* ct0 = tab + it[3];
@@ -328,42 +372,56 @@ __device__ void march_instance(const int* tab,
     const float ivy = ip[I_AXIS_INV + 1];
     const float ivz = ip[I_AXIS_INV + 2];
 
-    float A = dx * dx * ivx + dy * dy * ivy + dz * dz * ivz;
-    float B = 2.0f * (dx * cx * ivx + dy * cy * ivy + dz * cz * ivz);
-    float C = (cx * cx * ivx + cy * cy * ivy + cz * cz * ivz) - 1.0f;
-    float Sdisc = B * B - 4.0f * A * C;
-    bool hit = Sdisc > 0.0f;
-    float sq = sqrtf(hit ? Sdisc : 0.0f);
-    float t0 = (-B - sq) / (2.0f * A);
-    float t1 = (-B + sq) / (2.0f * A);
+    // the ellipsoid (util.h:66-98): float products, the quadratic in double
+    const float rox = cx * ivx, roy = cy * ivy, roz = cz * ivz;
+    const double A = (double)((dx * (dx * ivx) + dy * (dy * ivy))
+                              + dz * (dz * ivz));
+    const double B = 2.0 * (double)((dx * rox + dy * roy) + dz * roz);
+    const double C = (double)((cx * rox + cy * roy) + cz * roz) - 1.0;
+    const double Sdisc = B * B - 4.0 * A * C;
+    const bool hit = Sdisc > 0.0;
+    const double sq = sqrt(hit ? Sdisc : 0.0);
+    const double t0 = (-B - sq) / (2.0 * A);
+    const double t1 = (-B + sq) / (2.0 * A);
     // behind-camera rules (rasterizer.cpp:396-403)
-    float near_t = t1 > 0.0f ? 0.0f : t1;
-    bool alive = hit && !((t0 > 0.0f) && (t1 > 0.0f));
-    if (!alive) return;
+    if (!hit || ((t0 > 0.0) && (t1 > 0.0))) return;
 
-    float o1x = cx + dx * t0, o1y = cy + dy * t0, o1z = cz + dz * t0;
-    float o2x = cx + dx * near_t, o2y = cy + dy * near_t, o2z = cz + dz * near_t;
-    float fx = o1x - o2x, fy = o1y - o2y, fz = o1z - o2z;
-    float length = sqrtf(fx * fx + fy * fy + fz * fz);
-    float safe = length == 0.0f ? 1.0f : length;
-    float mdx = fx / safe, mdy = fy / safe, mdz = fz / safe;
-    // camera distance is affine along the march: |p - cam| = -t0 - tacc
-    float dist0 = -t0;
+    const float t0f = (float)t0, t1f = (float)t1;
+    const float o1x = cx + dx * t0f, o1y = cy + dy * t0f, o1z = cz + dz * t0f;
+    const bool near_cam = t1 > 0.0;
+    const float o2x = near_cam ? cx : cx + dx * t1f;
+    const float o2y = near_cam ? cy : cy + dy * t1f;
+    const float o2z = near_cam ? cz : cz + dz * t1f;
+    const float fx = o1x - o2x, fy = o1y - o2y, fz = o1z - o2z;
+    const float length = length_qt(fx, fy, fz);
+    // a chord too short to have a direction is not marched (the
+    // reference's loop would not advance on it)
+    if (!(length > F32(1e-5))) return;
+    float mdx = fx, mdy = fy, mdz = fz;
+    normalize_qt(mdx, mdy, mdz);
+    // the chord's direction from the far point toward the camera side
+    const float lx = -mdx, ly = -mdy, lz = -mdz;
 
-    float px = o1x, py = o1y, pz = o1z, tacc = 0.0f;
+    float px = o1x, py = o1y, pz = o1z;
     if (dither) {
-        // per-ray start jitter by a hash of the direction bits
+        // per-ray start jitter by a hash of the direction bits, a fraction
+        // of the first step (at the far point's distance -t0)
         int hsh = hash3_i32(__float_as_int(dx), __float_as_int(dy),
                             __float_as_int(dz));
         float h01 = (float)floor_mod(abs_i32(hsh), 8192) * F32(1.0 / 8192.0);
         float delta = nan_min(
-            qt_clamp(dist0 * ray_step, min_step, F32(0.01)) * h01, length);
+            qt_clamp(-t0f * ray_step, min_step, F32(0.01)) * h01, length);
         px = o1x - mdx * delta;
         py = o1y - mdy * delta;
         pz = o1z - mdz * delta;
-        tacc = delta;
     }
-    float steppr = ray_step;
+    // the step's bookkeeping in double, as the reference's (C++ double
+    // scalars beside float vectors): the ray step and the least step as
+    // the scene gave them, each its float plus its low word, the page's
+    // last two entries
+    const double rs = (double)ray_step + (double)pg[n_page - 2];
+    const double ms = (double)min_step + (double)pg[n_page - 1];
+    double steppr = rs;
 
     const float ox = ip[I_ORIENT + 0], oy = ip[I_ORIENT + 1],
                 oz = ip[I_ORIENT + 2];
@@ -372,11 +430,17 @@ __device__ void march_instance(const int* tab,
                    ip[I_ROTMAT + 3]};
 
     for (int iter = 0; iter < MAX_ITERS; ++iter) {
-        // loop exit (rasterizer.cpp:447): path length vs chord
-        if (tacc >= length + steppr) break;
-        float dist = dist0 - tacc;
-        float step = qt_clamp(dist * ray_step, min_step, F32(0.01));
-        float weight = step * 200.0f;
+        // loop exit (rasterizer.cpp:447): the sample's distance along the
+        // chord vs the chord and the last step
+        const float ux = px - o1x, uy = py - o1y, uz = pz - o1z;
+        const float along = (ux * lx + uy * ly) + uz * lz;
+        if ((double)along >= (double)length + steppr) break;
+        // the step from the sample's distance to the camera
+        // (rasterizer.cpp:449)
+        const double step_d = qt_clamp_d(
+            (double)length_qt(px - cx, py - cy, pz - cz) * rs, ms, 0.01);
+        const float step = (float)step_d;
+        const float weight = (float)(step_d * 200.0);
 
         float dott = px * ox + py * oy + pz * oz;
         float Px = px - ox * dott, Py = py - oy * dott, Pz = pz - oz * dott;
@@ -398,8 +462,7 @@ __device__ void march_instance(const int* tab,
         px = px - mdx * step;
         py = py - mdy * step;
         pz = pz - mdz * step;
-        tacc = tacc + step;
-        steppr = step;
+        steppr = step_d;
         I.I0 = I.I0 >= 0.0f ? I.I0 : 0.0f;
         I.I1 = I.I1 >= 0.0f ? I.I1 : 0.0f;
         I.I2 = I.I2 >= 0.0f ? I.I2 : 0.0f;
@@ -409,12 +472,13 @@ __device__ void march_instance(const int* tab,
 // Every instance of the scene for one ray, far to near; I carries across.
 template <int KIND>
 __device__ __forceinline__ void march_scene(const int* tab,
-                                            const float* pg, float dx,
-                                            float dy, float dz, Ray& I) {
+                                            const float* pg, int n_page,
+                                            float dx, float dy, float dz,
+                                            Ray& I) {
     const bool dither = tab[T_DITHER] != 0;
     for (int gi = 0; gi < tab[T_N_INST]; ++gi)
-        march_instance<KIND>(tab, pg, tab + T_HDR + gi * T_INST, dither,
-                             dx, dy, dz, I);
+        march_instance<KIND>(tab, pg, n_page, tab + T_HDR + gi * T_INST,
+                             dither, dx, dy, dz, I);
 }
 
 // Threads of a block, and the blocks each SM must be able to hold at once:
@@ -541,7 +605,7 @@ __device__ __forceinline__ void march_tiles(
             const float dx = dirs[3 * i], dy = dirs[3 * i + 1],
                         dz = dirs[3 * i + 2];
             Ray I{0.0f, 0.0f, 0.0f};
-            march_scene<KIND>(tab, pg, dx, dy, dz, I);
+            march_scene<KIND>(tab, pg, n_page, dx, dy, dz, I);
             const float fs = F32(0.01) / pg[G_RAY_STEP];
             out[3 * i] = I.I0 * fs;
             out[3 * i + 1] = I.I1 * fs;
@@ -568,22 +632,22 @@ __device__ __forceinline__ void march_tiles(
             // (pallas_render.py:338-343)
             const float jrow = pg[G_ROW0] + (float)row;
             const float icol = (float)col;
-            const float xx = icol / half - 1.0f;
-            const float yy = jrow / half - 1.0f;
+            // (the screen point in double, rounded once; the direction
+            // normalized as QVector3D::normalized)
+            const float xx = (float)((double)icol / (double)half - 1.0);
+            const float yy = (float)((double)jrow / (double)half - 1.0);
             float w[3];
             for (int r = 0; r < 3; ++r)
                 w[r] = pg[4 * r] * xx - pg[4 * r + 1] * yy + pg[4 * r + 2]
                        + pg[4 * r + 3];
-            const float inv_n =
-                1.0f / sqrtf(w[0] * w[0] + w[1] * w[1] + w[2] * w[2]);
-            const float dx = w[0] * inv_n, dy = w[1] * inv_n,
-                        dz = w[2] * inv_n;
+            float dx = w[0], dy = w[1], dz = w[2];
+            normalize_qt(dx, dy, dz);
 
             // rows of a band past the frame's last row stay 0 (the TPU's
             // padding)
             Ray I{0.0f, 0.0f, 0.0f};
             if (jrow < fsize && icol < fsize)
-                march_scene<KIND>(tab, pg, dx, dy, dz, I);
+                march_scene<KIND>(tab, pg, n_page, dx, dy, dz, I);
             // final scale (rasterizer.cpp:409)
             const float fs = F32(0.01) / pg[G_RAY_STEP];
             float* o = out + (((size_t)f * rows + row) * frame_size + col) * 3;

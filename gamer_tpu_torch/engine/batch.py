@@ -65,7 +65,7 @@ def _scene_groups(scenes: Sequence[Scene]):
         cfg = scene.config
         page = _pack_scalars(st, lay, params,
                              np.asarray(scene.camera.camera, f32), inv_vp,
-                             f32(cfg.ray_step), f32(cfg.min_ray_step))
+                             cfg.ray_step, cfg.min_ray_step)
         pages, idx = groups.setdefault(st, ([], []))
         pages.append(page)
         idx.append(i)

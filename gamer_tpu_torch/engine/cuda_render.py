@@ -25,10 +25,12 @@ device and stream, and gather the outputs on the mesh's first device: the
 counterparts of ``_compiled_rowshard``, ``_compiled_batch_rowshard`` and
 ``_compiled_dirs_rowshard``. A tensor on the CPU runs the plain version,
 ``march_plain`` and its band, progressive, batch and ray-list forms: the
-lockstep torch version with the kernel's arithmetic (the ``tacc`` / ``dist0 - tacc``
-recurrence and ``tacc >= length + step_prev`` exit of
-pallas_render.py:428-434,578, the minimax atan); a CUDA tensor launches the
-kernel or raises.
+lockstep torch version with the kernel's arithmetic (the reference's
+march bookkeeping, as the spec oracle takes it: each step from the
+sample's distance to the camera, the exit on its distance along the
+chord, in double where the reference keeps doubles, where
+pallas_render.py:428-434,578 accumulates the path length in float32; the
+minimax atan); a CUDA tensor launches the kernel or raises.
 """
 
 from __future__ import annotations
@@ -41,7 +43,8 @@ import numpy as np
 import torch
 
 from ..ops.camera import inv_view_projection, ray_grid
-from ..ops.math3d import PI, atan2_f32, atan_f32, floor0, qt_clamp, quat_rotate
+from ..ops.math3d import (PI, atan2_f32, atan_f32, floor0, norm3_qt,
+                          normalize3_qt, qt_clamp, quat_rotate)
 from ..ops.noise import (
     NOISE_KINDS,
     noise_table,
@@ -142,10 +145,15 @@ class _Layout:
         return self.offsets[name]
 
 
+# the page's last entries: the ray step's and the least step's low words
+STEP_LO = ("ray_step_lo", "min_step_lo")
+
+
 def _build_layout(static: SceneStatic) -> _Layout:
-    """pallas_render._build_layout (same names, same order, so the page
-    equals the TPU page's first ``n`` entries for every noise kind; the
-    kind's lookup table is not part of the page)."""
+    """pallas_render._build_layout (same names, same order, so the page's
+    first entries equal the TPU page's for every noise kind; the kind's
+    lookup table is not part of the page), then the low words of the ray
+    step and the least step (STEP_LO), the page's last two entries."""
     lay = _Layout()
     lay.kind = _scene_noise_kind(static)
     lay.add("inv_vp", 16)
@@ -173,12 +181,24 @@ def _build_layout(static: SceneStatic) -> _Layout:
             lay.add(cp + "spec", 3)
             if cs.cid in (CID_DUST2, CID_DUST_POSITIVE):
                 lay.add(cp + "ridged_w", cs.oct(RIDGED_OCTAVES))
+    for name in STEP_LO:
+        lay.add(name, 1)
     return lay
+
+
+def _low_word(x) -> np.float32:
+    """x - float32(x), rounded to float32: with float32(x) it carries the
+    double the scene gave (to 2^-48 of it), as the reference's double
+    ray step."""
+    return np.float32(float(x) - float(np.float32(x)))
 
 
 def _pack_scalars(static: SceneStatic, lay: _Layout, params, camera, inv_vp,
                   ray_step, min_step) -> np.ndarray:
-    """The scene's numbers as one flat float32 page of ``lay.n`` entries."""
+    """The scene's numbers as one flat float32 page of ``lay.n`` entries.
+    ``ray_step`` and ``min_step`` are the scene's values: floats beyond
+    float32 leave their low words on the page (``STEP_LO``), float32
+    values a low word of 0."""
     row = np.zeros(lay.n, np.float32)
 
     def put(name, v):
@@ -190,12 +210,15 @@ def _pack_scalars(static: SceneStatic, lay: _Layout, params, camera, inv_vp,
     put("camera", camera)
     put("ray_step", ray_step)
     put("min_step", min_step)
+    put("ray_step_lo", _low_word(ray_step))
+    put("min_step_lo", _low_word(min_step))
     put("row0", 0.0)
     for gi, (inst, pr) in enumerate(zip(static.instances, params)):
         p = f"i{gi}."
         axis = np.asarray(pr["axis"], np.float32)
         put(p + "pos", pr["position"])
-        put(p + "axis_inv", np.float32(1.0) / (axis * axis))
+        # 1 / axis^2 in double, rounded to float (util.h:66-98)
+        put(p + "axis_inv", 1.0 / (axis.astype(np.float64) ** 2))
         put(p + "axis_x", axis[0])
         put(p + "winding_b", pr["winding_b"])
         put(p + "winding_n", pr["winding_n"])
@@ -483,7 +506,7 @@ def _read_scene(pg: np.ndarray, tb: np.ndarray):
 
 
 def _march_instance_plain(inst, dirs, valid, camera, ray_step, min_step,
-                          dither, I_out, stats=None):
+                          steps, dither, I_out, stats=None):
     """Intersect and march one instance for all rays in lockstep; rays are
     dropped from the working set as they finish, so every op runs only on
     rays that are still marching. ``stats`` (a dict) counts the samples
@@ -493,66 +516,82 @@ def _march_instance_plain(inst, dirs, valid, camera, ray_step, min_step,
     cz = float(f32(camera[2]) - f32(inst["pos"][2]))
     ivx, ivy, ivz = inst["axis_inv"]
     dx, dy, dz = dirs[:, 0], dirs[:, 1], dirs[:, 2]
-    A = dx * dx * ivx + dy * dy * ivy + dz * dz * ivz
-    B = 2.0 * (dx * cx * ivx + dy * cy * ivy + dz * cz * ivz)
-    C = float((f32(cx) * f32(cx) * f32(ivx) + f32(cy) * f32(cy) * f32(ivy)
-               + f32(cz) * f32(cz) * f32(ivz)) - f32(1.0))
+    # the ellipsoid (util.h:66-98): float products, the quadratic in double
+    rox, roy, roz = (float(f32(c) * f32(v)) for c, v in
+                     ((cx, ivx), (cy, ivy), (cz, ivz)))
+    A = ((dx * (dx * ivx) + dy * (dy * ivy)) + dz * (dz * ivz)).double()
+    B = 2.0 * ((dx * rox + dy * roy) + dz * roz).double()
+    C = float((f32(cx) * f32(rox) + f32(cy) * f32(roy))
+              + f32(cz) * f32(roz)) - 1.0
     Sdisc = B * B - 4.0 * A * C
     hit = Sdisc > 0.0
     sq = torch.sqrt(torch.where(hit, Sdisc, 0.0))
     t0 = (-B - sq) / (2.0 * A)
     t1 = (-B + sq) / (2.0 * A)
     # behind-camera rules (rasterizer.cpp:396-403)
-    near_t = torch.where(t1 > 0, 0.0, t1)
     alive = hit & ~((t0 > 0) & (t1 > 0)) & valid
     idx = alive.nonzero().squeeze(1)
     if idx.numel() == 0:
         return
-    dx, dy, dz, t0, near_t = dx[idx], dy[idx], dz[idx], t0[idx], near_t[idx]
+    dx, dy, dz, t0, t1 = dx[idx], dy[idx], dz[idx], t0[idx], t1[idx]
+    t0f, t1f, near_cam = t0.float(), t1.float(), t1 > 0
 
-    o1x, o1y, o1z = cx + dx * t0, cy + dy * t0, cz + dz * t0
-    fx = o1x - (cx + dx * near_t)
-    fy = o1y - (cy + dy * near_t)
-    fz = o1z - (cz + dz * near_t)
-    length = torch.sqrt(fx * fx + fy * fy + fz * fz)
-    safe = torch.where(length == 0, 1.0, length)
-    mdx, mdy, mdz = fx / safe, fy / safe, fz / safe
-    # camera distance is affine along the march: |p - cam| = -t0 - tacc
-    dist0 = -t0
+    o1x, o1y, o1z = cx + dx * t0f, cy + dy * t0f, cz + dz * t0f
+    fx = o1x - torch.where(near_cam, cx, cx + dx * t1f)
+    fy = o1y - torch.where(near_cam, cy, cy + dy * t1f)
+    fz = o1z - torch.where(near_cam, cz, cz + dz * t1f)
+    length = norm3_qt(torch.stack([fx, fy, fz], dim=-1))
+    # a chord too short to have a direction is not marched
+    marched = (length > 1e-5).nonzero().squeeze(1)
+    if marched.numel() < idx.numel():
+        (idx, dx, dy, dz, t0f, o1x, o1y, o1z, fx, fy, fz, length) = (
+            v[marched] for v in (idx, dx, dy, dz, t0f, o1x, o1y, o1z, fx, fy,
+                                 fz, length))
+        if idx.numel() == 0:
+            return
+    mdx, mdy, mdz = normalize3_qt(torch.stack([fx, fy, fz], dim=-1)).unbind(-1)
     if dither:
         hsh = hash3_i32(dx.view(torch.int32), dy.view(torch.int32),
                         dz.view(torch.int32))
         h01 = torch.remainder(abs_i32(hsh), 8192).to(torch.float32) * (1.0 / 8192.0)
         delta = torch.minimum(
-            qt_clamp(dist0 * ray_step, min_step, 0.01) * h01, length)
+            qt_clamp(-t0f * ray_step, min_step, 0.01) * h01, length)
         px, py, pz = o1x - mdx * delta, o1y - mdy * delta, o1z - mdz * delta
-        tacc = delta
     else:
         px, py, pz = o1x, o1y, o1z
-        tacc = torch.zeros_like(o1x)
-    steppr = torch.full_like(o1x, ray_step)
+    # the step's bookkeeping in double, as the reference's: ``steps`` is
+    # the scene's (ray step, least step) as doubles
+    rs, ms = steps
+    length_d = length.double()
+    steppr = torch.full_like(length_d, rs)
     I = [I_out[idx, k] for k in range(3)]
 
     ox, oy, oz = inst["orientation"]
     axis_x = inst["axis_x"]
     it = 0
     while it < MAX_ITERS:
-        # loop exit (rasterizer.cpp:447): path length vs chord
-        stop = tacc >= length + steppr
+        # loop exit (rasterizer.cpp:447): the sample's distance along the
+        # chord (from the far point toward the camera side) vs the chord
+        # and the last step
+        along = ((px - o1x) * -mdx + (py - o1y) * -mdy) + (pz - o1z) * -mdz
+        stop = along.double() >= length_d + steppr
         if bool(stop.any()):
             I_out[idx[stop]] = torch.stack([v[stop] for v in I], dim=1)
             keep = (~stop).nonzero().squeeze(1)
             if keep.numel() == 0:
                 return
-            (idx, px, py, pz, tacc, steppr, length, dist0, mdx, mdy, mdz,
-             I0, I1, I2) = (v[keep] for v in (
-                idx, px, py, pz, tacc, steppr, length, dist0, mdx, mdy, mdz,
-                *I))
+            (idx, px, py, pz, o1x, o1y, o1z, steppr, length_d, mdx, mdy,
+             mdz, I0, I1, I2) = (v[keep] for v in (
+                idx, px, py, pz, o1x, o1y, o1z, steppr, length_d, mdx, mdy,
+                mdz, *I))
             I = [I0, I1, I2]
         _count(stats, "samples", idx.numel())
-        dist = dist0 - tacc
-        step = qt_clamp(dist * ray_step, min_step, 0.01)
-        weight = step * 200.0
+        # the step from the sample's distance to the camera
+        # (rasterizer.cpp:449)
+        step_d = qt_clamp(norm3_qt(torch.stack(
+            [px - cx, py - cy, pz - cz], dim=-1)).double() * rs, ms, 0.01)
+        step = step_d.float()
+        weight = (step_d * 200.0).float()
         dott = px * ox + py * oy + pz * oz
         Px, Py, Pz = px - ox * dott, py - oy * dott, pz - oz * dott
         radius = torch.sqrt(Px * Px + Py * Py + Pz * Pz) / axis_x
@@ -567,8 +606,7 @@ def _march_instance_plain(inst, dirs, valid, camera, ray_step, min_step,
                            stats)
         # advance (rasterizer.cpp:467-470), then floor: negatives/NaN to 0
         px, py, pz = px - mdx * step, py - mdy * step, pz - mdz * step
-        tacc = tacc + step
-        steppr = step
+        steppr = step_d
         I = [floor0(v) for v in I]
         it += 1
     I_out[idx] = torch.stack(I, dim=1)
@@ -604,12 +642,14 @@ def _march_dirs_plain(pg: np.ndarray, tb: np.ndarray, dirs: torch.Tensor,
     from the page's camera point through every instance; rays outside
     ``valid`` stay 0."""
     ray_step, min_step = float(pg[G_RAY_STEP]), float(pg[G_MIN_STEP])
+    # each its float plus its low word (the page's last two entries)
+    steps = (ray_step + float(pg[-2]), min_step + float(pg[-1]))
     I = torch.zeros((dirs.shape[0], 3), dtype=torch.float32,
                     device=dirs.device)
     camera = pg[G_CAMERA:G_CAMERA + 3]
     for inst in _read_scene(pg, tb):
         _march_instance_plain(inst, dirs, valid, camera, ray_step, min_step,
-                              bool(tb[T_DITHER]), I, stats)
+                              steps, bool(tb[T_DITHER]), I, stats)
     return I * float(f32(0.01) / f32(ray_step))
 
 
@@ -1314,7 +1354,7 @@ def prepare(scene: Scene, device):
                                  scene.camera.fov)
     lay = _build_layout(static)
     page = _pack_scalars(static, lay, params, camera, inv_vp,
-                         f32(cfg.ray_step), f32(cfg.min_ray_step))
+                         cfg.ray_step, cfg.min_ray_step)
     table = _build_table(static, lay)
     ss = cfg.supersample
     return (torch.as_tensor(page, device=device),

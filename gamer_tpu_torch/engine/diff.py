@@ -28,7 +28,7 @@ from torch.utils.checkpoint import checkpoint
 
 from ..ops.camera import ray_grid_xla
 from ..ops.math3d import qt_clamp
-from .render import _march_start, _march_step, const
+from .render import _march_start, _march_step, const, first_step_prev
 from .scene_prep import InstanceStatic, SceneStatic
 
 
@@ -115,8 +115,7 @@ def _march_instance_scan(st: InstanceStatic, pr, dirs, camera, I, winding,
     gradients are recorded."""
     o, origin, length, dir_m, alive = _march_start(pr, dirs, camera,
                                                    ray_step, min_step, dither)
-    state = (origin, I, winding, torch.full_like(length, 1.0) * ray_step,
-             ~alive)
+    state = (origin, I, winding, first_step_prev(length, ray_step), ~alive)
 
     def body(*s):
         return _march_step(st, pr, s, o, origin, length, dir_m, ray_step,
@@ -145,7 +144,8 @@ def render_rays_diff(static: SceneStatic, params, dirs, camera, ray_step,
         I, winding = _march_instance_scan(
             st, pr, dirs_f, camera, I, winding, ray_step, min_step,
             max_steps, remat, dither=static.dither)
-    I = I * (const(ray_step, 0.01) / ray_step)
+    rs = ray_step.to(I.dtype)
+    I = I * (const(rs, 0.01) / rs)
     return I.reshape(*shape, 3)
 
 

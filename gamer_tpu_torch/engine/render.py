@@ -7,10 +7,11 @@ The XLA march (``render_rays``, ``render_frame``, ``render_frame_ss``,
 every ray steps in lockstep through a Python loop whose body is vectorized
 over rays, with per-ray masks as selects, until every ray is done (on the
 card the loop replays one CUDA graph of a trip, ``_march_graphed``). Its
-arithmetic is the XLA march's, not the kernel's: a per-step camera
-distance ``norm3(p - o)`` (render.py:395-400 of the JAX package) where
-csrc/march.cu keeps ``dist0 - tacc``, the library atan/atan2, and the
-literal ``pow`` arm ladder in std::max order. It is the forward that the
+arithmetic is the XLA march's: a per-step camera distance ``norm3(p - o)``
+(render.py:395-400 of the JAX package; csrc/march.cu takes the same
+reference recurrence), the library atan/atan2 where the kernel takes a
+minimax one, and the literal ``pow`` arm ladder in std::max order. It is
+the forward that the
 differentiable marches (engine/diff.py, engine/tensor_march.py) reuse: the
 component math takes a ``pow_fn`` (``safe_pow`` there) and a ``noise``
 hook (the frozen noise fields). Parameters are torch tensors
@@ -33,8 +34,10 @@ from ..ops.math3d import (
     PI,
     dot3,
     floor0,
-    intersect_ellipsoid,
+    intersect_ellipsoid_qt,
     norm3,
+    norm3_qt,
+    normalize3_qt,
     qt_clamp,
     qt_smoothstep,
     quat_from_axis_angle_rad,
@@ -414,9 +417,12 @@ def _march_start(pr, dirs, camera, ray_step, min_step, dither: bool):
     """Intersect one instance and lay out each ray's chord
     (rasterizer.cpp:379-403): (o, origin, length, dir_m, alive), the ray
     origin in the galaxy frame, the march start, the chord length, the
-    unit march direction and which rays march at all."""
+    unit march direction and which rays march at all. The chord's
+    bookkeeping is the reference's: the quadratic in float64, the length
+    and direction as QVector3D's; a chord too short to have a direction
+    is not marched."""
     o = camera - pr["position"]
-    hit, isp1, isp2, t0, t1 = intersect_ellipsoid(o, dirs, pr["axis"])
+    hit, isp1, isp2, t0, t1 = intersect_ellipsoid_qt(o, dirs, pr["axis"])
     # behind-camera rules (rasterizer.cpp:396-403): reversed-lookAt rays
     # point backward, visible geometry has negative t
     isp2 = torch.where((t1 > 0)[..., None], o, isp2)
@@ -433,10 +439,16 @@ def _march_start(pr, dirs, camera, ray_step, min_step, dither: bool):
         delta = torch.minimum(step0 * _dither01(dirs), len0)
         origin = origin - (diff0 / safe0[..., None]) * delta[..., None]
     diff = origin - isp2
-    length = norm3(diff)
-    safe = torch.where(length == 0, 1.0, length)
-    dir_m = diff / safe[..., None]
-    return o, origin, length, dir_m, alive
+    length = norm3_qt(diff)
+    dir_m = normalize3_qt(diff)
+    return o, origin, length, dir_m, alive & (length > 1e-5)
+
+
+def first_step_prev(length, ray_step):
+    """The step before the first (rasterizer.cpp:437: the ray step), the
+    float64 ``step_prev`` of a march's state."""
+    return torch.full_like(length, 1.0, dtype=torch.float64) * \
+        ray_step.double()
 
 
 def _march_step(st: InstanceStatic, pr, state, o, origin, length, dir_m,
@@ -444,15 +456,21 @@ def _march_step(st: InstanceStatic, pr, state, o, origin, length, dir_m,
     """One lockstep trip of the march: the loop condition, the adaptive
     step, every component in list order, advance and floor
     (rasterizer.cpp:447-470). ``state`` is (p, I, winding, step_prev,
-    done); rays that are done keep their state."""
+    done); rays that are done keep their state. The step's bookkeeping is
+    the reference's, in float64 (``step_prev`` too): the exit on the
+    sample's distance along the chord against the chord and the last
+    step, the step from the sample's QVector3D distance to the camera and
+    the ray step and least step as float64 (``scene_args`` gives the
+    scene's own)."""
     p, I, w, step_prev, done = state
     d_along = dot3(p - origin, -dir_m)
-    done = done | (d_along >= length + step_prev)
+    done = done | (d_along.double() >= length.double() + step_prev)
     active = ~done
 
-    dist = norm3(p - o)
-    step = qt_clamp(dist * ray_step, min_step, 0.01)
-    weight = step * 200.0
+    step_d = qt_clamp(norm3_qt(p - o).double() * ray_step.double(),
+                      min_step.double(), 0.01)
+    step = step_d.to(p.dtype)
+    weight = (step_d * 200.0).to(p.dtype)
 
     I_s, w_s = I, w
     for cs, cp in zip(st.comps, pr["comps"]):
@@ -463,7 +481,7 @@ def _march_step(st: InstanceStatic, pr, state, o, origin, length, dir_m,
     return (torch.where(active[..., None], p_new, p),
             torch.where(active[..., None], floor0(I_s), I),
             torch.where(active, w_s, w),
-            torch.where(active, step, step_prev),
+            torch.where(active, step_d, step_prev),
             done)
 
 
@@ -474,8 +492,7 @@ def _march_instance(st: InstanceStatic, pr, dirs, camera, I, winding,
     winding: (N,)."""
     o, origin, length, dir_m, alive = _march_start(pr, dirs, camera,
                                                    ray_step, min_step, dither)
-    state = (origin, I, winding, torch.full_like(length, 1.0) * ray_step,
-             ~alive)
+    state = (origin, I, winding, first_step_prev(length, ray_step), ~alive)
 
     def step(s):
         return _march_step(st, pr, s, o, origin, length, dir_m, ray_step,
@@ -537,8 +554,9 @@ def render_rays(static: SceneStatic, params, dirs, camera, ray_step,
     for st, pr in zip(static.instances, params):
         I, winding = _march_instance(st, pr, dirs_f, camera, I, winding,
                                      ray_step, min_step, dither=static.dither)
-    # final scale (rasterizer.cpp:409)
-    I = I * (const(ray_step, 0.01) / ray_step)
+    # final scale (rasterizer.cpp:409), in the march's float type
+    rs = ray_step.to(I.dtype)
+    I = I * (const(rs, 0.01) / rs)
     return I.reshape(*shape, 3)
 
 
@@ -612,8 +630,11 @@ def scene_args(scene, device, dtype=torch.float32):
     gamma, saturation) of a Scene as tensors of ``dtype`` on ``device``:
     the arguments of render_frame and of the differentiable frames. The
     values are cast from the scene's numbers to ``dtype``, as
-    ``gamer_tpu.engine.render.render_scene`` casts them; the 4x4 inverse
-    view-projection is the host's float32 one in every dtype."""
+    ``gamer_tpu.engine.render.render_scene`` casts them, but for the ray
+    step and the least step: float64 0-d tensors of the scene's own values
+    (the reference's doubles; against a ``dtype`` tensor they act as
+    ``dtype`` values); the 4x4 inverse view-projection is the host's
+    float32 one in every dtype."""
     cfg = scene.config
     np_dtype = np.float64 if dtype == torch.float64 else np.float32
     static, params = flatten_scene(scene, np_dtype)
@@ -625,9 +646,12 @@ def scene_args(scene, device, dtype=torch.float32):
         return torch.as_tensor(np.asarray(v, np_dtype), device=device,
                                dtype=dtype)
 
+    def d(v):  # the reference's double: the march's step bookkeeping
+        return torch.tensor(float(v), dtype=torch.float64, device=device)
+
     return (static, params_to_torch(params, device, dtype),
             t(scene.camera.camera),
-            t(inv_vp), t(cfg.ray_step), t(cfg.min_ray_step), t(cfg.exposure),
+            t(inv_vp), d(cfg.ray_step), d(cfg.min_ray_step), t(cfg.exposure),
             t(cfg.gamma), t(cfg.saturation))
 
 

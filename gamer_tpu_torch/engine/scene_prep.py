@@ -215,7 +215,12 @@ def from_jax_flat(static, params):
 def from_jax_pages(rows, n: int) -> np.ndarray:
     """Carry JAX scalar pages across: ``gamer_tpu``'s ``_pack_scalars`` rows
     ((B, smem_rows, 128) float32, as ``engine.batch._scene_groups`` stacks
-    them) become this package's (B, n) pages, the first ``n`` entries of
-    each (the layout contract of ``cuda_render._build_layout``)."""
+    them) become this package's (B, n) pages: the first entries of each
+    (the layout contract of ``cuda_render._build_layout``), then the steps'
+    low words, 0 (a JAX page holds its steps in float32 alone)."""
+    from .cuda_render import STEP_LO
+
     a = np.asarray(rows, np.float32)
-    return np.ascontiguousarray(a.reshape(a.shape[0], -1)[:, :n])
+    out = np.array(a.reshape(a.shape[0], -1)[:, :n])
+    out[:, n - len(STEP_LO):] = 0.0
+    return out

@@ -18,7 +18,7 @@ from __future__ import annotations
 import numpy as np
 import torch
 
-from .math3d import dot3
+from .math3d import dot3, normalize3_qt
 from .noise import device_table
 
 
@@ -103,12 +103,12 @@ def coord2ray(i, j, width: int, inv_vp):
     transformed NDC point is dropped before normalization (toVector3D)."""
     m = [float(v) for v in np.asarray(inv_vp, np.float32).reshape(-1)]
     half = float(width) * 0.5
-    xx = i / half - 1.0
-    yy = j / half - 1.0
+    # the screen point in float64, rounded once to float32
+    xx = (i.double() / half - 1.0).float()
+    yy = (j.double() / half - 1.0).float()
     w = [m[4 * r] * xx - m[4 * r + 1] * yy + m[4 * r + 2] + m[4 * r + 3]
          for r in range(3)]
-    inv_n = 1.0 / torch.sqrt(w[0] * w[0] + w[1] * w[1] + w[2] * w[2])
-    return torch.stack([w[0] * inv_n, w[1] * inv_n, w[2] * inv_n], dim=-1)
+    return normalize3_qt(torch.stack(w, dim=-1))
 
 
 def ray_grid(size: int, inv_vp, row0: float = 0.0, device="cpu",

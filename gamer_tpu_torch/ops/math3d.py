@@ -100,6 +100,49 @@ def norm3(v):
     return torch.where(nz, n, 0.0)
 
 
+def norm3_qt(v):
+    """QVector3D::length over the trailing axis of size 3: the float64 norm
+    of the components, rounded to their float type (with ``norm3``'s
+    stand-in for zero-norm lanes)."""
+    d = v.double()
+    n2 = (d[..., 0] * d[..., 0] + d[..., 1] * d[..., 1]) + d[..., 2] * d[..., 2]
+    nz = n2 > 0
+    return torch.where(nz, torch.sqrt(torch.where(nz, n2, 1.0)),
+                       0.0).to(v.dtype)
+
+
+def normalize3_qt(v):
+    """QVector3D::normalized over the trailing axis of size 3: v / length,
+    v itself where the length is within 1e-5 of 1, 0 where it is within
+    1e-5 of 0."""
+    n = norm3_qt(v)
+    null = n.abs() <= 1e-5
+    keep = null | ((n - 1.0).abs() <= 1e-5)
+    out = v / torch.where(keep, 1.0, n)[..., None]
+    return torch.where(null[..., None], 0.0, out)
+
+
+def intersect_ellipsoid_qt(origin, direction, axis):
+    """``intersect_ellipsoid`` as the reference computes it: the products in
+    the float type of the rays, the quadratic in float64 (util.h:66-98),
+    1 / axis^2 rounded from float64. (hit, isp1, isp2, t0, t1) with t0, t1
+    float64 and the points in the rays' float type."""
+    inv = (1.0 / (axis.double() * axis.double())).to(direction.dtype)
+    rd = direction * inv
+    ro = origin * inv
+    A = dot3(direction, rd).double()
+    B = 2.0 * dot3(direction, ro).double()
+    C = dot3(origin, ro).double() - 1.0
+    S = B * B - 4.0 * A * C
+    hit = S > 0.0
+    sq = torch.where(hit, torch.sqrt(torch.where(hit, S, 1.0)), 0.0)
+    t0 = (-B - sq) / (2.0 * A)
+    t1 = (-B + sq) / (2.0 * A)
+    isp1 = origin + direction * t0.to(direction.dtype)[..., None]
+    isp2 = origin + direction * t1.to(direction.dtype)[..., None]
+    return hit, isp1, isp2, t0, t1
+
+
 def normalize3(v, eps=0.0):
     """``v / |v|`` over the trailing axis of size 3; a zero vector stays
     zero. ``eps`` is unused, as in ``gamer_tpu.ops.math3d.normalize3``."""

@@ -307,7 +307,6 @@ def render_oracle(scene: Scene, return_linear: bool = False):
     size = cfg.size
     t_start = time.perf_counter()
 
-    cam32 = np.asarray(scene.camera.camera, dtype=F32)
     inv_vp = qm.inv_view_projection(
         scene.camera.camera, scene.camera.target, scene.camera.up, scene.camera.fov
     )
@@ -316,6 +315,34 @@ def render_oracle(scene: Scene, return_linear: bool = False):
     i = (idx % size).astype(F64)
     j = ((idx - idx % size) // size).astype(F64)
     dirs32 = qm.coord2ray(i, j, float(size), inv_vp)
+    I32, total_samples = _march_dirs(scene, dirs32)
+
+    img_lin = I32.reshape(size, size, 3)
+    out = post_process(img_lin, cfg.exposure, cfg.gamma, cfg.saturation)
+
+    timings = OracleTimings(
+        seconds=time.perf_counter() - t_start,
+        samples=total_samples,
+        pixels=size * size,
+    )
+    if return_linear:
+        return out, timings, img_lin
+    return out, timings
+
+
+def render_oracle_rays(scene: Scene, dirs) -> np.ndarray:
+    """The spec-exact CPU path's float32 linear radiance (N, 3) of explicit
+    ray directions (N, 3) from the scene's camera, as the reference's
+    HPXRasterizer hands renderPixel its directions (the port's ray-list
+    march, K6, takes them the same way)."""
+    return _march_dirs(scene, np.asarray(dirs, dtype=F32).reshape(-1, 3))[0]
+
+
+def _march_dirs(scene: Scene, dirs32: np.ndarray):
+    """(float32 (N, 3) radiance with the final scale, march samples) of the
+    rays dirs32 through every instance, far to near."""
+    cfg = scene.config
+    cam32 = np.asarray(scene.camera.camera, dtype=F32)
 
     # Far->near sort relative to the camera (rasterizer.cpp:190-201).
     instances = sorted(
@@ -323,7 +350,7 @@ def render_oracle(scene: Scene, return_linear: bool = False):
         key=lambda g: -float(qm.length32((np.asarray(g.position, F32) - cam32).astype(F32))),
     )
 
-    n = size * size
+    n = dirs32.shape[0]
     I32 = np.zeros((n, 3), dtype=F32)
     winding = np.zeros(n, dtype=F64)
     total_samples = 0
@@ -362,16 +389,4 @@ def render_oracle(scene: Scene, return_linear: bool = False):
         )
 
     # Final scale (rasterizer.cpp:409).
-    I32 = (I32 * F32(0.01 / cfg.ray_step)).astype(F32)
-
-    img_lin = I32.reshape(size, size, 3)
-    out = post_process(img_lin, cfg.exposure, cfg.gamma, cfg.saturation)
-
-    timings = OracleTimings(
-        seconds=time.perf_counter() - t_start,
-        samples=total_samples,
-        pixels=n,
-    )
-    if return_linear:
-        return out, timings, img_lin
-    return out, timings
+    return (I32 * F32(0.01 / cfg.ray_step)).astype(F32), total_samples

@@ -61,7 +61,12 @@ the perlin gradient check finds a differing bit, or (``--same-code``) a
 variant changed an old function's ptxas report or SASS, except the
 functions ``--changed`` matches: ``ILi1E`` the perlin instantiations
 (against a tree from before the perlin gradient table), ``ILi2E`` the iq
-ones (before the iq hash table), ``ILi[12]E`` both.
+ones (before the iq hash table), ``ILi[12]E`` both. Against a tree from
+before the march took the reference's bookkeeping (``march_instance``'s
+doubles: the step, the exit, the ray's and the chord's lengths) every
+march function changes and most radiance words differ in their last bits:
+run it without ``--same-code`` and read each case's ``bits_differ`` beside
+its times.
 """
 
 from __future__ import annotations

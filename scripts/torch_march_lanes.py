@@ -1,7 +1,8 @@
 """Lane efficiency and tail of the march kernel's work distribution, on the
 CPU, from the march's step counts.
 
-The kernel's loop exit (tacc >= length + step_prev) depends only on a ray's
+The kernel's loop exit (the sample's distance along the chord against the
+chord and the last step) depends only on a ray's
 geometry, not on its radiance, so the number of march steps of every ray
 of the 512^2 spiral still (chip_smoke.py's main scene) is replayed here with
 the plain version's float32 recurrence (cuda_render._march_instance_plain)
@@ -68,20 +69,27 @@ def step_counts(size: int) -> np.ndarray:
     t1 = (-B + sq) / (2.0 * A)
     near_t = torch.where(t1 > 0, 0.0, t1)
     alive = hit & ~((t0 > 0) & (t1 > 0))
-    fx = (cx + dx * t0) - (cx + dx * near_t)
-    fy = (cy + dy * t0) - (cy + dy * near_t)
-    fz = (cz + dz * t0) - (cz + dz * near_t)
+    o1x, o1y, o1z = cx + dx * t0, cy + dy * t0, cz + dz * t0
+    fx = o1x - (cx + dx * near_t)
+    fy = o1y - (cy + dy * near_t)
+    fz = o1z - (cz + dz * near_t)
     length = torch.sqrt(fx * fx + fy * fy + fz * fz)
-    dist0 = -t0
-    tacc = torch.zeros_like(length)
+    safe = torch.where(length == 0, 1.0, length)
+    mdx, mdy, mdz = fx / safe, fy / safe, fz / safe
+    px, py, pz = o1x, o1y, o1z
     steppr = torch.full_like(length, ray_step)
     steps = torch.zeros(length.shape, dtype=torch.int64)
     while True:
-        alive = alive & ~(tacc >= length + steppr)
+        along = ((px - o1x) * -mdx + (py - o1y) * -mdy) + (pz - o1z) * -mdz
+        alive = alive & ~(along >= length + steppr)
         if not bool(alive.any()):
             break
-        step = qt_clamp((dist0 - tacc) * ray_step, min_step, 0.01)
-        tacc = torch.where(alive, tacc + step, tacc)
+        ex, ey, ez = px - cx, py - cy, pz - cz
+        step = qt_clamp(torch.sqrt((ex * ex + ey * ey) + ez * ez) * ray_step,
+                        min_step, 0.01)
+        px = torch.where(alive, px - mdx * step, px)
+        py = torch.where(alive, py - mdy * step, py)
+        pz = torch.where(alive, pz - mdz * step, pz)
         steppr = torch.where(alive, step, steppr)
         steps += alive
     return steps.reshape(size, size).numpy()

@@ -5,7 +5,7 @@ the JAX package's Pallas ray-list kernel (interpreted) and XLA ray march.
 
 The camera sits inside the galaxy's ellipsoid, as the all-sky benchmark's
 does, so every ray hits and marches from the far side to the camera: the
-near end of the march (``tacc`` against ``dist0``) is exercised here and by
+near end of the march (the exit test by the camera) is exercised here and by
 no frame test. Tolerances: the map gate of tests/test_pallas.py
 (max |d| / max |m| < 1e-3, map not empty); <= 2 uint8 LSB for the
 Mollweide image; the JAX reference for each ray count is built once.

@@ -159,15 +159,22 @@ def test_starred_batch_matches_starred_single():
 
 def test_pages_equal_jax_scene_groups():
     """The page contract: the JAX ``_scene_groups`` rows, cut to the port's
-    page length, are the port's pages, and the port's batched plain march
-    gives the same radiance from either."""
+    page length, are the port's pages but for the steps' low words (the
+    last entries: 0 from JAX, whose steps are float32; the port's carry the
+    scenes' double steps), and the port's batched plain march gives the
+    same radiance from either."""
     scenes = _crossing_orbit(4, ray_step=0.1)
     ours = tbatch._scene_groups(scenes)
     ref = jbatch._scene_groups(scenes)
     assert len(ours) == len(ref) > 1
+    k = len(cr.STEP_LO)
     for (_, pages, _), (_, rows, _) in zip(ours, ref):
-        np.testing.assert_array_equal(from_jax_pages(rows, pages.shape[1]),
-                                      pages)
+        carried = from_jax_pages(rows, pages.shape[1])
+        np.testing.assert_array_equal(carried[:, :-k], pages[:, :-k])
+        assert not carried[:, -k:].any()
+        np.testing.assert_array_equal(
+            pages[:, -k:], [[cr._low_word(0.1), cr._low_word(0.001)]]
+            * len(pages))
     # the JAX rows through the port's batched plain march
     st, pages, _ = ours[0]
     table = torch.as_tensor(cr._build_table(st, cr._build_layout(st)))

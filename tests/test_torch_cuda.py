@@ -875,3 +875,33 @@ def test_fit_scene_tensor_step_on_the_card_matches_cpu(cuda):
     np.testing.assert_allclose(card.losses, cpu.losses, rtol=1e-3, atol=0)
     for a, b in zip(card.params[0]["comps"], cpu.params[0]["comps"]):
         np.testing.assert_allclose(a["strength"], b["strength"], rtol=1e-3)
+
+
+@pytest.mark.parametrize("preset", ["spiral", "barred_spiral", "elliptical",
+                                    "irregular", "dusty_disk", "ring",
+                                    "flocculent"])
+def test_kernel_meets_the_oracle_gate_at_512(cuda, preset):
+    """The kernel's 512^2 frame of each preset against the spec oracle's
+    stored frame (gamer_tpu_torch/golden.py): <= 3 LSB, < 5 % of pixels."""
+    from gamer_tpu_torch.golden import (diff_record, load_oracle_frame,
+                                        oracle_gate, oracle_scene)
+
+    gold = load_oracle_frame(preset)["image"]
+    ours = gt.render_scene(oracle_scene(preset, gold.shape[0]),
+                           device="cuda")
+    rec = diff_record(gold, ours)
+    assert oracle_gate(rec), rec
+
+
+def test_progressive_frame_at_4096_is_the_still(cuda):
+    """render_progressive at 4096^2 (one launch, 16 bands of 256 rows):
+    bit-equal to render_scene, its ticks in order."""
+    scene = _scene(presets.spiral(), 4096)
+    ticks = []
+    before = cr.march_progressive.launch_count
+    prog = gt.render_progressive(scene, bands=16, device="cuda",
+                                 on_progress=lambda f, _: ticks.append(f))
+    assert cr.march_progressive.launch_count == before + 1
+    assert ticks == [(b + 1) / 16 for b in range(16)]
+    np.testing.assert_array_equal(prog, gt.render_scene(scene,
+                                                        device="cuda"))

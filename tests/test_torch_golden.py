@@ -23,8 +23,8 @@ sys.path.insert(0, str(REPO))
 
 from gamer_tpu_torch.golden import (  # noqa: E402
     ORACLE_GOLDEN,
-    golden_scene,
     load_oracle_golden,
+    oracle_scene,
 )
 
 
@@ -47,8 +47,8 @@ def _oracle():
 
     from gamer_tpu_torch.scene.schema import scene_to_dict as t_scene_to_dict
 
-    scene = gamer_tpu.scene_from_dict(t_scene_to_dict(golden_scene()))
-    assert scene_to_dict(scene) == t_scene_to_dict(golden_scene())
+    scene = gamer_tpu.scene_from_dict(t_scene_to_dict(oracle_scene("spiral", 48)))
+    assert scene_to_dict(scene) == t_scene_to_dict(oracle_scene("spiral", 48))
     img, tim = render_oracle(scene)
     return img, tim.samples, tim.pixels
 
@@ -76,7 +76,7 @@ def test_plain_march_meets_the_oracle_gate_on_the_golden():
     import gamer_tpu_torch as gt
 
     gold = load_oracle_golden()["image"]
-    ours = gt.render_scene(golden_scene(), device="cpu")
+    ours = gt.render_scene(oracle_scene("spiral", 48), device="cpu")
     d = np.abs(ours.astype(np.int16) - gold.astype(np.int16))
     assert int(d.max()) <= 3
     assert float((d.max(-1) > 0).mean()) < 0.05

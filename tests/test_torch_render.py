@@ -59,7 +59,7 @@ def test_matches_pallas_interpret_spiral():
 
 
 # dusty_disk at 20^2: at 16^2 the TPU kernel itself (interpreted) is 3 LSB
-# from the XLA march on one pixel, and the port equals the kernel there
+# from the XLA march on one pixel
 @pytest.mark.parametrize("name,size", [("spiral", 16), ("dusty_disk", 20),
                                        ("flocculent", 16), ("ring", 24)])
 def test_matches_xla_engine(name, size):

@@ -100,8 +100,9 @@ def test_from_jax_flat_roundtrips(case):
 
 @pytest.mark.parametrize("case", sorted(CASES))
 def test_page_matches_pallas_pack(case):
-    """The page is the TPU page's first lay.n entries: bit-exact, except
-    the ridged spectral weights (numpy pow here, XLA pow there) within 1 ulp."""
+    """The page is the TPU page's first entries, then the low words of
+    the steps (0 for float32 steps): bit-exact, except the ridged spectral
+    weights (numpy pow here, XLA pow there) within 1 ulp."""
     scene = CASES[case]()
     sj, pj = jsp.flatten_scene(scene)
     st, pr = tsp.from_jax_flat(sj, pj)
@@ -110,14 +111,18 @@ def test_page_matches_pallas_pack(case):
                                            scene.camera.up, scene.camera.fov)
     lay_j = jpr._build_layout(sj)
     lay = cr._build_layout(st)
-    assert lay.names == lay_j.names and lay.offsets == lay_j.offsets
-    assert lay.n == lay_j.n
+    n_j = lay_j.n
+    assert lay.names == lay_j.names + list(cr.STEP_LO)
+    assert {k: lay.offsets[k] for k in lay_j.names} == lay_j.offsets
+    assert lay.n == n_j + len(cr.STEP_LO)
     args = (cam, inv_vp, np.float32(0.025), np.float32(0.001))
-    ref = np.asarray(jpr._pack_scalars(sj, lay_j, pj, *args)).reshape(-1)[:lay.n]
+    ref = np.asarray(jpr._pack_scalars(sj, lay_j, pj, *args)).reshape(-1)[:n_j]
     page = cr._pack_scalars(st, lay, pr, *args)
     assert page.dtype == np.float32 and page.shape == (lay.n,)
-    ridged = np.zeros(lay.n, bool)
-    for name in lay.names:
+    assert page[n_j:].tolist() == [0.0] * len(cr.STEP_LO)
+    page = page[:n_j]
+    ridged = np.zeros(n_j, bool)
+    for name in lay_j.names:
         if name.endswith("ridged_w"):
             o = lay.offsets[name]
             ridged[o:o + lay.sizes[name]] = True

@@ -7,7 +7,8 @@ would render (the renders are recorded, not run, during the script), the
 page and the status codes and messages of bad requests.
 
 Then the port's images on the CPU: ``/render`` within 2 uint8 LSB of the
-JAX viewer's (the Pallas kernel, interpreted) at 12x12, and the port's
+JAX viewer's (the Pallas kernel, interpreted) at 12x12 on the on-axis view
+and of the spec oracle on an orbit view, and the port's
 ``/render``, streamed ``/fullrender`` and ``/skybox`` bit-equal to its own
 ``render_scene``, ``render_progressive`` and ``render_batch``; and the CLI
 ``viewer`` answers ``/`` in a subprocess.
@@ -30,6 +31,7 @@ import pytest
 
 torch = pytest.importorskip("torch")
 
+import gamer_tpu  # noqa: E402
 from gamer_tpu import viewer as jviewer  # noqa: E402
 from gamer_tpu.engine import batch as jbatch  # noqa: E402
 from gamer_tpu.engine import pallas_render as jpallas  # noqa: E402
@@ -279,21 +281,38 @@ def test_bad_requests_answer_alike(servers, recorders):
 
 def test_render_is_within_2_lsb_of_jax_and_the_port_frame(servers):
     """The preview route at 12x12: within 2 LSB of the JAX viewer's
-    (interpreted Pallas) and bit-equal to the port's render_scene of the
-    viewer's own scene."""
+    (interpreted Pallas) on the viewer's on-axis view, within 2 LSB of the
+    spec oracle on an orbit view at full octaves, and bit-equal to the
+    port's render_scene of the viewer's own scene in both. The JAX marches
+    drift from the oracle at the galaxy's centre ray of orbit views
+    (ROADMAP.md section 3): at h=30, v=10 the JAX kernel is 4 LSB from the
+    oracle on the centre pixel, the port 1, so the orbit view is held to
+    the oracle and the JAX comparison uses the on-axis view, as the other
+    JAX comparisons do."""
+    from gamer_tpu.oracle.reference import render_oracle
+
     (_, _, jbase), (httpd, _, tbase) = servers
-    path = "/render?galaxy=spiral&h=30&v=10&lod=4"
-    ref = decode_png(_get(jbase, path)[1])  # the JAX viewer's PIL PNG
-    status, body = _get(tbase, path)
-    assert status == 200 and body[:4] == b"\x89PNG"
-    ours = decode_png(body)
-    assert ours.shape == (SIZE, SIZE, 3) and int(ours.sum()) > 0
-    d = np.abs(ours.astype(np.int16) - ref.astype(np.int16)).max()
-    assert d <= LSB, d
     state = httpd.state
-    scene = state._scene("spiral", 30.0, 10.0, 0.0, SIZE, preview=True, lod=4)
-    np.testing.assert_array_equal(ours,
-                                  tcr.render_scene(scene, device="cpu"))
+    for path, view, ref in (
+            ("/render?galaxy=spiral&h=0&v=0&lod=4", (0.0, 0.0, 4), None),
+            ("/render?galaxy=spiral&h=30&v=10&lod=0", (30.0, 10.0, 0),
+             "oracle")):
+        h, v, lod = view
+        scene = state._scene("spiral", h, v, 0.0, SIZE, preview=True,
+                             lod=lod)
+        if ref is None:
+            ref = decode_png(_get(jbase, path)[1])  # the JAX viewer's PNG
+        else:
+            ref, _ = render_oracle(
+                gamer_tpu.scene_from_dict(scene_to_dict(scene)))
+        status, body = _get(tbase, path)
+        assert status == 200 and body[:4] == b"\x89PNG"
+        ours = decode_png(body)
+        assert ours.shape == (SIZE, SIZE, 3) and int(ours.sum()) > 0
+        d = np.abs(ours.astype(np.int16) - ref.astype(np.int16)).max()
+        assert d <= LSB, (path, d)
+        np.testing.assert_array_equal(ours,
+                                      tcr.render_scene(scene, device="cpu"))
 
 
 def _parts(body: bytes):
