@@ -23,7 +23,7 @@ kernel and host prep times, march Msamples/s), the 4096x4096 progressive
 frame bit-equal to the still and its middle rows against the plain version.
 Then the fit path: ``fit_scene_fd`` at 128x128 (each step's probe set is one
 ``march_batch`` launch, held to the plain version), ``fit_scene`` on the
-tensor and frozen marches at 128x128 and the scan march at 32x32 (step times
+tensor and frozen marches at 128x128 and the scan march at 12x12 (step times
 and CUDA launches per step), each march's losses against the CPU's at 12x12,
 and the CLI ``fit ... march=fd`` on a PNG target. Then the fit families:
 ``fit_pose_fd`` at 128x128 (each step's 7 probe frames one ``march_batch``
@@ -53,7 +53,10 @@ request latencies), ``dryrun_multichip`` on 4 entries of the card,
 ``entry()``'s frame step against the kernel's frame, ``profile_trace``
 around the 512x512 still (in this process, where a lost kernel record must
 be reported, and in a fresh one: the trace's kernel time beside CUDA events)
-and ``RenderStats``.
+and ``RenderStats``. The CPU references (the plain versions and fits on the
+CPU that the card is held to) run from the start in three worker processes,
+each with one torch thread, while the card works; ``elapsed:`` lines give
+the host time at each phase.
 
     python3 chip_smoke.py
     python3 chip_smoke.py --fit-only   # the build report, the fit paths,
@@ -72,6 +75,7 @@ Any failed phase raises and the script exits non-zero without that line.
 
 from __future__ import annotations
 
+import atexit
 import contextlib
 import dataclasses
 import json
@@ -154,10 +158,9 @@ SERVE_SIZE = 256
 SERVE_WAIT_S = 120.0
 # the fit path: fit_scene_fd's probes (K4), the autograd marches, CLI fit
 FIT_SIZE = 128
-# five steps: step 0 holds the fit's setup and step 1 is traced, so a step
-# time is the median of the 3 steps after them
-FIT_STEPS = 5
-SCAN_SIZE = 32
+# three steps: step 0 holds the fit's setup and step 1 is traced, so a
+# step time is step 2's (more steps do not fit in the script's time)
+FIT_STEPS = 3
 CHECK_SIZE = 12
 # the kernel's probe losses against the plain version's, and the card's
 # losses against the CPU's at CHECK_SIZE (relative)
@@ -184,6 +187,15 @@ ABORT_SIZE = 1024
 
 def log(msg: str) -> None:
     print(msg, flush=True)
+
+
+T_START = time.perf_counter()
+
+
+def stamp(what: str) -> None:
+    """Log the host time since the script started, after ``what``."""
+    log(f"elapsed: {time.perf_counter() - T_START:.1f} s (host clock) at "
+        f"{what}")
 
 
 def card_line() -> str:
@@ -497,6 +509,260 @@ def log_abort(ab: dict, size: int, band_rows: int, n_bands: int,
         f"{ab['start_ms']:.3f}-{ab['end_ms']:.3f} ms")
 
 
+# --- the CPU references, in worker processes --------------------------------
+# The plain runs and fits on the CPU that the card's results are held to
+# take minutes of host time. They start in worker processes right after
+# the build, from the inputs the checks use, and run while the card works;
+# each check takes its result by key. Each worker runs one torch thread:
+# several workers with a thread per core each would spin against each
+# other and the main process. Every tensor of these runs is below torch's
+# grain for splitting an op across threads (32,768 elements), so each
+# result is the one the main process would compute with all its threads.
+CPU_WORKERS = 3
+
+
+def _one_thread() -> None:
+    torch.set_num_threads(1)
+
+
+class CpuRefs:
+    """Keyed CPU reference runs on a pool of spawned worker processes."""
+
+    def __init__(self, workers: int = CPU_WORKERS):
+        import multiprocessing
+
+        self._pool = multiprocessing.get_context("spawn").Pool(
+            workers, initializer=_one_thread)
+        self._jobs = {}
+
+    def submit(self, key, fn, *args, **kw) -> None:
+        self._jobs[key] = self._pool.apply_async(fn, args, kw)
+
+    def get(self, key):
+        return self._jobs.pop(key).get()
+
+    def close(self) -> None:
+        self._pool.terminate()
+        self._pool.join()
+
+
+def plain64_cases() -> dict:
+    """The 64^2 scenes the frame kernel is held to its plain version on."""
+    from gamer_tpu_torch.models import presets
+
+    return {
+        "spiral": spiral_scene(64),
+        "dusty_disk": spiral_scene(64, presets.dusty_disk()),
+        "flocculent": spiral_scene(64, presets.flocculent()),
+        "ring": spiral_scene(64, presets.ring()),
+        "two_instance": two_instance_scene(64),
+    }
+
+
+def statistical_scenes():
+    """(name, scene) of the 64^2 frames whose pixels a hash drives."""
+    from gamer_tpu_torch.models import presets
+    from gamer_tpu_torch.scene.schema import ComponentParams
+
+    sg = presets.spiral()
+    sg.components.append(ComponentParams(
+        class_name="stars small", spectrum="White", name="sparkle",
+        strength=400.0, r0=0.5, z0=0.05, arm=0.1, winding=1.0, scale=40.0,
+        noise_tilt=1.0))
+    return (("dither", spiral_scene(64, dither=True)),
+            ("stars_small", spiral_scene(64, sg, deterministic=False)))
+
+
+def small_orbit_groups(small):
+    """The structure groups of ``small``'s 3-camera orbit."""
+    from gamer_tpu_torch.engine.batch import _scene_groups
+    from gamer_tpu_torch.scene.cameracontrols import orbit_path
+
+    return _scene_groups([dataclasses.replace(small, camera=c) for c in
+                          orbit_path(small.camera, 3, horizontal_deg=90.0)])
+
+
+def sky_dirs32() -> np.ndarray:
+    """The nside-32 HEALPix directions and a zero direction."""
+    from gamer_tpu_torch.engine.allsky import allsky_dirs
+
+    return np.concatenate([allsky_dirs(32), np.zeros((1, 3), np.float32)])
+
+
+def kind_cases(kind: str) -> list:
+    """The 64^2 scenes of a noise kind held to its plain version; for iq
+    also the one whose hash arguments pass the table."""
+    return [spiral_scene(64, noise_kind=kind)] + (
+        [iq_far_scene(64)] if kind == "iq" else [])
+
+
+def s2_cpu_meshes() -> dict:
+    """S2's CPU meshes by entry count: the batch axis, and batch x rows."""
+    from gamer_tpu_torch.parallel import Mesh
+
+    return {2: Mesh(["cpu"] * 2, ("batch",)),
+            4: Mesh(["cpu"] * 4, ("batch", "rows"), (2, 2))}
+
+
+_FIT_CHECK: dict = {}
+
+
+def fit_check_inputs(dev) -> dict:
+    """The 12^2 scenes of the fits' checks against the CPU and their
+    targets, rendered on the card once."""
+    if _FIT_CHECK:
+        return _FIT_CHECK
+    import gamer_tpu_torch as gt
+    from gamer_tpu_torch.scene.cameracontrols import orbit_path
+
+    def render(scene):
+        return gt.render_scene(scene, device=dev)
+
+    def views(scene, cams):
+        return np.stack([render(dataclasses.replace(scene, camera=c))
+                         for c in cams])
+
+    small = spiral_scene(CHECK_SIZE, is_preview=True)
+    truth = spiral_scene(CHECK_SIZE, is_preview=True, noise_octaves=2)
+    weak = scaled(truth, "strength", 1.5)
+    family_cams = [truth.camera, dataclasses.replace(truth.camera,
+                                                     camera=(0.0, 0.0, 0.5))]
+    mesh_cams = orbit_path(truth.camera, 2, 120.0)
+    _FIT_CHECK.update(
+        small=small, small_target=render(small), truth=truth,
+        target=render(truth), weak=weak,
+        moved=dataclasses.replace(truth, camera=dataclasses.replace(
+            truth.camera, camera=POSE_START)),
+        family_cams=family_cams, family_views=views(truth, family_cams),
+        family_btargets=np.stack([render(scaled(truth, "strength", f))
+                                  for f in (0.8, 1.2)]),
+        mesh_cams=mesh_cams, mesh_views=views(truth, mesh_cams),
+        mesh_btargets=np.stack([render(scaled(truth, "strength", f))
+                                for f in (0.7, 0.9, 1.1, 1.3)]))
+    return _FIT_CHECK
+
+
+def fit_check_runs(f: dict) -> dict:
+    """The fits held to the CPU at 12^2: {key: (fit function name, args,
+    keyword arguments)}, each run with ``device=`` (or, under ("mesh",
+    name, n), ``mesh=`` n entries and an SGDProbe)."""
+    strong = scaled(f["small"], "strength", 1.5)
+    wind = scaled(f["small"], "winding_b", 1.15, gp=True)
+    weak, moved = f["weak"], f["moved"]
+    runs = {("fit", m): ("fit_scene", (strong, f["small_target"]),
+                         dict(steps=1 if m == "scan" else 2, march=m))
+            for m in ("tensor", "frozen", "scan")}
+    runs[("fit", "fd")] = ("fit_scene_fd", (wind, f["small_target"]),
+                           dict(steps=2))
+    runs.update({
+        ("family", "fit_pose"): ("fit_pose", (moved, f["target"],
+                                              ("camera",)),
+                                 dict(steps=2, lr=1e-2)),
+        # one step: a step is 7 frames of the plain march on the CPU
+        ("family", "fit_pose_fd"): ("fit_pose_fd", (moved, f["target"]),
+                                    dict(steps=1)),
+        ("family", "fit_scene_batch"): (
+            "fit_scene_batch", ([weak, scaled(weak, "strength", 0.8)],
+                                f["family_btargets"], ("strength",)),
+            dict(steps=2, lr=5e-2)),
+        ("family", "fit_scene_multiview"): (
+            "fit_scene_multiview", (weak, f["family_views"],
+                                    f["family_cams"], ("strength",)),
+            dict(steps=2, lr=5e-2, march="frozen")),
+        # plain SGD, whose step is proportional to the gradient, and each
+        # step's summed gradient kept: Adam's lr x sign(m) steps would
+        # hide a gradient part that the mesh drops, doubles or scales by
+        # 1/n
+        ("mesh", "fit_scene", 4): ("fit_scene", (weak, f["target"],
+                                                 ("strength",)),
+                                   dict(steps=1, lr=5e-2)),
+        ("mesh", "fit_pose", 4): ("fit_pose", (moved, f["target"],
+                                               ("camera",)),
+                                  dict(steps=1, lr=1e-3)),
+        ("mesh", "fit_scene_batch", 4): (
+            "fit_scene_batch", (weak, f["mesh_btargets"], ("strength",)),
+            dict(steps=1, lr=5e-2, march="frozen")),
+        ("mesh", "fit_scene_multiview", 2): (
+            "fit_scene_multiview", (weak, f["mesh_views"], f["mesh_cams"],
+                                    ("strength",)),
+            dict(steps=1, lr=5e-2, march="frozen")),
+    })
+    return runs
+
+
+def run_fit(key, name, args, kw, device="cpu", entries=None):
+    """One of ``fit_check_runs`` on ``device``: its losses and, for a mesh
+    run, the SGDProbe's gradients (on ``entries`` entries of the device,
+    the key's count by default)."""
+    from gamer_tpu_torch.engine import fit as tfit
+    from gamer_tpu_torch.parallel import Mesh
+
+    kw = dict(kw)
+    probe = None
+    if key[0] == "mesh":
+        probe = kw["optimizer"] = SGDProbe(5e-2)
+        kw["mesh"] = Mesh([device] * (entries or key[2]))
+    else:
+        kw["device"] = device
+    res = getattr(tfit, name)(*args, **kw)
+    return res.losses, (probe.grads if probe is not None else None)
+
+
+def plain_census(page, table, size):
+    """march_plain with the iq census of its hash arguments."""
+    from gamer_tpu_torch.engine import cuda_render as cr
+    from gamer_tpu_torch.ops import noise as tnoise
+
+    with tnoise.iq_census() as census:
+        lin = cr.march_plain(page, table, size)
+    return lin, census
+
+
+def submit_cpu_refs(refs: CpuRefs, dev) -> None:
+    """Start every CPU reference run of the phases, in the order the
+    phases read them."""
+    import gamer_tpu_torch as gt
+    from gamer_tpu_torch.engine import cuda_render as cr
+    from gamer_tpu_torch.parallel import Mesh
+
+    for name, scene in plain64_cases().items():
+        page, table, size, _ = cr.prepare(scene, "cpu")
+        refs.submit(("plain64", name), cr.march_plain, page, table, size)
+    for name, scene in statistical_scenes():
+        refs.submit(("stat", name), gt.render_scene, scene, device="cpu")
+    small = spiral_scene(64)
+    page_s, table_s, size_s, _ = cr.prepare(small, "cpu")
+    for row0 in (0, 32):
+        refs.submit(("band64", row0), cr.march_band_plain, page_s, table_s,
+                    size_s, 32, row0)
+    ((st, pages_s, _),) = small_orbit_groups(small)
+    tab_s = torch.as_tensor(cr._build_table(st, cr._build_layout(st)))
+    refs.submit("batch64", cr.march_batch_plain, torch.as_tensor(pages_s),
+                tab_s, 64)
+    rows_s, n_s = cr.band_geometry(size_s, 1, BANDS)
+    refs.submit("progressive64", cr.march_progressive_plain, page_s,
+                table_s, size_s, rows_s, n_s)
+    sky = allsky_scene()
+    page_y, table_y, _, _ = cr.prepare(sky, "cpu")
+    d32 = torch.as_tensor(sky_dirs32())
+    refs.submit("rays32", cr.march_rays_plain, page_y, table_y, d32)
+    refs.submit("map32", gt.render_allsky_map, sky, 32, device="cpu")
+    for kind in ("perlin", "iq"):
+        for i, scene in enumerate(kind_cases(kind)):
+            pg, tb, sz, _ = cr.prepare(scene, "cpu")
+            refs.submit(("kind", kind, i), plain_census, pg, tb, sz)
+    refs.submit("rowshard64", cr.march_rowshard_plain, page_s, table_s,
+                size_s, Mesh(["cpu"] * 2))
+    for n, mesh in s2_cpu_meshes().items():
+        refs.submit(("s2", n), cr.march_batch_rowshard_plain,
+                    torch.as_tensor(pages_s[:2]), tab_s, 64, mesh)
+    refs.submit("s3_32", cr.march_rays_rowshard_plain, page_y, table_y,
+                d32, Mesh(["cpu"] * 3))
+    for key, (name, args, kw) in fit_check_runs(
+            fit_check_inputs(dev)).items():
+        refs.submit(key, run_fit, key, name, args, kw)
+
+
 def oracle_512_phase() -> float:
     """Each preset's 512^2 kernel frame (``render_scene``, K1) against the
     spec oracle's frame stored in the port (gamer_tpu_torch/golden.py;
@@ -652,7 +918,7 @@ def report_build() -> None:
             log(f"ptxas: {line.strip()}")
     threads = lib.gamer_march_block_threads()
     forms = ((0, "march_kernel"), (1, "march_rays_kernel"),
-             (2, "march_progressive_kernel"))
+             (2, "march_progressive_kernel"), (3, "march_dealt_kernel"))
     with torch.cuda.device(0):
         for k, kind in enumerate(NOISE_KINDS):
             for form, name in forms:
@@ -768,7 +1034,7 @@ def fmt_ms(ms, keep=None):
             f"{len(vals)} untraced steps)") if vals else "not measured"
 
 
-def fit_phases(card: str, dev, keep: dict):
+def fit_phases(card: str, dev, keep: dict, refs: CpuRefs):
     """The fit path on the card; returns the fields of its kernel record
     (march_batch launched by fit_scene_fd's probes). The tensor and frozen
     fits' inputs, results and readings go into ``keep`` for the sharded
@@ -828,10 +1094,13 @@ def fit_phases(card: str, dev, keep: dict):
     ((static, pages, _),) = tbatch._scene_groups(seen[0])
     tab = cr.upload_table(cr._build_table(static, cr._build_layout(static)),
                           dev)
-    pages_d = torch.as_tensor(pages, device=dev)
+    all_pages = torch.as_tensor(pages, device=dev)
+    all_k_ms, _ = cuda_ms(lambda: cr.march_batch(all_pages, tab, FIT_SIZE), 5)
+    # its first frames (the start and winding_b +- eps) against one plain
+    # run (~9 s a frame on the card) that also counts its work
+    pages_d = all_pages[:PROBE_CHECK_FRAMES]
     probe_k_ms, lin_k = cuda_ms(lambda: cr.march_batch(pages_d, tab,
                                                        FIT_SIZE), 5)
-    # one plain run (~9 s a frame on the card) that also counts its work
     probe_stats = {}
     torch.cuda.synchronize()
     t = time.perf_counter()
@@ -849,34 +1118,45 @@ def fit_phases(card: str, dev, keep: dict):
     log(f"fit_scene_fd spiral {FIT_SIZE}^2 (winding_b x1.15, fields "
         f"winding_b,winding_n, {FIT_STEPS} steps): {fd_launches} march_batch "
         f"launches of {pages.shape[0]} frames, 0 plain calls; losses "
-        f"{[f'{x:.6g}' for x in fd.losses]}; first probe losses kernel vs "
+        f"{[f'{x:.6g}' for x in fd.losses]}; first probe set's frames "
+        f"0-{PROBE_CHECK_FRAMES - 1} losses kernel vs "
         f"plain on cuda max rel {rel:.3g} (limit {FIT_PROBE_RTOL:g}), linear "
         f"max_abs_err {probe_err:.3g}")
     log(f"timing [{card}] fit_scene_fd step at {FIT_SIZE}^2: {fmt_ms(fd_ms)}"
         f", {fd_n.get((0, 1))} CUDA launches per step (traced); probe "
-        f"launch ({pages.shape[0]} frames) kernel {probe_k_ms:.3f} ms, plain "
+        f"launch ({pages.shape[0]} frames) kernel {all_k_ms:.3f} ms; its "
+        f"first {PROBE_CHECK_FRAMES} frames kernel {probe_k_ms:.3f} ms, plain "
         f"on cuda {probe_plain_ms:.1f} ms (counting its work), bound "
         f"{probe_bound[0]:.4f} ms by {probe_bound[1]} ({probe_bound[2]})")
 
     # --- the autograd marches ----------------------------------------------
+    # the scan march is timed on the card's run of its check against the
+    # CPU below (the 12^2 preview scene, ~245 trips): a step of its own at
+    # 32^2 (~457 trips, over a minute) does not fit in the script's time
+    checks = fit_check_runs(fit_check_inputs(dev))
+    card_losses = {}
     for march, size in (("tensor", FIT_SIZE), ("frozen", FIT_SIZE),
-                        ("scan", SCAN_SIZE)):
-        scene = spiral_scene(size)
-        tgt_img = gt.render_scene(scene, device=dev)
-        start = scaled(scene, "strength", 1.5)
+                        ("scan", CHECK_SIZE)):
+        if march == "scan":
+            _, (start, tgt_img), scan_kw = checks[("fit", "scan")]
+        else:
+            scene = spiral_scene(size)
+            tgt_img = gt.render_scene(scene, device=dev)
+            start = scaled(scene, "strength", 1.5)
 
         def run(cb, steps=FIT_STEPS, march=march, **kw):
             return tfit.fit_scene(start, tgt_img, steps=steps, march=march,
                                   device=dev, on_step=cb, **kw)
 
         if march == "scan":
-            # one step of ~40 s, its setup included; every trip issues the
-            # same ops: launches = a + b * trips, from two short trip counts
+            # one step, its setup included; every trip issues the same
+            # ops: launches = a + b * trips, from two short trip counts
             t0 = time.perf_counter()
-            res, _, _, peak = traced_fit(lambda cb: run(cb, steps=1),
-                                         windows=())
+            res, _, _, peak = traced_fit(
+                lambda cb: run(cb, steps=scan_kw["steps"]), windows=())
             ms = f"{(time.perf_counter() - t0) * 1e3:.3f} ms (host clock, " \
                  f"1 step with the fit's setup)"
+            card_losses[("fit", "scan")] = res.losses
             n = [traced_fit(lambda cb, m=m: run(cb, steps=2, max_steps=m))[2]
                  .get((0, 1)) for m in (8, 16)]
             trips = tfit.step_bound_for_scene(start)
@@ -891,25 +1171,21 @@ def fit_phases(card: str, dev, keep: dict):
                 ms=step_times, launches=per_step, peak=peak)
         check(all(np.isfinite(res.losses)) and res.losses[-1] < res.losses[0],
               f"fit_scene march={march}: losses {res.losses}")
-        log(f"timing [{card}] fit_scene march={march} step at {size}^2: "
+        log(f"timing [{card}] fit_scene march={march} step at {size}^2"
+            f"{' (preview)' * (march == 'scan')}: "
             f"{ms}, {per_step} CUDA launches per "
             f"step ({how}), peak {peak:.2f} GiB; losses "
             f"{[f'{x:.6g}' for x in res.losses]}")
 
-    # the card's loss trajectories against the CPU's at a small size
-    small = spiral_scene(CHECK_SIZE, is_preview=True)
-    small_tgt = gt.render_scene(small, device=dev)
-    for march in ("tensor", "frozen", "scan", "fd"):
-        steps = 1 if march == "scan" else 2
-        if march == "fd":
-            st = scaled(small, "winding_b", 1.15, gp=True)
-            runs = [tfit.fit_scene_fd(st, small_tgt, steps=steps, device=d)
-                    for d in (dev, "cpu")]
-        else:
-            st = scaled(small, "strength", 1.5)
-            runs = [tfit.fit_scene(st, small_tgt, steps=steps, march=march,
-                                   device=d) for d in (dev, "cpu")]
-        a, b = (np.asarray(r.losses) for r in runs)
+    # the card's loss trajectories against the CPU's at a small size (the
+    # CPU's from the workers)
+    for key, (name, args, kw) in checks.items():
+        if key[0] != "fit":
+            continue
+        march, steps = key[1], kw["steps"]
+        a = np.asarray(card_losses[key] if key in card_losses
+                       else run_fit(key, name, args, kw, device=dev)[0])
+        b = np.asarray(refs.get(key)[0])
         rel = float(np.max(np.abs(a - b) / np.abs(b)))
         same_way = bool(np.all(np.sign(np.diff(a)) == np.sign(np.diff(b))))
         log(f"fit march={march} {CHECK_SIZE}^2, {steps} step(s): card losses "
@@ -953,7 +1229,7 @@ PROBE_CHECK_FRAMES = 3
 MVIEW_K = 3
 
 
-def fit_family_phases(card: str, dev, keep: dict):
+def fit_family_phases(card: str, dev, keep: dict, refs: CpuRefs):
     """The pose, batch, multi-view and joint fits on the card; returns the
     fields of the march_batch[fit_pose_fd] kernel record. The fit_pose,
     frozen batch and fit_joint runs go into ``keep`` for the sharded
@@ -1191,33 +1467,16 @@ def fit_family_phases(card: str, dev, keep: dict):
         f"{jmv_n.get((2 * P, 2 * P + 1))} (traced), {jmv_launches} "
         f"march_batch launches, peak {jmv_peak:.2f} GiB")
 
-    # --- the card's trajectories against the CPU's at 12^2 ------------------
-    c_truth = spiral_scene(CHECK_SIZE, is_preview=True, noise_octaves=2)
-    c_target = gt.render_scene(c_truth, device=dev)
-    c_cams = [c_truth.camera, dataclasses.replace(c_truth.camera,
-                                                  camera=(0.0, 0.0, 0.5))]
-    c_views = np.stack([gt.render_scene(dataclasses.replace(c_truth,
-                                                            camera=c),
-                                        device=dev) for c in c_cams])
-    c_btargets = np.stack([gt.render_scene(scaled(c_truth, "strength", f),
-                                           device=dev) for f in (0.8, 1.2)])
-    c_weak = scaled(c_truth, "strength", 1.5)
-    runs = {
-        "fit_pose": lambda d: tfit.fit_pose(
-            moved(c_truth), c_target, ("camera",), steps=2, lr=1e-2,
-            device=d).losses,
-        # one step: a step is 7 frames of the plain march on the CPU
-        "fit_pose_fd": lambda d: tfit.fit_pose_fd(
-            moved(c_truth), c_target, steps=1, device=d).losses,
-        "fit_scene_batch": lambda d: tfit.fit_scene_batch(
-            [c_weak, scaled(c_weak, "strength", 0.8)], c_btargets,
-            ("strength",), steps=2, lr=5e-2, device=d).losses,
-        "fit_scene_multiview": lambda d: tfit.fit_scene_multiview(
-            c_weak, c_views, c_cams, ("strength",), steps=2, lr=5e-2,
-            march="frozen", device=d).losses,
-    }
-    for name, run in runs.items():
-        a, b = (np.asarray(run(d), np.float64) for d in (dev, "cpu"))
+    # --- the card's trajectories against the CPU's at 12^2 (the CPU's from
+    # the workers) ---------------------------------------------------------
+    fc = fit_check_inputs(dev)
+    c_truth, c_target = fc["truth"], fc["target"]
+    for key, (fn, args, kw) in fit_check_runs(fc).items():
+        if key[0] != "family":
+            continue
+        name = key[1]
+        a = np.asarray(run_fit(key, fn, args, kw, device=dev)[0], np.float64)
+        b = np.asarray(refs.get(key)[0], np.float64)
         rel = float(np.max(np.abs(a - b) / np.abs(b)))
         same_way = bool(np.all(np.sign(np.diff(a, axis=0))
                                == np.sign(np.diff(b, axis=0))))
@@ -1383,7 +1642,7 @@ def grad_rel(got, want) -> float:
     return out
 
 
-def mesh_fit_phases(card: str, dev, keep: dict) -> None:
+def mesh_fit_phases(card: str, dev, keep: dict, refs: CpuRefs) -> None:
     """The autograd fits with ``mesh=``: fit_scene (tensor, frozen) at
     128^2 and fit_pose (LOD 3) and fit_scene_batch (K=4, frozen) at 64^2
     on 4 entries of the card, fit_scene_multiview (K=4, frozen) and
@@ -1509,45 +1768,19 @@ def mesh_fit_phases(card: str, dev, keep: dict) -> None:
     check(err <= MESH_FIT_RTOL["fit_joint"],
           f"fit_joint on the mesh: {res.losses} vs {base['res'].losses}")
 
-    # --- one sharded step: the card against CPU entries at 12^2 ------------
-    c_truth = spiral_scene(CHECK_SIZE, is_preview=True, noise_octaves=2)
-    c_target = gt.render_scene(c_truth, device=dev)
-    c_weak = scaled(c_truth, "strength", 1.5)
-    c_moved = dataclasses.replace(c_truth, camera=dataclasses.replace(
-        c_truth.camera, camera=POSE_START))
-    c_cams = orbit_path(c_truth.camera, 2, 120.0)
-    c_views = np.stack([gt.render_scene(dataclasses.replace(c_truth,
-                                                            camera=c),
-                                        device=dev) for c in c_cams])
-    c_btargets = np.stack([gt.render_scene(scaled(c_truth, "strength", f),
-                                           device=dev)
-                           for f in (0.7, 0.9, 1.1, 1.3)])
-    # plain SGD, whose step is proportional to the gradient, and each
-    # step's summed gradient kept: Adam's lr x sign(m) steps would hide a
-    # gradient part that the mesh drops, doubles or scales by 1/n
-    runs = {
-        ("fit_scene", 4): lambda m, o: tfit.fit_scene(
-            c_weak, c_target, ("strength",), steps=1, lr=5e-2, optimizer=o,
-            mesh=m),
-        ("fit_pose", 4): lambda m, o: tfit.fit_pose(
-            c_moved, c_target, ("camera",), steps=1, lr=1e-3, optimizer=o,
-            mesh=m),
-        ("fit_scene_batch", 4): lambda m, o: tfit.fit_scene_batch(
-            c_weak, c_btargets, ("strength",), steps=1, lr=5e-2,
-            march="frozen", optimizer=o, mesh=m),
-        ("fit_scene_multiview", 2): lambda m, o: tfit.fit_scene_multiview(
-            c_weak, c_views, c_cams, ("strength",), steps=1, lr=5e-2,
-            march="frozen", optimizer=o, mesh=m),
-    }
-    for (name, n), run in runs.items():
-        probes = {k: SGDProbe(5e-2) for k in ("card", "cpu", "one entry")}
-        a, b = (np.asarray(run(Mesh([d] * n), probes[k]).losses, np.float64)
-                for k, d in (("card", dev), ("cpu", "cpu")))
-        run(Mesh([dev]), probes["one entry"])
+    # --- one sharded step: the card against CPU entries at 12^2 (the CPU
+    # entries' run from the workers) and one card entry ---------------------
+    for key, (fn, args, kw) in fit_check_runs(fit_check_inputs(dev)).items():
+        if key[0] != "mesh":
+            continue
+        _, name, n = key
+        a, g_card = run_fit(key, fn, args, kw, device=dev)
+        b, g_cpu_run = refs.get(key)
+        _, g_one_run = run_fit(key, fn, args, kw, device=dev, entries=1)
+        a, b = (np.asarray(v, np.float64) for v in (a, b))
         err = _rel(a, b)
-        g_cpu = grad_rel(probes["card"].grads[0], probes["cpu"].grads[0])
-        g_one = grad_rel(probes["card"].grads[0],
-                         probes["one entry"].grads[0])
+        g_cpu = grad_rel(g_card[0], g_cpu_run[0])
+        g_one = grad_rel(g_card[0], g_one_run[0])
         log(f"{name} mesh= {CHECK_SIZE}^2, 1 SGD step on {n} entries: card "
             f"losses {a.tolist()}, CPU entries {b.tolist()}: max rel "
             f"{err:.3g} (limit {FIT_CPU_RTOL:g}); the step's summed gradient "
@@ -2156,11 +2389,11 @@ def main() -> int:
                                             star_params)
     from gamer_tpu_torch.engine.batch import _scene_groups
     from gamer_tpu_torch.scene.cameracontrols import orbit_path
-    from gamer_tpu_torch.scene.schema import ComponentParams, scene_to_dict
+    from gamer_tpu_torch.scene.schema import scene_to_dict
     from gamer_tpu_torch.ops import noise as tnoise
 
-    wrappers = (cr.march, cr.march_band, cr.march_batch, cr.march_rays,
-                cr.march_progressive, cr.march_rowshard,
+    wrappers = (cr.march, cr.march_band, cr.march_dealt, cr.march_batch,
+                cr.march_rays, cr.march_progressive, cr.march_rowshard,
                 cr.march_batch_rowshard, cr.march_rays_rowshard,
                 tnoise.noise_probe, tnoise.iq_hash_table)
 
@@ -2190,12 +2423,18 @@ def main() -> int:
 
     report_build()
     f32 = np.float32
+    if not any(a in sys.argv[1:] for a in ("--frontend-only",
+                                             "--production-only")):
+        refs = CpuRefs()
+        atexit.register(refs.close)
+        submit_cpu_refs(refs, dev)
+        stamp("the CPU references started")
     if "--fit-only" in sys.argv[1:]:
         # development: the build report and the fit phases alone
         keep = {}
-        fit_phases(card, dev, keep)
-        fit_family_phases(card, dev, keep)
-        mesh_fit_phases(card, dev, keep)
+        fit_phases(card, dev, keep, refs)
+        fit_family_phases(card, dev, keep, refs)
+        mesh_fit_phases(card, dev, keep, refs)
         xla_surface_phases(card, dev)
         return 0
     if "--frontend-only" in sys.argv[1:]:
@@ -2282,18 +2521,11 @@ def main() -> int:
                             f32(c.saturation)).numpy()
 
     # --- kernel vs plain (CPU) at 64^2 --------------------------------------
-    cases = {
-        "spiral": spiral_scene(64),
-        "dusty_disk": spiral_scene(64, presets.dusty_disk()),
-        "flocculent": spiral_scene(64, presets.flocculent()),
-        "ring": spiral_scene(64, presets.ring()),
-        "two_instance": two_instance_scene(64),
-    }
-    for name, scene in cases.items():
+    for name, scene in plain64_cases().items():
         page, table, size, _ = cr.prepare(scene, "cpu")
         lin_k = cr.march(page.to(dev), table.to(dev), size)
         torch.cuda.synchronize()
-        lin_p = cr.march_plain(page, table, size)
+        lin_p = refs.get(("plain64", name))
         check(bool(torch.isfinite(lin_k).all()), f"{name}: non-finite kernel output")
         mx, frac, _ = lsb_diff(post_cpu(lin_k, scene), post_cpu(lin_p, scene))
         err = float((lin_k.cpu() - lin_p).abs().max())
@@ -2315,18 +2547,12 @@ def main() -> int:
     # --- production size: every preset against the oracle at 512^2, and the
     # spiral above 512^2 (the ladder to 4096^2, its progressive frame) ------
     ladder_phase(card, dev, oracle_512_phase())
+    stamp("the end of the production-size phases")
 
     # --- statistical phases: hash-driven pixels ----------------------------
-    sg = presets.spiral()
-    sg.components.append(ComponentParams(
-        class_name="stars small", spectrum="White", name="sparkle",
-        strength=400.0, r0=0.5, z0=0.05, arm=0.1, winding=1.0, scale=40.0,
-        noise_tilt=1.0))
-    for name, scene in (("dither", spiral_scene(64, dither=True)),
-                        ("stars_small", spiral_scene(64, sg,
-                                                     deterministic=False))):
+    for name, scene in statistical_scenes():
         k = gt.render_scene(scene, device="cuda").astype(np.int64)
-        p = gt.render_scene(scene, device="cpu").astype(np.int64)
+        p = refs.get(("stat", name)).astype(np.int64)
         ratio = float(k.sum()) / float(p.sum())
         mean_d = float(np.abs(k - p).mean())
         log(f"statistical {name} 64^2: sum ratio {ratio:.4f}, mean |d| "
@@ -2371,6 +2597,7 @@ def main() -> int:
         f"({r.stdout.strip().splitlines()[0]})")
 
     # --- the main path: one 512^2 spiral frame ------------------------------
+    stamp("the main path")
     main_scene = spiral_scene(MAIN_SIZE)
     gt.render_scene(main_scene, device="cuda")  # warm-up
     torch.cuda.synchronize()
@@ -2461,22 +2688,20 @@ def main() -> int:
     for rows, row0 in ((32, 0), (32, 32)):
         k = cr.march_band(page_s.to(dev), table_s.to(dev), size_s, rows, row0)
         torch.cuda.synchronize()
-        p = cr.march_band_plain(page_s, table_s, size_s, rows, row0)
+        p = refs.get(("band64", row0))
         mx, frac, _ = lsb_diff(post_cpu(k, small), post_cpu(p, small))
         log(f"march_band vs plain 64^2 rows {row0}-{row0 + rows - 1}: max "
             f"{mx} LSB, {frac:.4f} of pixels differ, linear max_abs_err "
             f"{float((k.cpu() - p).abs().max()):.3g}")
         check(mx <= 2, f"march_band vs plain: {mx} LSB > 2")
-    small_orbit = [dataclasses.replace(small, camera=c)
-                   for c in orbit_path(small.camera, 3, horizontal_deg=90.0)]
-    groups = _scene_groups(small_orbit)
+    groups = small_orbit_groups(small)
     check(len(groups) == 1, "a one-galaxy orbit is one structure group")
     st, pages_s, _ = groups[0]
     tab_s = torch.as_tensor(cr._build_table(st, cr._build_layout(st)))
     k = cr.march_batch(torch.as_tensor(pages_s, device=dev), tab_s.to(dev),
                        64)
     torch.cuda.synchronize()
-    p = cr.march_batch_plain(torch.as_tensor(pages_s), tab_s, 64)
+    p = refs.get("batch64")
     for i in range(3):
         mx, frac, _ = lsb_diff(post_cpu(k[i], small), post_cpu(p[i], small))
         log(f"march_batch vs plain 64^2 frame {i}: max {mx} LSB, {frac:.4f} "
@@ -2489,7 +2714,7 @@ def main() -> int:
                                     rows_s, n_s)
     launch_s.stop()
     k, flags_s = launch_s.out, launch_s.flags.tolist()
-    p = cr.march_progressive_plain(page_s, table_s, size_s, rows_s, n_s)
+    p = refs.get("progressive64")
     mx, frac, _ = lsb_diff(post_cpu(k, small), post_cpu(p, small))
     log(f"march_progressive vs plain 64^2 ({n_s} bands of {rows_s} rows): "
         f"max {mx} LSB, {frac:.4f} of pixels differ, linear max_abs_err "
@@ -2806,17 +3031,18 @@ def main() -> int:
     # =======================================================================
     # K6: the ray-list launch and the all-sky path
     # =======================================================================
+    stamp("K6")
     from gamer_tpu_torch.engine.allsky import allsky_dirs
     from gamer_tpu_torch.io.fits import write_fits_image
     from gamer_tpu_torch.ops.camera import ray_grid
 
     sky = allsky_scene()
     page_y, table_y, _, _ = cr.prepare(sky, "cpu")
-    d32 = np.concatenate([allsky_dirs(32), np.zeros((1, 3), np.float32)])
+    d32 = sky_dirs32()
     rays_k = cr.march_rays(page_y.to(dev), table_y.to(dev),
                            torch.as_tensor(d32, device=dev))
     torch.cuda.synchronize()
-    rays_p = cr.march_rays_plain(page_y, table_y, torch.as_tensor(d32))
+    rays_p = refs.get("rays32")
     check(bool(torch.isfinite(rays_k).all()), "non-finite ray-list radiance")
     check(float(rays_k[-1].abs().max()) == 0.0 and
           float(rays_p[-1].abs().max()) == 0.0,
@@ -2843,7 +3069,7 @@ def main() -> int:
 
     # the map at nside 32 against the same pixels from the plain version
     map_k = gt.render_allsky_map(sky, 32, device="cuda")
-    map_p = gt.render_allsky_map(sky, 32, device="cpu")
+    map_p = refs.get("map32")
     map_rel = float(np.abs(map_k - map_p).max() / np.abs(map_p).max())
     log(f"render_allsky_map nside 32: card vs plain max |d| / max |m| "
         f"{map_rel:.3g} (limit 1e-3), non-zero share "
@@ -2925,6 +3151,7 @@ def main() -> int:
     # =======================================================================
     # K1-perlin and K1-iq: the other raw-noise backends
     # =======================================================================
+    stamp("K1-perlin and K1-iq")
     kind_rows = {}
     # the iq hash table (csrc/noise.cuh): every pair and the corners of
     # every integer in [-2R - 300, 2R + 300] against the kernels' own sinf
@@ -2949,15 +3176,12 @@ def main() -> int:
     for kind in ("perlin", "iq"):
         # kernel vs plain (CPU) at 64^2; for iq the scene whose hash
         # arguments pass the table too, with the plain run's census
-        small_cases = [spiral_scene(64, noise_kind=kind)]
-        if kind == "iq":
-            small_cases.append(iq_far_scene(64))
-        for small_k in small_cases:
+        small_cases = kind_cases(kind)
+        for i, small_k in enumerate(small_cases):
             pg, tb, sz, _ = cr.prepare(small_k, "cpu")
             a = cr.march(pg.to(dev), tb.to(dev), sz)
             torch.cuda.synchronize()
-            with tnoise.iq_census() as census:
-                b = cr.march_plain(pg, tb, sz)
+            b, census = refs.get(("kind", kind, i))
             ia, ib = post_cpu(a, small_k), post_cpu(b, small_k)
             mx, frac, mean_d = lsb_diff(ia, ib)
             ok, within, _ = iq_gate(ia, ib)
@@ -3126,16 +3350,18 @@ def main() -> int:
     # =======================================================================
     # S1-S3: the sharded launches, on a mesh that names this card n times
     # =======================================================================
+    stamp("S1-S3")
     from gamer_tpu_torch.parallel import Mesh
 
     def card_mesh(n, *axes):
         return Mesh(["cuda:0"] * n, *axes)
 
-    # S1 against its plain version (CPU) at 64^2: two 32-row slabs
+    # S1 against its plain version at 64^2 on two entries: the card's runs
+    # of 8 tile rows against two CPU entries' dealt rows (each a card)
     k = cr.march_rowshard(page_s.to(dev), table_s.to(dev), size_s,
                           card_mesh(2))
     torch.cuda.synchronize()
-    p = cr.march_rowshard_plain(page_s, table_s, size_s, Mesh(["cpu"] * 2))
+    p = refs.get("rowshard64")
     mx, frac, _ = lsb_diff(post_cpu(k, small), post_cpu(p, small))
     log(f"march_rowshard vs plain 64^2 on 2 entries: max {mx} LSB, "
         f"{frac:.4f} of pixels differ, linear max_abs_err "
@@ -3152,7 +3378,8 @@ def main() -> int:
     s1_wall_ms = (time.perf_counter() - t) * 1e3
     s1_launches = read_counts()
     check(s1_launches["march_rowshard"] == MESH_ENTRIES
-          and s1_launches["march_band"] == MESH_ENTRIES
+          and s1_launches["march_dealt"] == MESH_ENTRIES
+          and s1_launches["march_band"] == 0
           and s1_launches["march"] == 0,
           f"the row-sharded still launched {s1_launches}")
     check(np.array_equal(shard_frame, frame),
@@ -3160,32 +3387,35 @@ def main() -> int:
     for n in (1, 2, 3):
         before = cr.march_rowshard.launch_count
         got = gt.render_scene(main_scene, mesh=card_mesh(n))
-        slabs = -(-MAIN_SIZE // cr.slab_rows(MAIN_SIZE, n))
-        check(cr.march_rowshard.launch_count - before == slabs,
-              f"{n} entries: not one launch per slab that owns rows")
+        check(cr.march_rowshard.launch_count - before == n,
+              f"{n} entries: not one launch per entry")
         check(np.array_equal(got, frame),
               f"the frame over {n} entries differs from the fused frame")
     odd = spiral_scene(500)
     before = cr.march_rowshard.launch_count
     odd_sharded = gt.render_scene(odd, mesh=card_mesh(3))
     check(cr.march_rowshard.launch_count - before == 3
-          and cr.slab_rows(500, 3) == 192,
-          "size 500 on 3 entries: slabs of 192, 192 and 116 rows expected")
+          and cr.deal_plan(card_mesh(3), 125)
+          == [(0, 0, 1, 42), (1, 42, 1, 42), (2, 84, 1, 41)],
+          "size 500 on 3 entries: runs of 42, 42 and 41 tile rows")
     check(np.array_equal(odd_sharded, gt.render_scene(odd, device="cuda")),
           "size 500 over 3 entries differs from the fused frame")
     many = card_mesh(8)
-    before = cr.march_rowshard.launch_count
-    check(np.array_equal(gt.render_scene(spiral_scene(100), mesh=many),
-                         gt.render_scene(spiral_scene(100), device="cuda"))
-          and cr.march_rowshard.launch_count - before == 4,
-          "size 100 over 8 entries: 4 slabs of 32 rows own rows, 4 none")
+    for size, owners in ((100, 8), (20, 5)):
+        before = cr.march_rowshard.launch_count
+        check(np.array_equal(gt.render_scene(spiral_scene(size), mesh=many),
+                             gt.render_scene(spiral_scene(size),
+                                             device="cuda"))
+              and cr.march_rowshard.launch_count - before == owners,
+              f"size {size} over 8 entries: {owners} own tile rows")
     check(np.array_equal(gt.render_scene(ss_scene, mesh=mesh4),
                          gt.render_scene(ss_scene, device="cuda")),
           "supersample=2 + stars over 4 entries differs from the fused frame")
     log(f"S1 main path: render_scene(spiral {MAIN_SIZE}^2, mesh=4 x cuda:0) "
         f"launched {s1_launches}, {s1_wall_ms:.1f} ms wall with download; "
         f"bit-equal to render_scene on 1, 2, 3 and 4 entries, at size 500 on "
-        f"3 (last slab clipped), at size 100 on 8 (four entries idle) and at "
+        f"3 (125 tile rows in runs of 42, 42, 41), at size 100 on 8 (25 "
+        f"tile rows), at size 20 on 8 (5 tile rows: three entries idle) and at "
         f"256^2 with supersample=2 and stars")
 
     s1_ms = {n: cuda_ms(lambda: cr.march_rowshard(
@@ -3195,7 +3425,7 @@ def main() -> int:
     # bound were taken at (the main size, if the plain version fits)
     s1_k_ms, s1_k = cuda_ms(lambda: cr.march_rowshard(pp, tp, plain_size,
                                                       mesh4), 5)
-    # S1's plain version is march_band_plain per slab, bit-equal to
+    # S1's plain version is march_dealt_plain per entry, bit-equal to
     # march_plain on the same rays (tests/test_torch_plain_reuse.py): the
     # kernel is held against K1's plain run above, and its time cited
     s1_plain_ms = plain_ms
@@ -3209,7 +3439,7 @@ def main() -> int:
           "march_rowshard's radiance differs from march's")
     log(f"timing [{card}] march_rowshard {MAIN_SIZE}^2 (median of 5, CUDA "
         f"events): 2 entries {s1_ms[2]:.3f} ms, 4 entries {s1_ms[4]:.3f} ms, "
-        f"16 entries (the band path's 32-row slabs, on 16 "
+        f"16 entries (runs of 8 tile rows, on 16 "
         f"streams) {s1_ms[16]:.3f} ms; K1 march beside them {kern2_ms:.3f} ms "
         f"(earlier {kern_ms:.3f}), the 16 sequential bands {sweep_ms:.3f} ms; "
         f"at {plain_size}^2 over 4 entries: kernel {s1_k_ms:.3f} ms, plain "
@@ -3217,17 +3447,47 @@ def main() -> int:
         f"linear max_abs_err {s1_err:.3g}, uint8 max {mx} LSB, {frac:.5f} of "
         f"pixels differ; radiance bit-equal to march's")
 
+    # S1's launch alone: the four cards' dealt shares (tile rows i, i + 4,
+    # ...) of the frame K1's plain version and bound were taken at, one
+    # after another on this card; together they are that frame's work, so
+    # they are held to K1's plain run and bound (march_dealt_plain is
+    # march_plain on the same rays, tests/test_torch_plain_reuse.py)
+    tile_rows = plain_size // cr.TILE_H
+    dealt_ms, dealt_frame = [], torch.empty_like(lin_kp)
+    placed = dealt_frame.view(tile_rows, cr.TILE_H, plain_size, 3)
+    for i in range(MESH_ENTRIES):
+        share = (i, MESH_ENTRIES, cr.dealt(tile_rows, MESH_ENTRIES, i))
+        ms, strips = cuda_ms(lambda share=share: cr.march_dealt(
+            pp, tp, plain_size, *share), 5)
+        dealt_ms.append(ms)
+        placed[i::MESH_ENTRIES] = strips.view(-1, cr.TILE_H, plain_size, 3)
+    check(torch.equal(dealt_frame, lin_kp),
+          "march_dealt's strips differ from march's rows")
+    dealt_k_ms, dealt_plain_ms, dealt_bound = sum(dealt_ms), plain_ms, k1_bound
+    dealt_err = float((dealt_frame - lin_p).abs().max())
+    mx, frac, mean_d = lsb_diff(post_cpu(dealt_frame, main_scene),
+                                post_cpu(lin_p, main_scene))
+    check(frac < 0.01 and mean_d < 0.05,
+          f"march_dealt vs plain at {plain_size}^2: {frac:.4f} differ, mean "
+          f"{mean_d}")
+    log(f"timing [{card}] march_dealt, the {MESH_ENTRIES} cards' shares of "
+        f"{plain_size}^2 one after another ({tile_rows} tile rows dealt, "
+        f"{cr.frame_tiles(plain_size, plain_size // MESH_ENTRIES)} tiles a "
+        f"share): kernels {' + '.join(f'{m:.3f}' for m in dealt_ms)} = "
+        f"{dealt_k_ms:.3f} ms (K1 over the frame {k_ms:.3f} ms), plain on "
+        f"cuda (K1's, unsharded) {dealt_plain_ms:.1f} ms; linear max_abs_err "
+        f"{dealt_err:.3g}, uint8 max {mx} LSB, {frac:.5f} of pixels differ; "
+        f"bit-equal to K1's rows; bound K1's, {dealt_bound[0]:.4f} ms")
+    del dealt_frame, placed
+
     # S2: the orbit on a 4-entry batch mesh and on a 2 x 2 mesh
     small_pages = torch.as_tensor(pages_s[:2])
-    for axes, cpu_mesh in (
-            ((("batch",),), Mesh(["cpu"] * 2, ("batch",))),
-            ((("batch", "rows"), (2, 2)),
-             Mesh(["cpu"] * 4, ("batch", "rows"), (2, 2)))):
-        n = 2 if len(axes) == 1 else 4
+    for n, cpu_mesh in s2_cpu_meshes().items():
         k = cr.march_batch_rowshard(small_pages.to(dev), tab_s.to(dev), 64,
-                                    card_mesh(n, *axes))
+                                    card_mesh(n, cpu_mesh.axis_names,
+                                              cpu_mesh.shape))
         torch.cuda.synchronize()
-        p = cr.march_batch_rowshard_plain(small_pages, tab_s, 64, cpu_mesh)
+        p = refs.get(("s2", n))
         mx = max(lsb_diff(post_cpu(k[i], small), post_cpu(p[i], small))[0]
                  for i in range(2))
         log(f"march_batch_rowshard vs plain 64^2, 2 frames on a "
@@ -3290,16 +3550,15 @@ def main() -> int:
         f"{mx} LSB, {frac:.5f} of pixels differ; radiance bit-equal to "
         f"march_batch's")
 
-    # S3: the sky in four blocks of rays
+    # S3: the sky's 32-ray tiles over four entries of the card
     d32_t = torch.as_tensor(d32)
     k = cr.march_rays_rowshard(page_y.to(dev), table_y.to(dev), d32_t.to(dev),
                                card_mesh(3))
     torch.cuda.synchronize()
-    p = cr.march_rays_rowshard_plain(page_y, table_y, d32_t,
-                                     Mesh(["cpu"] * 3))
+    p = refs.get("s3_32")
     mx, frac, _ = lsb_diff(post_cpu(k, sky), post_cpu(p, sky))
     log(f"march_rays_rowshard vs plain nside 32 on 3 entries ({len(d32)} "
-        f"rays, blocks of {-(-len(d32) // 3)}, the tail short): max {mx} "
+        f"rays, {cr.ray_tiles(len(d32))} 32-ray tiles): max {mx} "
         f"LSB, {frac:.4f} of rays differ, linear max_abs_err "
         f"{float((k.cpu() - p).abs().max()):.3g}")
     check(mx <= 2, f"march_rays_rowshard vs plain: {mx} LSB > 2")
@@ -3346,7 +3605,8 @@ def main() -> int:
         f"mesh=4 x cuda:0) launched {s3_launches}, {s3_wall_ms:.1f} ms wall "
         f"(host clock); bit-equal to the unsharded map")
     log(f"timing [{card}] march_rays_rowshard nside {ALLSKY_NSIDE} ({n_sky} "
-        f"rays in 4 blocks, median of 5): {s3_ms:.3f} ms, K6 march_rays "
+        f"rays on 4 entries, median of 5): {s3_ms:.3f} ms, K6 "
+        f"march_rays "
         f"beside it {sky2_ms:.3f} ms (earlier {sky_ms:.3f}); plain on cuda "
         f"(K6's, unsharded), {n_plain} rays {s3_plain_ms:.1f} ms vs kernel "
         f"{s3_k_ms:.3f} ms, linear max_abs_err {s3_err:.3g}, uint8 max {mx} "
@@ -3357,6 +3617,7 @@ def main() -> int:
     # =======================================================================
     # the render service: library surface, then HTTP
     # =======================================================================
+    stamp("the render service")
     from gamer_tpu_torch.scene.morph import morph_scenes
     from gamer_tpu_torch.serve import (ABORTED, DONE, FAILED, RenderService,
                                        serve)
@@ -3712,18 +3973,24 @@ def main() -> int:
     # =======================================================================
     # the fit path: fit_scene_fd (K4 probes), the autograd marches, CLI fit
     # =======================================================================
+    stamp("the fit path")
     keep = {}
     (fit_launches, fit_err, fit_k_ms, fit_plain_ms,
-     fit_bound) = fit_phases(card, dev, keep)
+     fit_bound) = fit_phases(card, dev, keep, refs)
+    stamp("the end of the fit path")
     # the pose, batch, multi-view and joint fits (fit_pose_fd's probes: K4)
     (pfd_launches, pfd_err, pfd_k_ms, pfd_plain_ms,
-     pfd_bound) = fit_family_phases(card, dev, keep)
+     pfd_bound) = fit_family_phases(card, dev, keep, refs)
+    stamp("the end of the fit families")
     # the autograd fits on a mesh, beside the unsharded runs above
-    mesh_fit_phases(card, dev, keep)
+    mesh_fit_phases(card, dev, keep, refs)
+    stamp("the end of the sharded fits")
     # the XLA-form surfaces: the sharded frame, the sky, the queue, the CLI
     xla_surface_phases(card, dev)
+    stamp("the end of the XLA-form surfaces")
     # the front end: the viewer, the dry run, the entry step, profiling
     full_err = frontend_phases(card, dev)
+    stamp("the end of the front end")
 
     for pkg in ("jax", "gamer_tpu"):
         check(pkg not in sys.modules, f"{pkg} was imported")
@@ -3747,10 +4014,17 @@ def main() -> int:
         entry("march_progressive", "gamer_tpu/engine/pallas_render.py:1243",
               band_launches["march_progressive"], full_err, prog_k_ms,
               plain_ms, k1_bound),
-        # a row band: S1's launch on each mesh entry (its main path)
+        # a row band: on no main path since S1 deals march_dealt launches
+        # (its launches the S1 path's count, 0)
         entry("march_band", "gamer_tpu/engine/pallas_render.py:1243",
               s1_launches["march_band"], band_err, band_k_ms,
               band_plain_ms, band_bound),
+        # S1's launch on each mesh entry: its share of the tile rows (the
+        # four cards' shares of K1's plain frame, one after another, timed
+        # together and held to K1's plain version and bound)
+        entry("march_dealt", "gamer_tpu/engine/pallas_render.py:1124",
+              s1_launches["march_dealt"], dealt_err, dealt_k_ms,
+              dealt_plain_ms, dealt_bound),
         entry("march_batch", "gamer_tpu/engine/pallas_render.py:1294",
               batch_launches["march_batch"], batch_err, batch_k_ms,
               batch_plain_ms, batch_bound),

@@ -9,8 +9,9 @@
 // gates and emission (:705-914) and the arm/winding/twirl helpers
 // (:917-988), launched by _compiled (:1094-1121), _compiled_band
 // (:1243-1291), _compiled_batch (:1294-1321) and _compiled_dirs
-// (:1324-1346) through _tile_call (:1022-1062) — together with its
-// in-kernel noise (K2 and the perlin and iq raw backends, noise.cuh).
+// (:1324-1346) through _tile_call (:1022-1062), and S1's per-chip body,
+// _compiled_rowshard (:1124-1187) — together with its in-kernel noise (K2
+// and the perlin and iq raw backends, noise.cuh).
 //
 // Design. One thread per ray, each with its own loop exit: the
 // reference's per-pixel loop (rasterizer.cpp:447-475). The TPU kernel's
@@ -77,6 +78,20 @@
 // same memory, read after each tile, stops the launch. A lone band filled
 // under half the card (64 blocks for 512 tiles at 512^2), so 16 launches
 // of one band took 3.7 x the still's time (PERF.md).
+//
+// One frame over several cards (S1, _compiled_rowshard :1124-1187, which
+// gives each chip one contiguous slab of rows): march_dealt_kernel marches
+// one mesh entry's share, the tile rows first + k * stride (on n cards,
+// card i's rows i, i + n, i + 2n, ...; the first row comes as the page's
+// row0, as a band's does), each across the whole width, into a compact
+// strip stack that the host places into the frame. A ray's cost
+// is set by its raw-noise evaluations, which vary ~2.8x between the disk's
+// rows and the edge's while the samples vary ~3 %, so contiguous slabs
+// gave four cards shares up to ~1.3x their mean; dealt tile rows give
+// every card the same mix of rows, for any view. Entries that name one
+// card cut its rows into contiguous runs (cuda_render.deal_plan). The ray
+// list (S3) is dealt the same way by its wrapper, in 32-ray tiles, through
+// march_rays_kernel as it is.
 //
 // Noise kinds. The raw noise backend (simplex, perlin, iq) is the same for
 // every component of a scene; it is a template parameter of both kernels
@@ -548,17 +563,22 @@ __device__ __forceinline__ bool aborted(const int* abort_word, int lane) {
 // true: the n_rays directions dirs (n_rays, 3) from the one page's camera
 // point into out (n_rays, 3). PROGRESS (one frame, row0 0, rows a whole
 // number of bands of band_tile_rows tile rows): the band flags and the
-// abort word above, with the band counts at counter + 1. The flag code is
-// compiled into the PROGRESS instantiation alone, so the other kernels
-// are the same code as without it.
-template <int KIND, bool RAYS, bool PROGRESS = false>
+// abort word above, with the band counts at counter + 1. DEALT (one
+// frame, rows a whole number of tile rows): the launch's tile row ty is
+// the frame's tile row row0 / TILE_H + ty * tile_row_stride, row0 the
+// page's as in every frame launch, so that the stride's product is all
+// the DEALT instantiation adds to K1's code. The flag and dealing code is
+// compiled into the PROGRESS and DEALT instantiations alone, so the other
+// kernels are the same code as without it.
+template <int KIND, bool RAYS, bool PROGRESS = false, bool DEALT = false>
 __device__ __forceinline__ void march_tiles(
     const float* __restrict__ pages, int n_page, int page_stride,
     int n_frames, const int* __restrict__ table, int n_table,
     const int* __restrict__ noise_g, const float* __restrict__ dirs,
     int n_rays, float* __restrict__ out, int frame_size, int rows,
     unsigned* __restrict__ counter, int band_tile_rows = 0,
-    int* flags = nullptr, const int* abort_word = nullptr) {
+    int* flags = nullptr, const int* abort_word = nullptr,
+    int tile_row_stride = 1) {
     extern __shared__ int smem[];
     const int* tab = smem;
     float* slots = reinterpret_cast<float*>(smem + n_table);
@@ -629,8 +649,11 @@ __device__ __forceinline__ void march_tiles(
             // ray from the inverse view-projection (gamercamera.cpp:210-217);
             // row0 is an exact integer in f32, so row0 + row is
             // bit-identical to the whole frame's row index
-            // (pallas_render.py:338-343)
-            const float jrow = pg[G_ROW0] + (float)row;
+            // (pallas_render.py:338-343); so is a dealt tile row's offset
+            // from the launch's first
+            const int frame_row =
+                DEALT ? ty * tile_row_stride * TILE_H + lane / TILE_W : row;
+            const float jrow = pg[G_ROW0] + (float)frame_row;
             const float icol = (float)col;
             // (the screen point in double, rounded once; the direction
             // normalized as QVector3D::normalized)
@@ -681,6 +704,24 @@ march_rays_kernel(const float* __restrict__ page, int n_page,
                   float* __restrict__ out, unsigned* __restrict__ counter) {
     march_tiles<KIND, true>(page, n_page, n_page, 1, table, n_table, noise_g,
                             dirs, n_rays, out, 0, 0, counter);
+}
+
+// S1 dealt across a mesh: the n_tile_rows tile rows row0 / TILE_H + k *
+// tile_row_stride (k < n_tile_rows; row0 the page's, a multiple of TILE_H
+// for a share of a frame) of a frame_size frame, each across the whole
+// width, into out (n_tile_rows * TILE_H, frame_size, 3) in that order;
+// every ray is the still's, rows past the frame are 0.
+template <int KIND>
+__global__ void __launch_bounds__(BLOCK_THREADS, MIN_BLOCKS)
+march_dealt_kernel(const float* __restrict__ page, int n_page,
+                   const int* __restrict__ table, int n_table,
+                   const int* __restrict__ noise_g, float* __restrict__ out,
+                   int frame_size, int tile_row_stride, int n_tile_rows,
+                   unsigned* __restrict__ counter) {
+    march_tiles<KIND, false, false, true>(
+        page, n_page, n_page, 1, table, n_table, noise_g, nullptr, 0, out,
+        frame_size, n_tile_rows * TILE_H, counter, 0, nullptr, nullptr,
+        tile_row_stride);
 }
 
 // K5 as one launch: the progressive frame of n_bands bands of
@@ -817,6 +858,20 @@ static int launch_rays(const float* page, int n_page, const int* table,
 }
 
 template <int KIND>
+static int launch_dealt(const float* page, int n_page, const int* table,
+                        int n_table, const int* noise, float* out,
+                        int frame_size, int tile_row_stride, int n_tile_rows,
+                        int grid, unsigned* counter, cudaStream_t stream) {
+    const size_t smem = smem_bytes(n_table, n_page, 1);
+    cudaError_t e = reserve_smem(march_dealt_kernel<KIND>, smem);
+    if (e != cudaSuccess) return (int)e;
+    march_dealt_kernel<KIND><<<grid, BLOCK_THREADS, smem, stream>>>(
+        page, n_page, table, n_table, noise, out, frame_size,
+        tile_row_stride, n_tile_rows, counter);
+    return (int)cudaGetLastError();
+}
+
+template <int KIND>
 static int launch_progressive(const float* page, int n_page,
                               const int* table, int n_table,
                               const int* noise, float* out, int frame_size,
@@ -854,7 +909,8 @@ static int blocks_per_sm(Kernel kernel, size_t smem) {
 
 // With the dynamic shared memory of a small scene's table and page: a
 // launch's own table and page (a few KB) leave the count as it is. form: 0
-// the frame kernel, 1 the ray-list kernel, 2 the progressive kernel.
+// the frame kernel, 1 the ray-list kernel, 2 the progressive kernel, 3 the
+// dealt kernel.
 template <int KIND>
 static int occupancy(int form) {
     const size_t smem = smem_bytes(256, 256, 1);
@@ -862,6 +918,7 @@ static int occupancy(int form) {
     case 0: return blocks_per_sm(march_kernel<KIND>, smem);
     case 1: return blocks_per_sm(march_rays_kernel<KIND>, smem);
     case 2: return blocks_per_sm(march_progressive_kernel<KIND>, smem);
+    case 3: return blocks_per_sm(march_dealt_kernel<KIND>, smem);
     }
     return -(int)cudaErrorInvalidValue;
 }
@@ -935,6 +992,47 @@ extern "C" int gamer_march_rays(const float* page, int n_page,
         return gamer::launch_rays<gamer::NOISE_IQ>(
             page, n_page, table, n_table, noise, dirs, n_rays, out, grid,
             counter, st);
+    }
+    return (int)cudaErrorInvalidValue;
+}
+
+// S1 dealt across a mesh: one entry's share of a frame_size frame, its
+// n_tile_rows tile rows (TILE_H rows each) from the page's row0 on, every
+// tile_row_stride-th, into out (n_tile_rows * TILE_H, frame_size, 3); rows
+// past the frame are 0. The caller keeps row0 plus the share's last row
+// below 2^24. ``kind``, ``noise``, ``grid``, ``counter`` and ``stream`` as
+// in gamer_march_batch.
+extern "C" int gamer_march_dealt(const float* page, int n_page,
+                                 const int* table, int n_table,
+                                 const int* noise, float* out, int frame_size,
+                                 int tile_row_stride, int n_tile_rows,
+                                 int kind, int grid, unsigned* counter,
+                                 void* stream) {
+    if (frame_size <= 0 || n_tile_rows <= 0 || tile_row_stride <= 0
+        || grid <= 0)
+        return (int)cudaErrorInvalidValue;
+    const long long last_row =
+        ((long long)(n_tile_rows - 1) * tile_row_stride + 1) * gamer::TILE_H;
+    const long long n_tiles =
+        (long long)((frame_size + gamer::TILE_W - 1) / gamer::TILE_W)
+        * n_tile_rows;
+    if (last_row >= (1LL << 24)
+        || n_tiles + (long long)grid * gamer::BLOCK_WARPS >= (1LL << 31))
+        return (int)cudaErrorInvalidValue;
+    cudaStream_t st = (cudaStream_t)stream;
+    switch (kind) {
+    case gamer::NOISE_SIMPLEX:
+        return gamer::launch_dealt<gamer::NOISE_SIMPLEX>(
+            page, n_page, table, n_table, noise, out, frame_size,
+            tile_row_stride, n_tile_rows, grid, counter, st);
+    case gamer::NOISE_PERLIN:
+        return gamer::launch_dealt<gamer::NOISE_PERLIN>(
+            page, n_page, table, n_table, noise, out, frame_size,
+            tile_row_stride, n_tile_rows, grid, counter, st);
+    case gamer::NOISE_IQ:
+        return gamer::launch_dealt<gamer::NOISE_IQ>(
+            page, n_page, table, n_table, noise, out, frame_size,
+            tile_row_stride, n_tile_rows, grid, counter, st);
     }
     return (int)cudaErrorInvalidValue;
 }
@@ -1068,8 +1166,8 @@ extern "C" int gamer_progress_wait(const int* flags, int n_bands,
 }
 
 // Resident blocks per SM of the kind's frame kernel (form 0), ray-list
-// kernel (1) or progressive kernel (2) on the current device; minus the
-// CUDA error on failure.
+// kernel (1), progressive kernel (2) or dealt kernel (3) on the current
+// device; minus the CUDA error on failure.
 extern "C" int gamer_march_occupancy(int kind, int form) {
     switch (kind) {
     case gamer::NOISE_SIMPLEX: return gamer::occupancy<gamer::NOISE_SIMPLEX>(form);

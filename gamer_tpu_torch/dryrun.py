@@ -125,7 +125,7 @@ def _rungs(n_devices: int, budget_s: float, devices) -> dict:
     dev = cuda_render.mesh_device(mesh)
     exact = dev.type == "cuda"  # the sharded forms' bit-equality contract
 
-    # (a) a frame's row slabs over the mesh (S1)
+    # (a) a frame's tile rows dealt over the mesh (S1)
     size = max(16, 8 * n_devices)
     size += (-size) % n_devices
     img = render_scene_sharded(_spiral_scene(size), mesh)
@@ -144,7 +144,7 @@ def _rungs(n_devices: int, budget_s: float, devices) -> dict:
     _check(int(frames.sum()) > 0, "sharded fly-through rendered empty frames")
     tick("b: batch sharding")
 
-    # (c) a frame whose size does not tile the mesh, in row slabs, against
+    # (c) a frame whose size does not tile the mesh, dealt, against
     # the unsharded frame: bit-equal on the card (S1's contract); the
     # CPU's plain march may round a pixel 1 LSB apart in another shape
     pscene = _spiral_scene(40)

@@ -11,9 +11,10 @@ projection of the map and the standard post chain.
 
 All sky pixels march in one ray-list launch (K6,
 ``cuda_render.march_rays``), or over a device mesh in one launch per entry
-(``march_rays_rowshard``), or through the XLA-form march
-(``kernel="xla"``): no shuffle is needed, since work-list shuffling only
-balanced the reference's thread chunks.
+(``march_rays_rowshard``, the list's 32-ray tiles dealt across the entries
+so that each card gets the same mix of the sky), or through the XLA-form
+march (``kernel="xla"``). Within a launch no shuffle is needed: the
+kernel's warps take tiles from a counter.
 """
 
 from __future__ import annotations
@@ -46,7 +47,7 @@ def render_allsky_map(scene: Scene, nside: int, device="cuda",
     float type and then cast. ``kernel="pallas"`` (the JAX package's name
     for its kernel; here the CUDA march, float32 whatever ``dtype`` says,
     as in JAX) is one ray-list launch, or with a 1-D ``mesh`` one per mesh
-    entry on its block of pixels. ``kernel="xla"`` marches the ray list
+    entry on its dealt tiles of pixels. ``kernel="xla"`` marches the ray list
     through the XLA-form march (``render.render_rays``) in ``dtype`` on
     ``device``; it takes no mesh."""
     if kernel == "pallas":

@@ -15,15 +15,18 @@ at run time. The table's header names the scene's raw-noise backend
 The kernel's wrappers are ``march`` (K1, a whole frame),
 ``march_progressive`` (K5, the progressive frame in one launch that flags
 each finished row band while it runs; ``render_progressive``),
-``march_band`` (a row band: S1's launch per mesh entry), ``march_batch``
-(K4, a stack of frames; used by engine/batch.py) and ``march_rays`` (K6, a
-ray list; used by engine/allsky.py). The sharded launches
-``march_rowshard``, ``march_batch_rowshard`` and ``march_rays_rowshard`` run
-those wrappers
-once per entry of a device mesh (parallel/sharding.py), each on its entry's
-device and stream, and gather the outputs on the mesh's first device: the
-counterparts of ``_compiled_rowshard``, ``_compiled_batch_rowshard`` and
-``_compiled_dirs_rowshard``. A tensor on the CPU runs the plain version,
+``march_band`` (a row band), ``march_dealt`` (every n-th tile row of a
+frame from the i-th: S1's launch per mesh entry), ``march_batch`` (K4, a
+stack of frames; used by engine/batch.py) and ``march_rays`` (K6, a ray
+list; used by engine/allsky.py). The sharded launches ``march_rowshard``,
+``march_batch_rowshard`` and ``march_rays_rowshard`` run ``march_dealt``,
+``march_batch`` and ``march_rays`` once per entry of a device mesh
+(parallel/sharding.py), each on its entry's device and stream, and gather
+the outputs on the mesh's first device: the counterparts of
+``_compiled_rowshard``, ``_compiled_batch_rowshard`` and
+``_compiled_dirs_rowshard``. S1 and S3 deal their work (tile rows, 32-ray
+tiles) across the entries where the TPU forms cut contiguous slabs and
+blocks, so that every card gets the same mix of costly and cheap rays. A tensor on the CPU runs the plain version,
 ``march_plain`` and its band, progressive, batch and ray-list forms: the
 lockstep torch version with the kernel's arithmetic (the reference's
 march bookkeeping, as the spec oracle takes it: each step from the
@@ -42,7 +45,7 @@ import warnings
 import numpy as np
 import torch
 
-from ..ops.camera import inv_view_projection, ray_grid
+from ..ops.camera import coord2ray, inv_view_projection
 from ..ops.math3d import (PI, atan2_f32, atan_f32, floor0, norm3_qt,
                           normalize3_qt, qt_clamp, quat_rotate)
 from ..ops.noise import (
@@ -623,17 +626,27 @@ def march_plain(page: torch.Tensor, table: torch.Tensor, frame_size: int,
     trigger tests, triggered, gated and emitting samples, raw noise calls),
     from which a lower bound of the kernel's time follows."""
     rows = frame_size if rows is None else int(rows)
-    dev = page.device
+    row0 = float(page[G_ROW0])
+    return _frame_rows_plain(page, table, frame_size, row0 + torch.arange(
+        rows, dtype=torch.float32, device=page.device), stats)
+
+
+def _frame_rows_plain(page: torch.Tensor, table: torch.Tensor,
+                      frame_size: int, jrow: torch.Tensor,
+                      stats: dict | None):
+    """(len(jrow), frame_size, 3) radiance of the frame rows ``jrow`` (a
+    float32 tensor of global row indices on the page's device); rows past
+    the frame's last row are 0."""
     pg = page.detach().to("cpu", torch.float32).numpy()
     tb = table.detach().to("cpu").numpy()
-    row0 = float(pg[G_ROW0])
-    dirs = ray_grid(frame_size, pg[G_INV_VP:G_INV_VP + 16], row0,
-                    device=dev, rows=rows).reshape(-1, 3)
-    jrow = row0 + torch.arange(rows, dtype=torch.float32, device=dev)
+    ii = torch.arange(frame_size, dtype=torch.float32, device=page.device)
+    j_g, i_g = torch.meshgrid(jrow, ii, indexing="ij")
+    dirs = coord2ray(i_g, j_g, frame_size,
+                     pg[G_INV_VP:G_INV_VP + 16]).reshape(-1, 3)
     valid = (jrow < float(frame_size))[:, None].expand(
-        rows, frame_size).reshape(-1)
+        -1, frame_size).reshape(-1)
     return _march_dirs_plain(pg, tb, dirs, valid, stats).reshape(
-        rows, frame_size, 3)
+        -1, frame_size, 3)
 
 
 def _march_dirs_plain(pg: np.ndarray, tb: np.ndarray, dirs: torch.Tensor,
@@ -746,15 +759,16 @@ def persistent_grid(blocks_per_sm: int, n_sms: int, n_tiles: int,
 
 
 # The kernels of csrc/march.cu by their occupancy query's form argument.
-FORM_FRAMES, FORM_RAYS, FORM_PROGRESSIVE = 0, 1, 2
+FORM_FRAMES, FORM_RAYS, FORM_PROGRESSIVE, FORM_DEALT = 0, 1, 2, 3
 
 _OCCUPANCY: dict = {}
 
 
 def occupancy(device: torch.device, kind: int, form: int) -> tuple:
     """(resident blocks per SM, SMs, warps per block) of the frame
-    (``form`` FORM_FRAMES), ray-list (FORM_RAYS) or progressive
-    (FORM_PROGRESSIVE) kernel of noise kind ``kind`` on a CUDA device, from
+    (``form`` FORM_FRAMES), ray-list (FORM_RAYS), progressive
+    (FORM_PROGRESSIVE) or dealt (FORM_DEALT) kernel of noise kind ``kind``
+    on a CUDA device, from
     the kernel library's occupancy query; kept per device."""
     from ..kernels import library
 
@@ -783,9 +797,12 @@ def _grid_and_counter(device: torch.device, kind: int, form: int,
 
 
 def _launch(pages: torch.Tensor, table: torch.Tensor, frame_size: int,
-            rows: int) -> torch.Tensor:
+            rows: int, stride: int | None = None) -> torch.Tensor:
     """One launch of csrc/march.cu over a (B, n) page stack:
-    (B, rows, frame_size, 3) radiance on the pages' device."""
+    (B, rows, frame_size, 3) radiance on the pages' device, the rows from
+    each page's row0 on. With ``stride`` (one page, rows a whole number of
+    tile rows): the dealt kernel, whose k-th tile row is the frame's tile
+    row row0 / TILE_H + k * stride."""
     from ..kernels import library
 
     if int(frame_size) <= 0 or int(rows) <= 0:
@@ -798,15 +815,21 @@ def _launch(pages: torch.Tensor, table: torch.Tensor, frame_size: int,
     kind = _table_kind(table)
     noise = noise_table(NOISE_KINDS[kind], pages.device)
     grid, counter = _grid_and_counter(
-        pages.device, kind, FORM_FRAMES,
+        pages.device, kind, FORM_FRAMES if stride is None else FORM_DEALT,
         frame_tiles(frame_size, rows, n_frames))
     stream = torch.cuda.current_stream(pages.device).cuda_stream
+    common = (table.data_ptr(), table.numel(), noise.data_ptr(),
+              out.data_ptr(), int(frame_size))
     with torch.cuda.device(pages.device):
-        rc = lib.gamer_march_batch(pages.data_ptr(), n_page, n_page, n_frames,
-                                   table.data_ptr(), table.numel(),
-                                   noise.data_ptr(), out.data_ptr(),
-                                   int(frame_size), int(rows), kind, grid,
-                                   counter.data_ptr(), stream)
+        if stride is None:
+            rc = lib.gamer_march_batch(pages.data_ptr(), n_page, n_page,
+                                       n_frames, *common, int(rows), kind,
+                                       grid, counter.data_ptr(), stream)
+        else:
+            rc = lib.gamer_march_dealt(pages.data_ptr(), n_page, *common,
+                                       int(stride), int(rows) // TILE_H,
+                                       kind, grid, counter.data_ptr(),
+                                       stream)
     if rc != 0:
         raise RuntimeError(f"march kernel launch failed: CUDA error {rc} "
                            f"({lib.gamer_error_string(rc).decode()})")
@@ -848,16 +871,91 @@ def march_band(page: torch.Tensor, table: torch.Tensor, frame_size: int,
                band_rows: int, row0: int) -> torch.Tensor:
     """A row band (K5's ``_compiled_band``): linear radiance (band_rows,
     frame_size, 3) of the rows row0 + [0, band_rows) of a frame_size frame;
-    rows past the frame are 0. S1's launch per mesh entry; the progressive
-    frame is one ``march_progressive`` launch instead. Bit-equal on the
-    card to those rows of ``march``'s whole frame. CPU
-    tensors run ``march_band_plain``; CUDA tensors launch the kernel
-    (counted in ``march_band.launch_count``) or raise."""
+    rows past the frame are 0. On no main path: the progressive frame is
+    one ``march_progressive`` launch and S1 deals ``march_dealt`` launches.
+    The band is the dealt kernel's contiguous run (stride 1) from row0,
+    cut to band_rows. Bit-equal on the card to those rows of ``march``'s
+    whole frame. CPU tensors run ``march_band_plain``; CUDA tensors launch
+    the kernel (counted in ``march_band.launch_count``) or raise."""
     if _on_cpu(page, table, 1):
         return march_band_plain(page, table, frame_size, band_rows, row0)
     out = _launch(_with_row0(page, row0)[None], table, frame_size,
-                  band_rows)[0]
+                  -(-int(band_rows) // TILE_H) * TILE_H, stride=1)[0]
     march_band.launch_count += 1
+    return out[:band_rows]
+
+
+def dealt(n_items: int, n: int, i: int) -> int:
+    """How many of ``n_items`` (tile rows, or 32-ray tiles) the i-th of n
+    owners gets when they are dealt i, i + n, i + 2n, ...: 0 for an owner
+    past the last item."""
+    return max(0, -(-(n_items - i) // n))
+
+
+def deal_plan(mesh, n_items: int) -> list:
+    """How S1 and S3 spread ``n_items`` (tile rows, or 32-ray tiles) over
+    a mesh: [(entry, first item, stride, count)] for each entry that owns
+    items, in mesh order. The cards (the distinct CUDA devices, in order of
+    first appearance) are dealt the items: card c of n_cards takes c,
+    c + n_cards, ..., so every card gets the same mix of costly and cheap
+    rays. The entries that name one card share its SMs and cut its items
+    into contiguous runs, in mesh order: concurrent launches on one card
+    each held every card's mix of slow and fast tiles, one tile a warp,
+    and queued behind each other's slowest tiles (PERF.md §6). A CPU
+    entry marches alone and is dealt as a card of its own."""
+    keys = [d if d.type == "cuda" else i for i, d in enumerate(mesh.devices)]
+    cards = list(dict.fromkeys(keys))
+    plan = []
+    for c, key in enumerate(cards):
+        entries = [i for i, k in enumerate(keys) if k == key]
+        owned, start = dealt(n_items, len(cards), c), 0
+        for j, i in enumerate(entries):
+            count = dealt(owned, len(entries), j)
+            if count:
+                plan.append((i, c + len(cards) * start, len(cards), count))
+            start += count
+    return sorted(plan)
+
+
+def _check_deal(first: int, stride: int, count: int) -> None:
+    if first < 0 or stride < 1 or count < 1:
+        raise ValueError(f"a dealt share needs first >= 0, stride >= 1 and "
+                         f"count >= 1, got {first}, {stride}, {count}")
+    if (first + (count - 1) * stride + 1) * TILE_H >= 1 << 24:
+        raise ValueError(f"a dealt share's rows must lie below 2^24, got "
+                         f"tile rows {first} + k * {stride}, k < {count}")
+
+
+def march_dealt_plain(page: torch.Tensor, table: torch.Tensor,
+                      frame_size: int, first: int, stride: int, count: int,
+                      stats: dict | None = None) -> torch.Tensor:
+    """The dealt kernel's function: (count * TILE_H, frame_size, 3)
+    radiance of the frame's tile rows first + k * stride, k < count, in
+    that order; rows past the frame are 0. The page's row0 is not read."""
+    _check_deal(first, stride, count)
+    ty = first + stride * torch.arange(count, device=page.device)
+    jrow = (ty[:, None] * TILE_H + torch.arange(TILE_H, device=page.device))
+    return _frame_rows_plain(page, table, frame_size,
+                             jrow.reshape(-1).to(torch.float32), stats)
+
+
+def march_dealt(page: torch.Tensor, table: torch.Tensor, frame_size: int,
+                first: int, stride: int, count: int) -> torch.Tensor:
+    """S1's launch on one mesh entry: linear radiance (count * TILE_H,
+    frame_size, 3) of the frame's tile rows (TILE_H rows each) first,
+    first + stride, ..., count of them, each across the whole width,
+    stacked in that order; rows past the frame are 0 (``deal_plan`` gives
+    each entry its share). Bit-equal on the card to those rows of
+    ``march``'s frame. CPU tensors run ``march_dealt_plain``; CUDA tensors
+    launch ``march_dealt_kernel`` (counted in ``march_dealt.launch_count``)
+    or raise."""
+    if _on_cpu(page, table, 1):
+        return march_dealt_plain(page, table, frame_size, first, stride,
+                                 count)
+    _check_deal(first, stride, count)
+    out = _launch(_with_row0(page, first * TILE_H)[None], table, frame_size,
+                  count * TILE_H, stride=stride)[0]
+    march_dealt.launch_count += 1
     return out
 
 
@@ -1082,10 +1180,11 @@ def _launch_progressive(page, table, frame_size: int, band_rows: int,
 
 march.launch_count = 0
 march_band.launch_count = 0
+march_dealt.launch_count = 0
 march_batch.launch_count = 0
 march_rays.launch_count = 0
 march_progressive.launch_count = 0
-# launches of each kind's instantiation, over all five wrappers
+# launches of each kind's instantiation, over all six wrappers
 KIND_LAUNCHES = dict.fromkeys(NOISE_KINDS, 0)
 
 
@@ -1098,7 +1197,8 @@ def slab_rows(size: int, n: int) -> int:
     """Rows of one of ``n`` row slabs of a ``size``-row frame, as
     ``_compiled_rowshard`` cuts them (pallas_render.py:1157-1160): every
     entry gets the same whole number of tile heights, so a slab here is the
-    same set of rows as a slab there."""
+    same set of rows as a slab there. S2's 'rows' axis cuts these slabs;
+    S1 deals tile rows instead."""
     tr = _tile_rows(size)
     return -(-size // (n * tr)) * tr
 
@@ -1140,9 +1240,10 @@ def _on_entry(mesh, i: int):
 
 
 def _gather(dst: torch.Tensor, src: torch.Tensor, mesh, i: int) -> None:
-    """Copy entry i's output into its place in the assembled tensor, on the
-    caller's streams, after entry i's stream: the output gather XLA inserts
-    around a ``shard_map``."""
+    """Copy entry i's output into its place in the assembled tensor (for a
+    dealt share a strided view: one strided copy), on the caller's streams,
+    after entry i's stream: the output gather XLA inserts around a
+    ``shard_map``."""
     stream = mesh.stream(i)
     if stream is not None:
         current = torch.cuda.current_stream(stream.device)
@@ -1151,51 +1252,55 @@ def _gather(dst: torch.Tensor, src: torch.Tensor, mesh, i: int) -> None:
     dst.copy_(src, non_blocking=True)
 
 
-def _rowshard(band_fn, page, table, size: int, mesh) -> torch.Tensor:
+def _rowshard(strip_fn, page, table, size: int, mesh) -> torch.Tensor:
     _check_mesh(mesh, (1,))
-    rows_local = slab_rows(size, mesh.size)
-    out = torch.empty((size, size, 3), dtype=torch.float32,
+    tile_rows = -(-size // TILE_H)
+    out = torch.empty((tile_rows * TILE_H, size, 3), dtype=torch.float32,
                       device=mesh.devices[0])
-    slabs = []
-    for i, (pg, tb) in enumerate(_replicas(mesh, page, table)):
-        row0 = i * rows_local
-        if row0 >= size:
-            break  # this entry and the ones after it own no row
-        rows = min(rows_local, size - row0)
+    replicas = _replicas(mesh, page, table)
+    strips = []
+    for i, first, stride, count in deal_plan(mesh, tile_rows):
+        pg, tb = replicas[i]
         with _on_entry(mesh, i):
-            slabs.append((i, row0, band_fn(pg, tb, size, rows, row0)))
-    for i, row0, slab in slabs:
-        _gather(out[row0:row0 + slab.shape[0]], slab, mesh, i)
-    return out
+            strips.append((i, first, stride, count,
+                           strip_fn(pg, tb, size, first, stride, count)))
+    tiles = out.view(tile_rows, TILE_H, size, 3)
+    for i, first, stride, count, strip in strips:
+        _gather(tiles[first::stride][:count],
+                strip.view(count, TILE_H, size, 3), mesh, i)
+    return out[:size]
 
 
 def march_rowshard_plain(page: torch.Tensor, table: torch.Tensor, size: int,
                          mesh) -> torch.Tensor:
-    """S1's function: ``march_band_plain`` per mesh entry on its slab of
+    """S1's function: ``march_dealt_plain`` per mesh entry on its tile
     rows, then the same assembly."""
-    return _rowshard(march_band_plain, page, table, size, mesh)
+    return _rowshard(march_dealt_plain, page, table, size, mesh)
 
 
 def march_rowshard(page: torch.Tensor, table: torch.Tensor, size: int,
                    mesh) -> torch.Tensor:
     """S1, the counterpart of ``_compiled_rowshard``: linear radiance
-    (size, size, 3) of one frame whose row slabs are spread over a 1-D
-    mesh. Entry i launches ``march_band`` over the rows
-    i * slab_rows + [0, slab_rows) on its own device and stream (the last
-    slab clipped to the frame, entries past the last row launching
-    nothing); the slabs are copied into one frame on the mesh's first
-    device. On the card the frame is bit-equal to ``march``'s. CPU tensors
+    (size, size, 3) of one frame spread over a 1-D mesh. The frame's tile
+    rows (TILE_H rows each) are dealt to the cards: on a mesh of n cards
+    entry i launches ``march_dealt`` over the tile rows i, i + n, i + 2n,
+    ..., each across the whole width, on its own device and stream, so
+    every card gets the same mix of costly and cheap rows; entries that
+    name one card cut its rows into contiguous runs (``deal_plan``), and
+    entries past the last tile row launch nothing. Each entry's strips are
+    placed into one frame on the mesh's first device, one strided copy an
+    entry. On the card the frame is bit-equal to ``march``'s. CPU tensors
     run ``march_rowshard_plain``; CUDA tensors launch the kernel (each
     launch counted in ``march_rowshard.launch_count``) or raise."""
     if _on_cpu(page, table, 1):
         return march_rowshard_plain(page, table, size, mesh)
 
-    def band(*args):
-        out = march_band(*args)
+    def strips(*args):
+        out = march_dealt(*args)
         march_rowshard.launch_count += 1
         return out
 
-    return _rowshard(band, page, table, size, mesh)
+    return _rowshard(strips, page, table, size, mesh)
 
 
 def batch_mesh_shape(mesh) -> tuple:
@@ -1280,39 +1385,48 @@ def march_batch_rowshard(pages: torch.Tensor, table: torch.Tensor, size: int,
 def _rays_rowshard(rays_fn, page, table, dirs, mesh) -> torch.Tensor:
     _check_mesh(mesh, (1,))
     n_rays = dirs.shape[0]
-    block = -(-n_rays // mesh.size)
-    out = torch.empty((n_rays, 3), dtype=torch.float32,
+    n_tiles = ray_tiles(n_rays)
+    pad = n_tiles * WARP - n_rays
+    if pad:  # zero directions give 0 (the TPU form's padding)
+        dirs = torch.cat([dirs, dirs.new_zeros((pad, 3))])
+    out = torch.empty((n_tiles * WARP, 3), dtype=torch.float32,
                       device=mesh.devices[0])
-    blocks = []
-    for i, (pg, tb) in enumerate(_replicas(mesh, page, table)):
-        start = i * block
-        if start >= n_rays:
-            break
+    d_tiles = dirs.reshape(n_tiles, WARP, 3)
+    o_tiles = out.view(n_tiles, WARP, 3)
+    replicas = _replicas(mesh, page, table)
+    shares = []
+    for i, first, stride, count in deal_plan(mesh, n_tiles):
+        pg, tb = replicas[i]
         with _on_entry(mesh, i):
-            d = dirs[start:start + block].to(mesh.devices[i])
-            blocks.append((i, start, rays_fn(pg, tb, d)))
-    for i, start, lin in blocks:
-        _gather(out[start:start + lin.shape[0]], lin, mesh, i)
-    return out
+            d = d_tiles[first::stride][:count].contiguous().view(-1, 3)
+            shares.append((i, first, stride, count,
+                           rays_fn(pg, tb, d.to(mesh.devices[i]))))
+    for i, first, stride, count, lin in shares:
+        _gather(o_tiles[first::stride][:count], lin.view(count, WARP, 3),
+                mesh, i)
+    return out[:n_rays]
 
 
 def march_rays_rowshard_plain(page: torch.Tensor, table: torch.Tensor,
                               dirs: torch.Tensor, mesh) -> torch.Tensor:
-    """S3's function: ``march_rays_plain`` per mesh entry on its block of
-    rays, then the same assembly."""
+    """S3's function: ``march_rays_plain`` per mesh entry on its dealt
+    32-ray tiles, then the same assembly."""
     return _rays_rowshard(march_rays_plain, page, table, dirs, mesh)
 
 
 def march_rays_rowshard(page: torch.Tensor, table: torch.Tensor,
                         dirs: torch.Tensor, mesh) -> torch.Tensor:
     """S3, the counterpart of ``_compiled_dirs_rowshard``: linear radiance
-    (N, 3) of a ray list spread over a 1-D mesh in contiguous blocks of
-    ceil(N / n) rays, the tail block short (the kernel's ``i < N`` guard
-    stands where the TPU form pads with zero vectors). Entry i launches
-    ``march_rays`` on its block, on its own device and stream. On the card
-    every ray is bit-equal to ``march_rays``'s. CPU tensors run
-    ``march_rays_rowshard_plain``; CUDA tensors launch the kernel (each
-    launch counted in ``march_rays_rowshard.launch_count``) or raise."""
+    (N, 3) of a ray list spread over a 1-D mesh. The list's 32-ray tiles
+    (the last padded with zero directions, which give 0) are dealt as S1's
+    tile rows (``deal_plan``): on a mesh of n cards entry i launches
+    ``march_rays`` on the tiles i, i + n, i + 2n, ..., gathered into one
+    list on its own device and stream, so every card gets the same mix of
+    costly and cheap directions; each entry's output is placed back, one
+    strided copy an entry. On the card every ray is bit-equal to
+    ``march_rays``'s. CPU tensors run ``march_rays_rowshard_plain``; CUDA
+    tensors launch the kernel (each launch counted in
+    ``march_rays_rowshard.launch_count``) or raise."""
     if _on_cpu(page, table, 1):
         return march_rays_rowshard_plain(page, table, dirs, mesh)
 
@@ -1369,8 +1483,8 @@ def mesh_device(mesh) -> torch.device:
 
 def render_linear(scene: Scene, device="cuda", mesh=None) -> torch.Tensor:
     """Linear radiance (size, size, 3) float32 on ``device`` (supersampled
-    frames pooled in linear space). With ``mesh`` (1-D) the frame's row
-    slabs are spread over its entries (S1) and assembled, then pooled, on
+    frames pooled in linear space). With ``mesh`` (1-D) the frame's tile
+    rows are dealt over its entries (S1) and assembled, then pooled, on
     its first device; ``device`` is then not consulted."""
     dev = _device(device) if mesh is None else mesh_device(mesh)
     page, table, size, ss = prepare(scene, dev)
@@ -1384,7 +1498,7 @@ def render_scene(scene: Scene, device="cuda", device_out: bool = False,
     """A full frame -> (size, size, 3) uint8: march, star overlay and post
     chain, as ``render_scene_pallas``. With ``device_out`` the uint8 tensor
     stays on ``device``; otherwise a numpy array is returned. With ``mesh``
-    (a 1-D device mesh) the frame's row slabs are spread over its entries
+    (a 1-D device mesh) the frame's tile rows are dealt over its entries
     and the epilogue runs on its first device; on the card the frame is
     bit-equal to the unsharded one."""
     dev = _device(device) if mesh is None else mesh_device(mesh)
@@ -1406,8 +1520,8 @@ def render_dirs(scene: Scene, dirs, device="cuda", device_out: bool = False,
     the counterpart of ``render_dirs_pallas``. The directions are cast to
     float32 and used as given. With ``device_out`` the tensor stays on
     ``device``; otherwise a numpy array is returned. With ``mesh`` (a 1-D
-    device mesh) the rays are spread over its entries in contiguous blocks
-    (S3) and gathered on its first device."""
+    device mesh) the rays' 32-ray tiles are dealt over its entries (S3)
+    and gathered on its first device."""
     dev = _device(device) if mesh is None else mesh_device(mesh)
     page, table, _, _ = prepare(scene, dev)
     d = torch.as_tensor(

@@ -131,6 +131,11 @@ def load(path) -> ctypes.CDLL:
     lib.gamer_march_progressive.argtypes = [p, i, p, i, p, p, i, i, i, i, i,
                                             p, p, p, p]
     lib.gamer_march_progressive.restype = i
+    # page, n_page, table, n_table, noise, out, frame_size,
+    # tile_row_stride, n_tile_rows, kind, grid, counter, stream
+    lib.gamer_march_dealt.argtypes = [p, i, p, i, p, p, i, i, i, i, i, p,
+                                      p]
+    lib.gamer_march_dealt.restype = i
     # flags, n_bands, next_band, event, timeout_ms (CDLL: the GIL is
     # released while it waits)
     lib.gamer_progress_wait.argtypes = [p, i, i, p, i]
@@ -149,7 +154,7 @@ def load(path) -> ctypes.CDLL:
     # table, n_idx, bad (2 unsigned), stream
     lib.gamer_perlin_grad_check.argtypes = [p, i, p, p]
     lib.gamer_perlin_grad_check.restype = i
-    # kind, form (0 frames, 1 ray list, 2 progressive)
+    # kind, form (0 frames, 1 ray list, 2 progressive, 3 dealt)
     lib.gamer_march_occupancy.argtypes = [i, i]
     lib.gamer_march_occupancy.restype = i
     lib.gamer_march_block_threads.argtypes = []

@@ -1,8 +1,8 @@
 """Multi-host initialization and cross-host work decomposition: the
 counterpart of ``gamer_tpu.parallel.distributed`` on ``torch.distributed``.
 
-Within a host, the sharded launches put row slabs, batch frames or ray
-blocks on the local cards (parallel/sharding.py). Across hosts PyTorch has
+Within a host, the sharded launches put dealt tile rows, batch frames or
+dealt ray tiles on the local cards (parallel/sharding.py). Across hosts PyTorch has
 no mesh that spans processes: the decomposition is ``host_shard``, each
 host rendering its contiguous block of the work list on its own cards and
 writing its own output files (the dataset-generation case), so no pixel

@@ -3,9 +3,9 @@
 
 A ``Mesh`` is an ordered list of ``torch.device`` entries with named axes.
 A device may appear more than once: every entry has a CUDA stream of its
-own, so ``Mesh(["cuda:0"] * 4)`` runs four slabs as four concurrent
-launches on one card, and ``Mesh(["cuda:0", "cuda:1", ...])`` puts them on
-several. The sharded launches (``engine/cuda_render.py``:
+own, so ``Mesh(["cuda:0"] * 4)`` runs four shares of a frame as four
+concurrent launches on one card, and ``Mesh(["cuda:0", "cuda:1", ...])``
+puts them on several. The sharded launches (``engine/cuda_render.py``:
 ``march_rowshard``, ``march_batch_rowshard``, ``march_rays_rowshard``)
 launch the march kernel once per entry, on that entry's device and stream,
 and copy the outputs into one tensor on the mesh's first device: the
@@ -138,10 +138,11 @@ def render_scene_sharded(scene: Scene, mesh: Optional[Mesh] = None,
     default every visible card).
 
     ``method="pallas"`` (the JAX package's name for the production kernel
-    path; here the CUDA march kernel) launches one row slab per mesh entry:
-    any size works on any mesh (the last slab is clipped, entries past the
-    last row launch nothing), and on the card the frame is bit-equal to the
-    unsharded ``render_scene``. It renders in float32 only.
+    path; here the CUDA march kernel) launches one share of the frame per
+    mesh entry, its dealt tile rows (every n-th from the entry's own): any
+    size works on any mesh (entries past the last tile row launch nothing),
+    and on the card the frame is bit-equal to the unsharded
+    ``render_scene``. It renders in float32 only.
     ``method="xla"`` marches each entry's row slab through the XLA-form
     march (``engine.render.render_scene(mesh=...)``) in ``dtype``: the size
     must divide the mesh, and the frame is bit-equal to the unsharded

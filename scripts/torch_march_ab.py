@@ -12,28 +12,34 @@ default one variant, csrc/ as it is). Then, on the same inputs:
   per function (``kernels.ptxas_report``, ``kernels.sass_functions``)
   against the old build's (registers, spills and static shared memory):
   which of the old build's functions changed, the static instruction count
-  of ``march_kernel<0>``, each new function's, the SASS mix of the perlin
+  of ``march_kernel<0>``, each new function's and how many of its
+  instructions differ from the same kind's frame kernel (difflib over the
+  two instruction lists), the SASS mix of the perlin
   and iq frame kernels, and the resident blocks per SM of every kernel
   form;
 - the iq hash table: its fill time and bytes, and its exhaustive check
   (``chip_smoke.iq_table_check``) under the first variant; the perlin
   gradient table's check (``chip_smoke.perlin_grad_check``) there too;
 - holds every variant's radiance against the old kernels' bit for bit: the
-  512^2 spiral still for each noise kind, its 16 row bands, the progressive
+  512^2 spiral still for each noise kind, its 16 row bands through the
+  frame kernel (``k1_band``), the same bands through the variant's
+  ``march_band`` (the dealt kernel's contiguous runs) against the old
+  build's frame-kernel bands, the progressive
   launch of those 16 bands for each noise kind (one launch on the variant,
-  against the old build's 16 ``march_band`` launches; every band flag set,
+  against the old build's 16 frame-kernel bands; every band flag set,
   the tile counter at its end), the perlin progressive launch on both
   builds, the 8-frame orbit batch, the nside-512 all-sky ray list and the
-  still as 2 and 4 concurrent row slabs on one card (S1's pattern) and as
-  2 slabs one after another, each for simplex, perlin and iq; the iq
+  still as 2 slabs one after another, each for simplex, perlin and iq
+  (S1 against an earlier tree: ``torch_mesh_cards.py --tree``); the iq
   scene whose hash arguments pass the table
   (``chip_smoke.iq_far_scene``: still and progressive launch), two
   instances at 64^2, dusty_disk with dither at 256^2, odd shapes (size
   100, a band past the frame's last row, 3 frames, 1000 rays);
-- times K1 (each kind), the 16 bands, the progressive launch (simplex;
-  perlin on both builds), the batch and the ray list (each kind) and the
-  simplex slabs: CUDA events, median of the samples of two
+- times K1 (each kind), the 16 bands (both forms), the progressive launch
+  (simplex; perlin on both builds), the batch and the ray list (each kind)
+  and the simplex slabs: CUDA events, median of the samples of two
   rounds taken in turns (old, variants..., variants reversed, old);
+- ``--code-only``: the code report alone, no case run;
 - ``--ablate``: the progressive launch and K1 on copies of csrc/ without
   the abort read and without the band flags, in turns with csrc/;
 - for each count of spare blocks in ``--spare``, on the first variant:
@@ -74,6 +80,7 @@ from __future__ import annotations
 import argparse
 import ctypes
 import dataclasses
+import difflib
 import json
 import re
 import shutil
@@ -94,7 +101,6 @@ from gamer_tpu_torch.engine import cuda_render as cr  # noqa: E402
 from gamer_tpu_torch.engine.allsky import allsky_dirs  # noqa: E402
 from gamer_tpu_torch.engine.batch import _scene_groups  # noqa: E402
 from gamer_tpu_torch.models import presets  # noqa: E402
-from gamer_tpu_torch.parallel import Mesh  # noqa: E402
 from gamer_tpu_torch.scene.cameracontrols import orbit_path  # noqa: E402
 
 WORK = ROOT / "build" / "march_ab"
@@ -147,11 +153,27 @@ def load_old(path: Path) -> ctypes.CDLL:
         lib.gamer_march_progressive.argtypes = [p, i, p, i, p, p, i, i, i, i,
                                                 i, p, p, p, p]
         lib.gamer_progress_wait.argtypes = [p, i, i, p, i]
+    if hasattr(lib, "gamer_march_dealt"):
+        lib.gamer_march_dealt.argtypes = [p, i, p, i, p, p, i, i, i, i, i,
+                                          p, p]
     lib.gamer_march_occupancy.argtypes = [i, i]
     lib.gamer_march_block_threads.argtypes = []
     lib.gamer_error_string.argtypes = [i]
     lib.gamer_error_string.restype = ctypes.c_char_p
     return lib
+
+
+def k1_band(page, table, rows: int, row0: int, size: int = SIZE):
+    """The rows row0 + [0, rows) of a frame through the frame kernel
+    (``march_batch`` of one page): K1's code on every build."""
+    return cr.march_batch(page[None], table, size, rows=rows, row0=row0)[0]
+
+
+def sass_distance(a: list, b: list) -> int:
+    """Instructions of ``a`` outside the longest matching runs of ``b``
+    (difflib, no junk heuristic)."""
+    m = difflib.SequenceMatcher(None, a, b, autojunk=False)
+    return len(a) - sum(block.size for block in m.get_matching_blocks())
 
 
 def use(lib) -> None:
@@ -183,6 +205,13 @@ def code_report(path: Path, old: dict, changed: str | None = None) -> dict:
                                   and sass.get(n) != old["sass"][n]]
         report["new_functions"] = {n: len(v) for n, v in sass.items()
                                    if n not in old["sass"]}
+        # each new function against the frame kernel of its kind
+        frame = {m.group(1): v for n, v in sass.items()
+                 if (m := re.search(r"12march_kernelILi(\d)E", n))}
+        report["new_vs_frame_kernel"] = {
+            n: sass_distance(sass[n], frame[m.group(1)])
+            for n in report["new_functions"]
+            if (m := re.search(r"ILi(\d)E", n)) and m.group(1) in frame}
     return report
 
 
@@ -206,6 +235,10 @@ def cases(dev, held: list):
         page, table, _, _ = cr.prepare(scene, dev)
 
         def sweep(page=page, table=table):
+            return torch.cat([k1_band(page, table, band_rows, b * band_rows)
+                              for b in range(n_bands)])
+
+        def band_sweep(page=page, table=table):
             return torch.cat([cr.march_band(page, table, SIZE, band_rows,
                                             b * band_rows)
                               for b in range(n_bands)])
@@ -217,6 +250,8 @@ def cases(dev, held: list):
 
         if kind == "simplex":
             same(f"K5 {n_bands} bands of {SIZE}^2", sweep, True)
+            out[f"K5 {n_bands} bands of {SIZE}^2 as march_band"] = (
+                sweep, band_sweep, True)
         out[f"K5 {kind} as one launch of {n_bands} bands"] = (
             sweep, progressive, kind == "simplex")
         if kind == "perlin":
@@ -226,8 +261,7 @@ def cases(dev, held: list):
     page, table, _, _ = cr.prepare(far, dev)
 
     def far_sweep(page=page, table=table):
-        return torch.cat([cr.march_band(page, table, SIZE, band_rows,
-                                        b * band_rows)
+        return torch.cat([k1_band(page, table, band_rows, b * band_rows)
                           for b in range(n_bands)])
 
     def far_progressive(page=page, table=table):
@@ -254,17 +288,10 @@ def cases(dev, held: list):
         same(f"K6{label} nside {NSIDE}",
              lambda p=sky_page, t=sky_tab: cr.march_rays(p, t, sky), True)
         page, table, _, _ = cr.prepare(main, dev)
-        # S1 on a mesh that names the card n times: n concurrent slab
-        # launches
-        for n in (2, 4):
-            mesh = Mesh(["cuda:0"] * n)
-            same(f"S1{label} {SIZE}^2 on {n} entries of one card",
-                 lambda m=mesh, p=page, t=table: cr.march_rowshard(
-                     p, t, SIZE, m), kind == "simplex")
         half = SIZE // 2
         same(f"2{label} slabs of {half} rows, one stream",
              lambda p=page, t=table: torch.cat(
-                 [cr.march_band(p, t, SIZE, half, r) for r in (0, half)]),
+                 [k1_band(p, t, half, r) for r in (0, half)]),
              kind == "simplex")
     sky_page, sky_tab, _, _ = cr.prepare(cs.allsky_scene(), dev)
     still("two_instance 64^2", cs.two_instance_scene(64))
@@ -273,8 +300,9 @@ def cases(dev, held: list):
     for kind in cr.NOISE_KINDS:
         still(f"{kind} size 100", cs.spiral_scene(100, noise_kind=kind))
     p100, t100, _, _ = cr.prepare(cs.spiral_scene(100), dev)
-    same("band rows 80-127 of 100",
-         lambda: cr.march_band(p100, t100, 100, 48, 80))
+    out["band rows 80-127 of 100"] = (
+        lambda: k1_band(p100, t100, 48, 80, 100),
+        lambda: cr.march_band(p100, t100, 100, 48, 80), False)
     small = cs.spiral_scene(100)
     st3, pages3, _ = _scene_groups(
         [dataclasses.replace(small, camera=c)
@@ -413,6 +441,7 @@ def main() -> int:
     ap.add_argument("--poll", type=int, default=0)
     ap.add_argument("--wait-ab", type=int, default=0)
     ap.add_argument("--cold-child", help=argparse.SUPPRESS)
+    ap.add_argument("--code-only", action="store_true")
     ap.add_argument("--out", type=Path)
     args = ap.parse_args()
     if not torch.cuda.is_available():
@@ -468,14 +497,15 @@ def main() -> int:
             occ = {f"{kind} form {form}": lib.gamer_march_occupancy(k, form)
                    for k, kind in enumerate(cr.NOISE_KINDS)
                    for form in (cr.FORM_FRAMES, cr.FORM_RAYS,
-                                cr.FORM_PROGRESSIVE)}
+                                cr.FORM_PROGRESSIVE, cr.FORM_DEALT)}
         report = {"block_threads": lib.gamer_march_block_threads(),
                   "blocks_per_sm": occ,
                   "ptxas": {n: v for n, v in code["ptxas"].items()
                             if "march" in n},
                   **{k: code[k] for k in (
                       "k1_instructions", "kernel_mix", "ptxas_changed",
-                      "sass_changed", "allowed_changed", "new_functions")}}
+                      "sass_changed", "allowed_changed", "new_functions",
+                      "new_vs_frame_kernel")}}
         same_code = not code["ptxas_changed"] and not code["sass_changed"]
         if args.same_code:
             ok &= same_code and bool(old_code["sass"])
@@ -485,6 +515,8 @@ def main() -> int:
               f"{'unchanged' if same_code else 'CHANGED'}", flush=True)
     print(f"old: perlin and iq kernel SASS mix {old_code['kernel_mix']}",
           flush=True)
+    if args.code_only:
+        return 0 if ok else 1
 
     # --- the iq hash table: built once, by the first variant ---------------
     from gamer_tpu_torch.ops import noise as tnoise

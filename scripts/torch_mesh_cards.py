@@ -1,11 +1,42 @@
-"""The sharded autograd fits and the sharded XLA-form frame of
-gamer_tpu_torch on a mesh of several cards, beside the same calls on one
-card: the results held to the same gates as chip_smoke.py's (JAX's
-tolerances for its own sharded fits, the batch and the XLA-form frame bit
-for bit), the step times and peak memory printed for each.
+"""The sharded launches (S1, S3), the sharded autograd fits and the
+sharded XLA-form frame of gamer_tpu_torch on a mesh of several cards,
+beside the same calls on one card: the results held to the same gates as
+chip_smoke.py's (JAX's tolerances for its own sharded fits; S1, S3, the
+batch and the XLA-form frame bit for bit), the times and peak memory
+printed for each.
 
     python3 scripts/torch_mesh_cards.py            # every visible card
     python3 scripts/torch_mesh_cards.py --cpu 4    # 4 CPU entries, tiny sizes
+    python3 scripts/torch_mesh_cards.py --launches-only   # S1 and S3 alone
+    python3 scripts/torch_mesh_cards.py --launches-only --entries 4
+        # S1 and S3 on 4 entries over the visible cards in turn
+    python3 scripts/torch_mesh_cards.py --launches-only --tree DIR
+        # the same cases on another tree's gamer_tpu_torch (and its
+        # chip_smoke.py), e.g. an earlier commit unpacked with git archive
+    python3 scripts/torch_mesh_cards.py --launches-only --entries 4 \
+        --only "S1 512^2" --reps 64 [--pages-ahead]
+        # one case, 64 calls: S1's call-to-call spread on one card
+
+S1 and S3 (``--launches-only`` runs them alone): ``render_scene(scene,
+mesh=)`` on the smoke's spiral at 512^2, 2048^2 and 4096^2 (simplex;
+perlin and iq at 4096^2) and ``render_allsky_map(..., mesh=)`` on the
+smoke's all-sky scene at nside 512 and 1024, each bit-equal to the
+unsharded call; then ``march_rowshard`` / ``march_rays_rowshard`` on the
+same page, with each entry's launch timed by CUDA events on that entry's
+stream beside its tile count, the assembly (the copies into the first
+card's tensor, events on its stream), the call's wall time until the
+output is ready on the first card, and one card's ``march`` /
+``march_rays`` of the same work, bit-equal; the bound per card is the
+plain version's work counts at 128^2 (nside 32) scaled to the case and
+divided by the entries. Each call is also timed whole by CUDA events on
+the first card's stream (as chip_smoke.py times S1), with the calls that
+took more than ``SLOW_OVER_MEDIAN`` times the median counted. ``--only
+TEXT`` runs the cases whose name holds TEXT; ``--pages-ahead`` makes the
+per-entry page copies (``cuda_render._with_row0``: the share's first row
+written into a copy of the page) once, before the timed calls, so that a
+call launches the march kernels and the counters' fills alone. The peer
+access of every pair of cards and ``nvidia-smi topo -m`` are printed
+first.
 
 Prints one line per case and, last, a JSON object of the readings; exits
 non-zero if a gate fails. With one card it compares the card named n
@@ -16,6 +47,7 @@ from __future__ import annotations
 
 import dataclasses
 import json
+import subprocess
 import sys
 import time
 from pathlib import Path
@@ -24,7 +56,10 @@ import numpy as np
 import torch
 
 ROOT = Path(__file__).resolve().parent.parent
-sys.path.insert(0, str(ROOT))
+# --tree DIR: the package and chip_smoke.py of another tree
+TREE = (Path(sys.argv[sys.argv.index("--tree") + 1]).resolve()
+        if "--tree" in sys.argv else ROOT)
+sys.path.insert(0, str(TREE))
 
 # the smoke's gates and scenes, so the two hold the fits to one standard
 from chip_smoke import (  # noqa: E402
@@ -32,10 +67,299 @@ from chip_smoke import (  # noqa: E402
     MESH_FIT_RTOL as RTOL,
     POSE_START,
     _rel as rel,
+    allsky_scene,
     card_line,
+    march_bound,
     scaled,
     spiral_scene,
 )
+
+# S1's frames (size, noise kind) and S3's skies (nside) on the card, and
+# their reduced forms on CPU entries
+S1_CASES = ((512, "simplex"), (2048, "simplex"), (4096, "simplex"),
+            (4096, "perlin"), (4096, "iq"))
+S3_NSIDES = (512, 1024)
+S1_CPU, S3_CPU = ((16, "simplex"), (20, "iq")), (4,)
+# the plain run whose work counts, scaled, give a case's bound
+BOUND_SIZE, BOUND_NSIDE = 128, 32
+# a call this many times its case's median counts as slow
+SLOW_OVER_MEDIAN = 1.05
+
+
+class EntryTimes:
+    """Events around each entry's launch (on the entry's stream) and
+    around each copy of the assembly (on the first card's stream), taken by
+    wrapping the sharded launches' per-entry wrapper (``names``) and
+    ``_gather`` of cuda_render for the length of a ``with`` block. On CPU
+    entries only each launch's device and tiles are kept."""
+
+    def __init__(self, cr, names, tiles, cuda: bool):
+        self.cr, self.names, self.tiles, self.cuda = cr, names, tiles, cuda
+        self.launches, self.copies = [], []
+
+    def __enter__(self):
+        cr, self.saved = self.cr, {}
+        for name in self.names + ("_gather",):
+            if hasattr(cr, name):
+                self.saved[name] = getattr(cr, name)
+        for name, fn in self.saved.items():
+            setattr(cr, name, self._copy(fn) if name == "_gather"
+                    else self._launch(fn))
+        return self
+
+    def __exit__(self, *exc):
+        for name, fn in self.saved.items():
+            if hasattr(fn, "launch_count"):
+                fn.launch_count = getattr(self.cr, name).launch_count
+            setattr(self.cr, name, fn)
+
+    def _launch(self, fn):
+        def timed(page, *args, **kwargs):
+            if not self.cuda:
+                out = fn(page, *args, **kwargs)
+                self.launches.append((str(page.device), None, None,
+                                      self.tiles(out)))
+                return out
+            stream = torch.cuda.current_stream(page.device)
+            e0, e1 = (torch.cuda.Event(enable_timing=True) for _ in "ab")
+            e0.record(stream)
+            out = fn(page, *args, **kwargs)
+            e1.record(stream)
+            self.launches.append((str(page.device), e0, e1,
+                                  self.tiles(out)))
+            return out
+        # the wrapper counts its launches under its module name, now this
+        timed.launch_count = getattr(fn, "launch_count", 0)
+        return timed
+
+    def _copy(self, fn):
+        def timed(dst, src, mesh, i):
+            if not self.cuda:
+                return fn(dst, src, mesh, i)
+            stream = torch.cuda.current_stream(dst.device)
+            if mesh.stream(i) is not None:
+                stream.wait_stream(mesh.stream(i))
+            e0, e1 = (torch.cuda.Event(enable_timing=True) for _ in "ab")
+            e0.record(stream)
+            fn(dst, src, mesh, i)
+            e1.record(stream)
+            self.copies.append((e0, e1))
+        return timed
+
+    def read(self):
+        """([(device, kernel ms, tiles)] in launch order, assembly ms)."""
+        for d in range(torch.cuda.device_count()):
+            torch.cuda.synchronize(d)
+        return ([(dev, e0.elapsed_time(e1), t)
+                 for dev, e0, e1, t in self.launches],
+                sum(e0.elapsed_time(e1) for e0, e1 in self.copies))
+
+
+def topology(cuda: bool) -> dict:
+    """Peer access of every ordered pair of cards and nvidia-smi's
+    topology matrix."""
+    if not cuda:
+        return {"peer": {}, "topo": "not measured (CPU entries)"}
+    n = torch.cuda.device_count()
+    peer = {f"{a}->{b}": torch.cuda.can_device_access_peer(a, b)
+            for a in range(n) for b in range(n) if a != b}
+    topo = subprocess.run(["nvidia-smi", "topo", "-m"], capture_output=True,
+                          text=True, timeout=60).stdout
+    return {"peer": peer, "topo": topo}
+
+
+def sharded_launch_cases(cuda: bool, cards, card: str, reps: int,
+                         readings: dict, failed: list, only: str = "",
+                         pages_ahead: bool = False) -> None:
+    """S1 and S3 on ``cards`` beside one card's K1 / K6 (see the module's
+    docstring); readings["S1 ..."] / ["S3 ..."] per case."""
+    import gamer_tpu_torch as gt
+    from gamer_tpu_torch.engine import cuda_render as cr
+    from gamer_tpu_torch.engine.allsky import allsky_dirs
+
+    dev = torch.device("cuda", 0) if cuda else torch.device("cpu")
+    n = cards.size
+    s1 = [c for c in (S1_CASES if cuda else S1_CPU)
+          if only in f"S1 {c[0]}^2 {c[1]}"]
+    s3 = [c for c in (S3_NSIDES if cuda else S3_CPU)
+          if only in f"S3 nside {c}"]
+    preview = {} if cuda else {"is_preview": True, "noise_octaves": 2}
+    if pages_ahead and hasattr(cr, "_with_row0"):
+        made, with_row0 = {}, cr._with_row0
+
+        def made_ahead(page, row0):
+            key = (page.data_ptr(), str(page.device), tuple(page.shape),
+                   int(row0))
+            if key not in made:  # (the page held: its address stays its)
+                made[key] = (page, with_row0(page, row0))
+            return made[key][1]
+
+        cr._with_row0 = made_ahead
+
+    def sync():
+        if cuda:
+            for d in range(torch.cuda.device_count()):
+                torch.cuda.synchronize(d)
+
+    def one_card_ms(fn):
+        """(median device ms of ``reps`` calls, output) on the first card."""
+        if not cuda:
+            return float("nan"), fn()
+        times = []
+        for _ in range(reps):
+            sync()
+            e0, e1 = (torch.cuda.Event(enable_timing=True) for _ in "ab")
+            e0.record()
+            out = fn()
+            e1.record()
+            sync()
+            times.append(e0.elapsed_time(e1))
+        return float(np.median(times)), out
+
+    def sharded(fn, names, tiles):
+        """Per rep: each entry's (device, ms, tiles), the assembly ms and
+        the wall ms until the output is ready on the first card; the last
+        rep's output."""
+        rows, out = [], None
+        for _ in range(reps):
+            sync()
+            with EntryTimes(cr, names, tiles, cuda) as times:
+                call = [torch.cuda.Event(enable_timing=True)
+                        for _ in "ab"] if cuda else None
+                t0 = time.perf_counter()
+                if cuda:
+                    call[0].record()
+                out = fn()
+                if cuda:
+                    call[1].record()
+                    torch.cuda.synchronize(dev)
+                wall = (time.perf_counter() - t0) * 1e3
+            if cuda:
+                entries, assembly = times.read()
+                call_ms = call[0].elapsed_time(call[1])
+            else:
+                entries = [(d, float("nan"), t)
+                           for d, _, _, t in times.launches]
+                assembly = call_ms = float("nan")
+            rows.append({"entries": entries, "assembly_ms": assembly,
+                         "wall_ms": wall, "call_ms": call_ms})
+        return rows, out
+
+    def summary(name, rows, one_ms, bound, same, main_same):
+        ms = np.array([[e[1] for e in r["entries"]] for r in rows])
+        med = np.median(ms, axis=0)
+        mean = float(med.mean())
+        out = {"entries": [{"device": e[0], "ms": float(m), "tiles": e[2],
+                            "warps": warps(e[0], e[2])}
+                           for e, m in zip(rows[0]["entries"], med)],
+               "entry_ms_reps": ms.tolist(),
+               "heaviest_over_mean": float(med.max() / mean),
+               "spread_over_mean": float((med.max() - med.min()) / mean),
+               "assembly_ms": float(np.median([r["assembly_ms"]
+                                               for r in rows])),
+               "wall_ms": float(np.median([r["wall_ms"] for r in rows])),
+               "wall_ms_reps": [r["wall_ms"] for r in rows],
+               "call_ms_reps": [r["call_ms"] for r in rows],
+               "one_card_ms": one_ms, "bound_per_card_ms": bound,
+               "bit_equal": same, "main_path_bit_equal": main_same}
+        calls = np.array(out["call_ms_reps"])
+        call_med = float(np.median(calls))
+        out["slow_calls"] = int((calls > SLOW_OVER_MEDIAN * call_med).sum())
+        readings[name] = out
+        if not (same and main_same):
+            failed.append(f"{name}: not bit-equal to one card")
+        print(f"[{card}] {name} on {n} entries (medians of {reps}): entries "
+              + ", ".join(f"{e['device']} {e['ms']:.3f} ms / {e['tiles']} "
+                          f"tiles / {e['warps']} warps"
+                          for e in out["entries"])
+              + f"; heaviest / mean {out['heaviest_over_mean']:.4f}, "
+              f"(max - min) / mean {out['spread_over_mean']:.4f}; assembly "
+              f"{out['assembly_ms']:.3f} ms; wall to the first card "
+              f"{out['wall_ms']:.3f} ms; whole call median {call_med:.3f} "
+              f"ms, slowest {calls.max():.3f} ms, {out['slow_calls']} of "
+              f"{reps} calls above {SLOW_OVER_MEDIAN} x the median; one "
+              f"card {one_ms:.3f} ms; bound "
+              f"per card {bound:.4f} ms; "
+              f"{'bit-equal' if cuda else 'close'} {same}, main path "
+              f"{main_same}", flush=True)
+
+    def equal(a, b):
+        """Bit for bit on the card; on CPU entries within 1 uint8 LSB or
+        1e-5 relative (torch's CPU kernels round a tensor's tail elements
+        apart, tests/test_torch_plain_reuse.py)."""
+        if cuda:
+            return bool(torch.equal(a, b) if torch.is_tensor(a)
+                        else np.array_equal(a, b))
+        if torch.is_tensor(a):
+            return bool(torch.allclose(a, b, rtol=1e-5, atol=1e-6))
+        if a.dtype == np.uint8:
+            return int(np.abs(a.astype(np.int16) - b).max()) <= 1
+        return bool(np.allclose(a, b, rtol=1e-5, atol=1e-7))
+
+    def warps(device, tiles):
+        """The warps of a launch of ``tiles`` tiles (its persistent grid;
+        the card holds blocks x SMs x warps a block at once)."""
+        if not cuda:
+            return 0
+        blocks, sms, per_block = cr.occupancy(torch.device(device), 0,
+                                              cr.FORM_FRAMES)
+        return cr.persistent_grid(blocks, sms, tiles, per_block) * per_block
+
+    def bound_ms(kind, stats, scale, in_bytes, out_bytes):
+        stats = {k: v * scale for k, v in stats.items()}
+        return march_bound(stats, in_bytes, out_bytes, kind)[0] / n
+
+    def frame_tiles(out):
+        return cr.frame_tiles(out.shape[1], out.shape[0])
+
+    def list_tiles(out):
+        return cr.ray_tiles(out.shape[0])
+
+    for size, kind in s1:
+        scene = spiral_scene(size, noise_kind=kind, **preview)
+        main_same = equal(gt.render_scene(scene, mesh=cards),
+                          gt.render_scene(scene, device=dev))
+        page, table, _, _ = cr.prepare(scene, dev)
+        one_ms, want = one_card_ms(lambda: cr.march(page, table, size))
+        cr.march_rowshard(page, table, size, cards)  # warm-up: the streams
+        rows, got = sharded(lambda: cr.march_rowshard(page, table, size,
+                                                      cards),
+                            ("march_dealt", "march_band",
+                             "march_dealt_plain", "march_band_plain"),
+                            frame_tiles)
+        same = equal(got, want)
+        del got, want
+        small = min(size, BOUND_SIZE)
+        bp, bt, _, _ = cr.prepare(spiral_scene(small, noise_kind=kind,
+                                               **preview), dev)
+        stats = {}
+        cr.march_plain(bp, bt, small, stats=stats)
+        bound = bound_ms(kind, stats, (size / small) ** 2,
+                         page.numel() * 4 + table.numel() * 4,
+                         size * size * 12)
+        summary(f"S1 {size}^2 {kind}", rows, one_ms, bound, same, main_same)
+    sky = allsky_scene(**preview)
+    for nside in s3:
+        main_same = equal(gt.render_allsky_map(sky, nside, mesh=cards),
+                          gt.render_allsky_map(sky, nside, device=dev))
+        page, table, _, _ = cr.prepare(sky, dev)
+        dirs = torch.as_tensor(allsky_dirs(nside), device=dev)
+        one_ms, want = one_card_ms(lambda: cr.march_rays(page, table, dirs))
+        cr.march_rays_rowshard(page, table, dirs, cards)  # warm-up
+        rows, got = sharded(lambda: cr.march_rays_rowshard(page, table, dirs,
+                                                           cards),
+                            ("march_rays", "march_rays_plain"), list_tiles)
+        same = equal(got, want)
+        del got, want
+        small = min(nside, BOUND_NSIDE)
+        stats = {}
+        cr.march_rays_plain(page, table, torch.as_tensor(
+            allsky_dirs(small), device=dev), stats=stats)
+        bound = bound_ms("simplex", stats, (nside / small) ** 2,
+                         page.numel() * 4 + table.numel() * 4
+                         + dirs.numel() * 4, dirs.numel() * 4)
+        summary(f"S3 nside {nside}", rows, one_ms, bound, same, main_same)
+        del dirs
 
 
 def main() -> int:
@@ -48,6 +372,7 @@ def main() -> int:
 
     args = sys.argv[1:]
     cuda = "--cpu" not in args
+    reps = int(args[args.index("--reps") + 1]) if "--reps" in args else 3
     if cuda:
         n = torch.cuda.device_count()
         if n < 1:
@@ -102,6 +427,21 @@ def main() -> int:
         return scaled(spiral_scene(size, **cfg), "strength", factor)
 
     readings, failed = {}, []
+    readings["topology"] = topology(cuda)
+    print(f"[{card}] tree {TREE}; peer access "
+          f"{readings['topology']['peer']}; nvidia-smi topo -m:\n"
+          f"{readings['topology']['topo']}", flush=True)
+    # --entries N: S1 and S3 on N entries over the mesh's devices in turn
+    # (one card: that card N times)
+    k = int(args[args.index("--entries") + 1]) if "--entries" in args else n
+    launch_mesh = Mesh([cards.devices[i % n] for i in range(k)])
+    only = args[args.index("--only") + 1] if "--only" in args else ""
+    sharded_launch_cases(cuda, launch_mesh, card, reps, readings, failed,
+                         only, "--pages-ahead" in args)
+    if "--launches-only" in args:
+        print(json.dumps({"card": card, "entries": n, "readings": readings,
+                          "failed": failed}))
+        return 1 if failed else 0
 
     def case(name, runs, gate, bit=False):
         base = runs["unsharded"][0]

@@ -628,11 +628,12 @@ def test_concurrent_launches_keep_their_own_counters(cuda):
 
 
 def test_occupancy_meets_the_register_budget(cuda):
-    """The frame, ray-list and progressive kernels of every kind hold at
-    least MIN_BLOCKS blocks of 256 threads per SM, and a launch's grid is
-    the card's resident blocks."""
+    """The frame, ray-list, progressive and dealt kernels of every kind
+    hold at least MIN_BLOCKS blocks of 256 threads per SM, and a launch's
+    grid is the card's resident blocks."""
     for kind in range(len(cr.NOISE_KINDS)):
-        for form in (cr.FORM_FRAMES, cr.FORM_RAYS, cr.FORM_PROGRESSIVE):
+        for form in (cr.FORM_FRAMES, cr.FORM_RAYS, cr.FORM_PROGRESSIVE,
+                     cr.FORM_DEALT):
             blocks, sms, warps = cr.occupancy(cuda, kind, form)
             assert warps == 8 and blocks >= MIN_BLOCKS
             assert sms == torch.cuda.get_device_properties(
@@ -668,14 +669,84 @@ def _one_card_mesh(n, *axes):
 @pytest.mark.parametrize("n,size", [(1, 96), (2, 96), (3, 100), (4, 40)])
 def test_rowshard_equals_fused_frame(cuda, n, size):
     """S1: the row-sharded frame is bit-equal to the fused frame, with one
-    launch per slab that owns rows; size 100 on 3 entries clips the last
-    slab, size 40 on 4 leaves three entries without a row."""
+    launch per entry that owns a tile row, min(n, tile rows); on one card
+    size 100 on 3 entries cuts 25 tile rows into runs of 9, 8 and 8, size
+    40 on 4 cuts 10 into 3, 3, 2 and 2."""
     scene = _scene(presets.spiral(), size)
     before = cr.march_rowshard.launch_count
+    before_dealt = cr.march_dealt.launch_count
     got = gt.render_scene(scene, mesh=_one_card_mesh(n))
-    slabs = -(-size // cr.slab_rows(size, n))
-    assert cr.march_rowshard.launch_count == before + slabs
+    owners = min(n, -(-size // cr.TILE_H))
+    assert cr.march_rowshard.launch_count == before + owners
+    assert cr.march_dealt.launch_count == before_dealt + owners
     np.testing.assert_array_equal(got, gt.render_scene(scene, device="cuda"))
+
+
+@pytest.mark.parametrize("kind", ["simplex", "perlin", "iq"])
+def test_dealt_shares_equal_the_unsharded_kernels(cuda, kind):
+    """S1 and S3 over 3 and 5 entries of one card: every frame and ray
+    bit-equal to march / march_rays; a dealt launch's strips (every third
+    tile row, as on three cards) are those tile rows of march's frame; size
+    20 on 8 entries leaves three without a tile row, 100 rays on 5 entries
+    (4 tiles, the last short) one without a tile."""
+    from gamer_tpu_torch.engine.allsky import allsky_dirs
+
+    scene = _scene(presets.spiral(), 100, noise_kind=kind)
+    page, table, size, _ = cr.prepare(scene, cuda)
+    want = cr.march(page, table, size)
+    mesh = _one_card_mesh(3)
+    assert torch.equal(cr.march_rowshard(page, table, size, mesh), want)
+    tiles = want.view(size // cr.TILE_H, cr.TILE_H, size, 3)
+    for i in range(3):
+        strips = cr.march_dealt(page, table, size, i, 3, cr.dealt(25, 3, i))
+        assert torch.equal(strips, tiles[i::3].reshape(-1, size, 3))
+    small = _scene(presets.spiral(), 20, noise_kind=kind)
+    before = cr.march_rowshard.launch_count
+    np.testing.assert_array_equal(
+        gt.render_scene(small, mesh=_one_card_mesh(8)),
+        gt.render_scene(small, device="cuda"))
+    assert cr.march_rowshard.launch_count == before + 5
+    sky_page, sky_table, _, _ = cr.prepare(
+        _inside_scene(noise_kind=kind), cuda)
+    dirs = torch.as_tensor(allsky_dirs(8), device=cuda)
+    for d, n in ((dirs, 3), (dirs[::7][:100].contiguous(), 5)):
+        before = cr.march_rays_rowshard.launch_count
+        assert torch.equal(
+            cr.march_rays_rowshard(sky_page, sky_table, d,
+                                   _one_card_mesh(n)),
+            cr.march_rays(sky_page, sky_table, d))
+        assert cr.march_rays_rowshard.launch_count == before + min(
+            n, cr.ray_tiles(d.shape[0]))
+
+
+@pytest.mark.parametrize("kind", ["simplex", "perlin", "iq"])
+def test_dealt_shares_on_every_card(cuda, kind):
+    """S1 and S3 dealt over every visible card (needs at least two), and
+    over two entries a card: the frame and the map bit-equal to card 0's
+    march / march_rays."""
+    import gamer_tpu_torch.parallel as par
+    from gamer_tpu_torch.engine.allsky import allsky_dirs
+
+    n = torch.cuda.device_count()
+    if n < 2:
+        pytest.skip("needs at least two CUDA cards")
+    mesh = par.make_pixel_mesh()
+    page, table, size, _ = cr.prepare(
+        _scene(presets.spiral(), 256, noise_kind=kind), cuda)
+    before = cr.march_dealt.launch_count
+    assert torch.equal(cr.march_rowshard(page, table, size, mesh),
+                       cr.march(page, table, size))
+    assert cr.march_dealt.launch_count == before + n
+    twice = par.make_pixel_mesh(list(mesh.devices) * 2)
+    assert torch.equal(cr.march_rowshard(page, table, size, twice),
+                       cr.march(page, table, size))
+    sky_page, sky_table, _, _ = cr.prepare(
+        _inside_scene(noise_kind=kind), cuda)
+    dirs = torch.as_tensor(allsky_dirs(32), device=cuda)
+    for m in (mesh, twice):
+        assert torch.equal(
+            cr.march_rays_rowshard(sky_page, sky_table, dirs, m),
+            cr.march_rays(sky_page, sky_table, dirs))
 
 
 def test_rowshard_supersample_and_stars(cuda):
@@ -732,8 +803,8 @@ def test_sharded_kernels_match_plain(cuda):
 
 
 def test_batch_and_ray_shards_equal_unsharded(cuda):
-    """S2 (1-D with a pad frame, and 2-D) and S3 (a tail block) are
-    bit-equal to the unsharded launches."""
+    """S2 (1-D with a pad frame, and 2-D) and S3 (192 rays, 6 tiles dealt
+    to 5 entries) are bit-equal to the unsharded launches."""
     from gamer_tpu_torch.scene.cameracontrols import orbit_path
 
     scene = _scene(presets.spiral(), 80)

@@ -3,7 +3,8 @@ the port's unsharded frame and against ``gamer_tpu.parallel``'s row-sharded
 Pallas frame on the 8 virtual devices, the mesh type, ``host_shard`` and a
 two-process ``torch.distributed`` job.
 
-On ``Mesh(["cpu"] * n)`` every entry runs the plain march on its slab.
+On ``Mesh(["cpu"] * n)`` every entry runs the plain march on its dealt
+tile rows.
 Tolerances: <= 1 uint8 LSB between the port's sharded and unsharded frames
 (torch's vector and scalar CPU paths may round an element differently when
 the tensor shapes differ), <= 2 LSB against the interpreted Pallas kernel
@@ -68,8 +69,8 @@ def unsharded_40():
 
 @pytest.mark.parametrize("n", [1, 2, 3, 8])
 def test_rowshard_matches_unsharded(n, unsharded_40):
-    """Size 40 tiles no mesh here: one 32-row slab and a clipped 8-row one;
-    from the third entry on an entry owns no row and runs nothing."""
+    """Size 40 is 10 tile rows, dealt i, i + n, ...: on 3 entries the
+    first owns four, on 8 the first two own two and the others one."""
     frame = gt.render_scene(_scene(40, ray_step=0.1), mesh=Mesh(["cpu"] * n))
     assert frame.shape == (40, 40, 3) and frame.dtype == np.uint8
     assert int(frame[32:].sum()) > 0
@@ -78,8 +79,9 @@ def test_rowshard_matches_unsharded(n, unsharded_40):
 
 def test_rowshard_slab_geometry_is_the_jax_one():
     """A slab is a whole number of tile heights, the same for every entry
-    (pallas_render.py:1157-1160); the plain slabs of a frame that does not
-    tile are its rows, the last one clipped."""
+    (pallas_render.py:1157-1160): S2's 'rows' axis and the XLA-form frame
+    cut these slabs. S1 deals tile rows instead: its plain frame of a size
+    that does not tile is each entry's strips placed at their rows."""
     from gamer_tpu.engine.pallas_render import _tile_rows
 
     for size, n in ((20, 3), (20, 8), (40, 8), (100, 3), (512, 4),
@@ -88,17 +90,21 @@ def test_rowshard_slab_geometry_is_the_jax_one():
         assert cr.slab_rows(size, n) == -(-size // (n * tr)) * tr
     page, table, size, _ = cr.prepare(_scene(40, ray_step=0.2), "cpu")
     whole = cr.march_plain(page, table, size)
-    slabs = [cr.march_band_plain(page, table, size, rows, row0)
-             for row0, rows in ((0, 32), (32, 8))]
+    placed = torch.zeros_like(whole).view(size // cr.TILE_H, cr.TILE_H,
+                                          size, 3)
+    for i in range(2):  # entries on the CPU are dealt as two cards
+        placed[i::2] = cr.march_dealt_plain(page, table, size, i, 2,
+                                            5).view(-1, cr.TILE_H, size, 3)
     sharded = cr.march_rowshard_plain(page, table, size, Mesh(["cpu"] * 2))
-    torch.testing.assert_close(sharded, torch.cat(slabs), rtol=0, atol=0)
+    torch.testing.assert_close(sharded, placed.view(size, size, 3), rtol=0,
+                               atol=0)
     torch.testing.assert_close(sharded, whole, rtol=1e-5, atol=1e-6)
     assert cr.march_rowshard.launch_count == 0  # no kernel on the CPU
 
 
 def test_rowshard_supersample_pools_after_assembly():
-    """supersample=2 at size 20 marches 40 rows: slabs of 32 and 8 march
-    rows, pooled once the frame is whole; stars go on after that."""
+    """supersample=2 at size 20 marches 40 rows: 10 tile rows dealt over 3
+    entries, pooled once the frame is whole; stars go on after that."""
     scene = _scene(20, ray_step=0.1, supersample=2, no_stars=30, star_seed=5)
     frame = gt.render_scene(scene, mesh=Mesh(["cpu"] * 3))
     assert frame.shape == (20, 20, 3)
