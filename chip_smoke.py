@@ -918,7 +918,8 @@ def report_build() -> None:
             log(f"ptxas: {line.strip()}")
     threads = lib.gamer_march_block_threads()
     forms = ((0, "march_kernel"), (1, "march_rays_kernel"),
-             (2, "march_progressive_kernel"), (3, "march_dealt_kernel"))
+             (2, "march_progressive_kernel"), (3, "march_dealt_kernel"),
+             (4, "march_dealt_stack_kernel"))
     with torch.cuda.device(0):
         for k, kind in enumerate(NOISE_KINDS):
             for form, name in forms:
@@ -3503,7 +3504,8 @@ def main() -> int:
     s2_wall_ms = (time.perf_counter() - t) * 1e3
     s2_launches = read_counts()
     check(s2_launches["march_batch_rowshard"] == MESH_ENTRIES
-          and s2_launches["march_batch"] == MESH_ENTRIES,
+          and s2_launches["march_dealt"] == MESH_ENTRIES
+          and s2_launches["march_batch"] == 0,
           f"the batch-sharded orbit launched {s2_launches}")
     check(np.array_equal(fly_sharded, fly),
           "the batch-sharded orbit differs from render_batch's frames")
@@ -3511,19 +3513,39 @@ def main() -> int:
     fly_2d = gt.render_flythrough(main_scene, fly_cams, mesh=mesh2d)
     s2_launches_2d = read_counts()
     check(s2_launches_2d["march_batch_rowshard"] == 4
+          and s2_launches_2d["march_dealt"] == 4
           and np.array_equal(fly_2d, fly),
           f"the orbit on a 2 x 2 mesh: {s2_launches_2d}, or frames differ")
+    # a 3-frame group on 4 entries: each entry marches its tile rows of the
+    # 3 frames, no pad frame (the stacks each dealt launch was given)
+    stacks, real_dealt = [], cr.march_dealt
+
+    def dealt_seen(pages, *args):
+        stacks.append(pages.shape[0])
+        return real_dealt(pages, *args)
+
+    # (the wrapper counts its launches under its module name, now this)
+    dealt_seen.launch_count = real_dealt.launch_count
     before = cr.march_batch_rowshard.launch_count
-    three = gt.render_flythrough(main_scene, fly_cams[:3], mesh=batch_mesh)
+    cr.march_dealt = dealt_seen
+    try:
+        three = gt.render_flythrough(main_scene, fly_cams[:3],
+                                     mesh=batch_mesh)
+    finally:
+        cr.march_dealt = real_dealt
+        real_dealt.launch_count = dealt_seen.launch_count
     check(three.shape[0] == 3 and np.array_equal(three, fly[:3])
-          and cr.march_batch_rowshard.launch_count - before == MESH_ENTRIES,
-          "3 frames on 4 entries: one pad frame, sliced off, expected")
+          and cr.march_batch_rowshard.launch_count - before == MESH_ENTRIES
+          and stacks == [3] * MESH_ENTRIES,
+          f"3 frames on 4 entries: dealt stacks {stacks}, expected "
+          f"{MESH_ENTRIES} of 3 frames (no pad frame)")
     log(f"S2 main path: render_flythrough(spiral {MAIN_SIZE}^2, {FLY_FRAMES} "
         f"cameras, mesh=4 x cuda:0 'batch') launched {s2_launches}, "
         f"{s2_wall_ms:.1f} ms wall with download; on a (2 batch x 2 rows) "
-        f"mesh {s2_launches_2d['march_batch_rowshard']} launches; a 3-frame "
-        f"group on 4 entries is padded by one frame; every frame bit-equal "
-        f"to render_batch's")
+        f"mesh {s2_launches_2d['march_dealt']} dealt launches; a 3-frame "
+        f"group on 4 entries is {len(stacks)} dealt launches of "
+        f"{stacks} frames, no pad frame; every frame bit-equal to "
+        f"render_batch's")
     s2_ms_1d, _ = cuda_ms(lambda: cr.march_batch_rowshard(
         fly_pages_d, fly_tab, MAIN_SIZE, batch_mesh), 5)
     s2_ms_2d, _ = cuda_ms(lambda: cr.march_batch_rowshard(
@@ -3533,7 +3555,7 @@ def main() -> int:
     s2_k_ms, s2_k = cuda_ms(lambda: cr.march_batch_rowshard(
         two, fly_tab, MAIN_SIZE, mesh2d), 5)
     # against K4's plain run of the same 2 frames (S2's plain version, one
-    # march_batch_plain per entry, is bit-equal to it)
+    # march_dealt_plain per entry, is bit-equal to it)
     s2_plain_ms = batch_plain_ms
     s2_err = float((s2_k - batch_p).abs().max())
     mx, frac, mean_d = lsb_diff(post_cpu(s2_k, main_scene),
@@ -3818,20 +3840,27 @@ def main() -> int:
         check(counts["march_rowshard"] == MESH_ENTRIES
               and np.array_equal(job.image, frame),
               f"mesh service single: {counts}")
-        # three requests queued while the worker is down pad to four
+        # three requests queued while the worker is down are one launch of
+        # three frames, dealt with no pad frame
         svc.stop()
         jids = [svc.submit(s) for s in serve_orbit[:3]]
+        before = svc.metrics["batched_frames"]
+        reset_counts()
         svc.start()
         jobs = [done(svc, j) for j in jids]
-        check(svc.metrics["padded_frames"] == 1
+        counts = read_counts()
+        check(counts["march_batch_rowshard"] == MESH_ENTRIES
+              and svc.metrics["batched_frames"] == before + 3
+              and svc.metrics["padded_frames"] == 0
               and all(np.array_equal(j.image, w)
                       for j, w in zip(jobs, serve_stills)),
-              f"mesh service pad: {svc.metrics}")
+              f"mesh service, 3 requests: {counts}, {svc.metrics}")
         log(f"service over mesh=4 x cuda:0: 8 requests were "
             f"{MESH_ENTRIES} march_batch_rowshard launches, a {MAIN_SIZE}^2 "
             f"single {MESH_ENTRIES} march_rowshard launches, 3 requests "
-            f"padded by one frame; a 5-request wave with max_batch=4 was a "
-            f"launch of 4 and a single; all bit-equal to render_scene")
+            f"{MESH_ENTRIES} launches of 3 frames, no pad frame; a 5-request "
+            f"wave with max_batch=4 was a launch of 4 and a single; all "
+            f"bit-equal to render_scene")
     finally:
         svc.stop()
 
@@ -4044,9 +4073,12 @@ def main() -> int:
         entry("rowshard", "gamer_tpu/engine/pallas_render.py:1124",
               s1_launches["march_rowshard"], s1_err, s1_k_ms, s1_plain_ms,
               k1_bound),
+        # S2's launch on each mesh entry: march_dealt over its tile rows of
+        # every frame, march_dealt_stack_kernel for several frames (its
+        # launches the S2 path's dealt launches)
         entry("batch_rowshard", "gamer_tpu/engine/pallas_render.py:1190",
-              s2_launches["march_batch_rowshard"], s2_err, s2_k_ms,
-              s2_plain_ms, batch_bound),
+              s2_launches["march_dealt"], s2_err, s2_k_ms, s2_plain_ms,
+              batch_bound),
         entry("dirs_rowshard", "gamer_tpu/engine/pallas_render.py:1349",
               s3_launches["march_rays_rowshard"], s3_err, s3_k_ms,
               s3_plain_ms, sky_bound),

@@ -79,19 +79,25 @@
 // under half the card (64 blocks for 512 tiles at 512^2), so 16 launches
 // of one band took 3.7 x the still's time (PERF.md).
 //
-// One frame over several cards (S1, _compiled_rowshard :1124-1187, which
-// gives each chip one contiguous slab of rows): march_dealt_kernel marches
-// one mesh entry's share, the tile rows first + k * stride (on n cards,
-// card i's rows i, i + n, i + 2n, ...; the first row comes as the page's
+// One frame or a batch over several cards (S1, _compiled_rowshard
+// :1124-1187, which gives each chip one contiguous slab of rows; S2,
+// _compiled_batch_rowshard :1190-1240 and the batch shard_map, which give
+// each chip whole frames, padded to a multiple of the chips, and row
+// slabs): march_dealt_kernel marches one mesh entry's share of a frame,
+// march_dealt_stack_kernel of every frame of a page stack, the tile rows
+// first + k * stride (on n cards,
+// card i's rows i, i + n, i + 2n, ...; the first row comes as each page's
 // row0, as a band's does), each across the whole width, into a compact
-// strip stack that the host places into the frame. A ray's cost
+// strip stack that the host places into the frames. A ray's cost
 // is set by its raw-noise evaluations, which vary ~2.8x between the disk's
 // rows and the edge's while the samples vary ~3 %, so contiguous slabs
-// gave four cards shares up to ~1.3x their mean; dealt tile rows give
-// every card the same mix of rows, for any view. Entries that name one
-// card cut its rows into contiguous runs (cuda_render.deal_plan). The ray
-// list (S3) is dealt the same way by its wrapper, in 32-ray tiles, through
-// march_rays_kernel as it is.
+// gave four cards shares up to ~1.3x their mean, and whole frames leave
+// cards idle or marching pad frames when the batch does not tile them;
+// dealt tile rows give every card the same mix of rows of every frame,
+// for any view and any batch. Entries that name one card cut its rows
+// into contiguous runs (cuda_render.deal_plan). The ray list (S3) is dealt
+// the same way by its wrapper, in 32-ray tiles, through march_rays_kernel
+// as it is.
 //
 // Noise kinds. The raw noise backend (simplex, perlin, iq) is the same for
 // every component of a scene; it is a template parameter of both kernels
@@ -563,14 +569,17 @@ __device__ __forceinline__ bool aborted(const int* abort_word, int lane) {
 // true: the n_rays directions dirs (n_rays, 3) from the one page's camera
 // point into out (n_rays, 3). PROGRESS (one frame, row0 0, rows a whole
 // number of bands of band_tile_rows tile rows): the band flags and the
-// abort word above, with the band counts at counter + 1. DEALT (one
-// frame, rows a whole number of tile rows): the launch's tile row ty is
-// the frame's tile row row0 / TILE_H + ty * tile_row_stride, row0 the
-// page's as in every frame launch, so that the stride's product is all
-// the DEALT instantiation adds to K1's code. The flag and dealing code is
-// compiled into the PROGRESS and DEALT instantiations alone, so the other
-// kernels are the same code as without it.
-template <int KIND, bool RAYS, bool PROGRESS = false, bool DEALT = false>
+// abort word above, with the band counts at counter + 1. DEALT (rows a
+// whole number of tile rows): the launch's tile row ty of frame f is that
+// frame's tile row row0 / TILE_H + ty * tile_row_stride, row0 frame f's
+// page's as in every frame launch, so that the stride's product is all the
+// DEALT instantiation adds to K1's code. STACK (DEALT, several frames):
+// the walk takes the tile rows outermost, then the frames, then the
+// columns. The flag and dealing code is compiled into the PROGRESS, DEALT
+// and STACK instantiations alone, so the other kernels are the same code
+// as without it.
+template <int KIND, bool RAYS, bool PROGRESS = false, bool DEALT = false,
+          bool STACK = false>
 __device__ __forceinline__ void march_tiles(
     const float* __restrict__ pages, int n_page, int page_stride,
     int n_frames, const int* __restrict__ table, int n_table,
@@ -631,8 +640,21 @@ __device__ __forceinline__ void march_tiles(
             out[3 * i + 1] = I.I1 * fs;
             out[3 * i + 2] = I.I2 * fs;
         } else {
-            const int f = (int)(t / (unsigned)per_frame);
-            const int rem = (int)t - f * per_frame;
+            // a dealt stack walks its tile rows outermost, then frames, then
+            // columns: the launch's last wave is the last tile rows of every
+            // frame, as a whole frame's is its bottom rows, not the whole
+            // share of its last frame (PERF.md)
+            int f, rem;
+            if constexpr (STACK) {
+                const int per_row = tiles_x * n_frames;
+                const int ty_all = (int)(t / (unsigned)per_row);
+                const int r = (int)t - ty_all * per_row;
+                f = r / tiles_x;
+                rem = ty_all * tiles_x + (r - f * tiles_x);
+            } else {
+                f = (int)(t / (unsigned)per_frame);
+                rem = (int)t - f * per_frame;
+            }
             const int ty = rem / tiles_x;
             if constexpr (PROGRESS) done_band = ty / band_tile_rows;
             if (f != frame_in_slot) {  // warp-uniform: t is the warp's
@@ -721,6 +743,25 @@ march_dealt_kernel(const float* __restrict__ page, int n_page,
     march_tiles<KIND, false, false, true>(
         page, n_page, n_page, 1, table, n_table, noise_g, nullptr, 0, out,
         frame_size, n_tile_rows * TILE_H, counter, 0, nullptr, nullptr,
+        tile_row_stride);
+}
+
+// S2 dealt across a mesh: march_dealt_kernel's tile rows of each of
+// n_frames > 1 frames of one structure (frame f's page at pages + f *
+// n_page, its own row0), into out (n_frames, n_tile_rows * TILE_H,
+// frame_size, 3). A kernel of its own, so that S1's one frame keeps its
+// code.
+template <int KIND>
+__global__ void __launch_bounds__(BLOCK_THREADS, MIN_BLOCKS)
+march_dealt_stack_kernel(const float* __restrict__ pages, int n_page,
+                         int n_frames, const int* __restrict__ table,
+                         int n_table, const int* __restrict__ noise_g,
+                         float* __restrict__ out, int frame_size,
+                         int tile_row_stride, int n_tile_rows,
+                         unsigned* __restrict__ counter) {
+    march_tiles<KIND, false, false, true, true>(
+        pages, n_page, n_page, n_frames, table, n_table, noise_g, nullptr, 0,
+        out, frame_size, n_tile_rows * TILE_H, counter, 0, nullptr, nullptr,
         tile_row_stride);
 }
 
@@ -858,16 +899,26 @@ static int launch_rays(const float* page, int n_page, const int* table,
 }
 
 template <int KIND>
-static int launch_dealt(const float* page, int n_page, const int* table,
-                        int n_table, const int* noise, float* out,
-                        int frame_size, int tile_row_stride, int n_tile_rows,
-                        int grid, unsigned* counter, cudaStream_t stream) {
-    const size_t smem = smem_bytes(n_table, n_page, 1);
-    cudaError_t e = reserve_smem(march_dealt_kernel<KIND>, smem);
-    if (e != cudaSuccess) return (int)e;
-    march_dealt_kernel<KIND><<<grid, BLOCK_THREADS, smem, stream>>>(
-        page, n_page, table, n_table, noise, out, frame_size,
-        tile_row_stride, n_tile_rows, counter);
+static int launch_dealt(const float* pages, int n_page, int n_frames,
+                        const int* table, int n_table, const int* noise,
+                        float* out, int frame_size, int tile_row_stride,
+                        int n_tile_rows, int grid, unsigned* counter,
+                        cudaStream_t stream) {
+    if (n_frames == 1) {
+        const size_t smem = smem_bytes(n_table, n_page, 1);
+        cudaError_t e = reserve_smem(march_dealt_kernel<KIND>, smem);
+        if (e != cudaSuccess) return (int)e;
+        march_dealt_kernel<KIND><<<grid, BLOCK_THREADS, smem, stream>>>(
+            pages, n_page, table, n_table, noise, out, frame_size,
+            tile_row_stride, n_tile_rows, counter);
+    } else {
+        const size_t smem = smem_bytes(n_table, n_page, BLOCK_WARPS);
+        cudaError_t e = reserve_smem(march_dealt_stack_kernel<KIND>, smem);
+        if (e != cudaSuccess) return (int)e;
+        march_dealt_stack_kernel<KIND><<<grid, BLOCK_THREADS, smem, stream>>>(
+            pages, n_page, n_frames, table, n_table, noise, out, frame_size,
+            tile_row_stride, n_tile_rows, counter);
+    }
     return (int)cudaGetLastError();
 }
 
@@ -910,7 +961,7 @@ static int blocks_per_sm(Kernel kernel, size_t smem) {
 // With the dynamic shared memory of a small scene's table and page: a
 // launch's own table and page (a few KB) leave the count as it is. form: 0
 // the frame kernel, 1 the ray-list kernel, 2 the progressive kernel, 3 the
-// dealt kernel.
+// dealt kernel, 4 the dealt stack kernel.
 template <int KIND>
 static int occupancy(int form) {
     const size_t smem = smem_bytes(256, 256, 1);
@@ -919,6 +970,7 @@ static int occupancy(int form) {
     case 1: return blocks_per_sm(march_rays_kernel<KIND>, smem);
     case 2: return blocks_per_sm(march_progressive_kernel<KIND>, smem);
     case 3: return blocks_per_sm(march_dealt_kernel<KIND>, smem);
+    case 4: return blocks_per_sm(march_dealt_stack_kernel<KIND>, smem);
     }
     return -(int)cudaErrorInvalidValue;
 }
@@ -996,26 +1048,30 @@ extern "C" int gamer_march_rays(const float* page, int n_page,
     return (int)cudaErrorInvalidValue;
 }
 
-// S1 dealt across a mesh: one entry's share of a frame_size frame, its
-// n_tile_rows tile rows (TILE_H rows each) from the page's row0 on, every
-// tile_row_stride-th, into out (n_tile_rows * TILE_H, frame_size, 3); rows
-// past the frame are 0. The caller keeps row0 plus the share's last row
-// below 2^24. ``kind``, ``noise``, ``grid``, ``counter`` and ``stream`` as
-// in gamer_march_batch.
-extern "C" int gamer_march_dealt(const float* page, int n_page,
+// S1 and S2 dealt across a mesh: one entry's share of n_frames frame_size
+// frames of one structure (frame f's page at pages + f * n_page), of each
+// frame its n_tile_rows tile rows (TILE_H rows each) from its page's row0
+// on, every tile_row_stride-th, into out (n_frames, n_tile_rows * TILE_H,
+// frame_size, 3); rows past the frame are 0. One frame (S1) launches
+// march_dealt_kernel, several (S2) march_dealt_stack_kernel. The caller
+// keeps row0 plus the share's last row below 2^24. ``kind``, ``noise``,
+// ``grid``, ``counter`` and ``stream`` as in gamer_march_batch.
+extern "C" int gamer_march_dealt(const float* pages, int n_page,
+                                 int n_frames,
                                  const int* table, int n_table,
                                  const int* noise, float* out, int frame_size,
                                  int tile_row_stride, int n_tile_rows,
                                  int kind, int grid, unsigned* counter,
                                  void* stream) {
     if (frame_size <= 0 || n_tile_rows <= 0 || tile_row_stride <= 0
+        || n_frames <= 0 || n_frames > 65535
         || grid <= 0)
         return (int)cudaErrorInvalidValue;
     const long long last_row =
         ((long long)(n_tile_rows - 1) * tile_row_stride + 1) * gamer::TILE_H;
     const long long n_tiles =
         (long long)((frame_size + gamer::TILE_W - 1) / gamer::TILE_W)
-        * n_tile_rows;
+        * n_tile_rows * n_frames;
     if (last_row >= (1LL << 24)
         || n_tiles + (long long)grid * gamer::BLOCK_WARPS >= (1LL << 31))
         return (int)cudaErrorInvalidValue;
@@ -1023,15 +1079,15 @@ extern "C" int gamer_march_dealt(const float* page, int n_page,
     switch (kind) {
     case gamer::NOISE_SIMPLEX:
         return gamer::launch_dealt<gamer::NOISE_SIMPLEX>(
-            page, n_page, table, n_table, noise, out, frame_size,
+            pages, n_page, n_frames, table, n_table, noise, out, frame_size,
             tile_row_stride, n_tile_rows, grid, counter, st);
     case gamer::NOISE_PERLIN:
         return gamer::launch_dealt<gamer::NOISE_PERLIN>(
-            page, n_page, table, n_table, noise, out, frame_size,
+            pages, n_page, n_frames, table, n_table, noise, out, frame_size,
             tile_row_stride, n_tile_rows, grid, counter, st);
     case gamer::NOISE_IQ:
         return gamer::launch_dealt<gamer::NOISE_IQ>(
-            page, n_page, table, n_table, noise, out, frame_size,
+            pages, n_page, n_frames, table, n_table, noise, out, frame_size,
             tile_row_stride, n_tile_rows, grid, counter, st);
     }
     return (int)cudaErrorInvalidValue;
@@ -1166,8 +1222,8 @@ extern "C" int gamer_progress_wait(const int* flags, int n_bands,
 }
 
 // Resident blocks per SM of the kind's frame kernel (form 0), ray-list
-// kernel (1), progressive kernel (2) or dealt kernel (3) on the current
-// device; minus the CUDA error on failure.
+// kernel (1), progressive kernel (2), dealt kernel (3) or dealt stack
+// kernel (4) on the current device; minus the CUDA error on failure.
 extern "C" int gamer_march_occupancy(int kind, int form) {
     switch (kind) {
     case gamer::NOISE_SIMPLEX: return gamer::occupancy<gamer::NOISE_SIMPLEX>(form);

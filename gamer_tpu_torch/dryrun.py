@@ -83,9 +83,9 @@ def entry(device="cuda", galaxy=None):
 def dryrun_multichip(n_devices: int, budget_s: float = 2400.0,
                      devices=None) -> dict:
     """Every sharded path once on an ``n_devices`` mesh at small shapes,
-    rungs a-h: (a) a frame's row slabs (S1), (b) a fly-through's frames
-    over a batch mesh (S2), (c) a 40x40 frame of row slabs against the
-    unsharded frame, (d) a (batch, rows) mesh when n >= 4 and even, (e)
+    rungs a-h: (a) a frame's row slabs (S1), (b) a fly-through's frames'
+    tile rows dealt over a batch mesh (S2), (c) a 40x40 frame of row
+    slabs against the unsharded frame, (d) a (batch, rows) mesh when n >= 4 and even, (e)
     one sharded fit step, (f) a burst into a mesh-backed render service,
     (g) a sharded DatasetJob resumed by a fresh job, (h) the all-sky map
     in ray blocks (S3) against the unsharded map. ``devices`` (default:
@@ -134,7 +134,7 @@ def _rungs(n_devices: int, budget_s: float, devices) -> dict:
     _check(int(img.sum()) > 0, "dry run rendered an empty frame")
     tick("a: pixel-row sharding")
 
-    # (b) a fly-through's frames over a batch mesh (S2)
+    # (b) a fly-through's frames' tile rows dealt over a batch mesh (S2)
     bmesh = make_batch_mesh(devices)
     small = _spiral_scene(16)
     cams = orbit_path(small.camera, n_devices, horizontal_deg=90.0)
@@ -158,7 +158,8 @@ def _rungs(n_devices: int, budget_s: float, devices) -> dict:
            f"row-sharded frame {d} LSB from the unsharded render_scene")
     tick("c: row-slab sharding")
 
-    # (d) frames over 'batch', each frame's row slabs over 'rows'
+    # (d) the same on the JAX package's (batch, rows) form of the mesh,
+    # dealt by card over its entries
     if n_devices >= 4 and n_devices % 2 == 0:
         mesh2d = pixel_tile_mesh_2d(rows_axis=n_devices // 2, devices=devices)
         cams2 = orbit_path(small.camera, 4, horizontal_deg=60.0)

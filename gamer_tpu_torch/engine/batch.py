@@ -11,10 +11,10 @@ the instances' depth order, or a batch of different galaxies, renders as
 one launch per group. The post chain runs per frame with the frame's own
 exposure, gamma and saturation, so each frame is bit-equal on the card to
 its single ``render_scene``. With ``mesh=`` each structure group's frames
-are spread over the entries of a device mesh (``march_batch_rowshard``): a
-1-D mesh shards the batch axis, a ('batch', 'rows') mesh also cuts every
-frame into row slabs; a group is padded to the mesh's batch divisor by
-repeating its last page, and the pad frames are sliced off.
+are spread over the entries of a device mesh (``march_batch_rowshard``):
+the tile rows of every frame of the group are dealt to the cards, on a 1-D
+or a ('batch', 'rows') mesh alike, so a group of any size is one launch
+per entry, with no pad frame.
 """
 
 from __future__ import annotations
@@ -33,7 +33,6 @@ from .cuda_render import (
     _device,
     _pack_scalars,
     _star_overlay,
-    batch_mesh_shape,
     march_batch,
     march_batch_rowshard,
     mesh_device,
@@ -86,26 +85,16 @@ def make_batch_mesh(devices=None, axis_name: str = BATCH_AXIS):
 
 def _render_group(static, pages: np.ndarray, size: int, ss: int,
                   device: torch.device, mesh=None) -> torch.Tensor:
-    """One launch for one structure group (one per mesh entry on a mesh)
-    -> (n, size, size, 3) linear radiance on ``device``, supersampling
-    pooled in linear space.
-
-    On a mesh, the group is padded (repeating the last page) up to the
-    mesh's batch divisor and the pad frames are sliced off; padding only
-    costs anything when a batch does not tile the mesh."""
+    """One launch for one structure group (one per mesh entry that owns
+    tile rows on a mesh, each over its rows of every frame) -> (n, size,
+    size, 3) linear radiance on ``device``, supersampling pooled in linear
+    space."""
     table = upload_table(_build_table(static, _build_layout(static)), device)
+    pages = torch.as_tensor(pages, device=device)
     if mesh is None:
-        lin = march_batch(torch.as_tensor(pages, device=device), table,
-                          size * ss)
-        return pool_linear(lin, ss)
-    n = pages.shape[0]
-    n_b, _ = batch_mesh_shape(mesh)
-    pad = (-n) % n_b
-    if pad:
-        pages = np.concatenate([pages, np.repeat(pages[-1:], pad, axis=0)])
-    lin = march_batch_rowshard(torch.as_tensor(pages, device=device), table,
-                               size * ss, mesh)
-    return pool_linear(lin[:n], ss)
+        return pool_linear(march_batch(pages, table, size * ss), ss)
+    return pool_linear(march_batch_rowshard(pages, table, size * ss, mesh),
+                       ss)
 
 
 def render_batch_linear(scenes: Sequence[Scene], device="cuda",

@@ -16,17 +16,20 @@ The kernel's wrappers are ``march`` (K1, a whole frame),
 ``march_progressive`` (K5, the progressive frame in one launch that flags
 each finished row band while it runs; ``render_progressive``),
 ``march_band`` (a row band), ``march_dealt`` (every n-th tile row of a
-frame from the i-th: S1's launch per mesh entry), ``march_batch`` (K4, a
-stack of frames; used by engine/batch.py) and ``march_rays`` (K6, a ray
-list; used by engine/allsky.py). The sharded launches ``march_rowshard``,
-``march_batch_rowshard`` and ``march_rays_rowshard`` run ``march_dealt``,
-``march_batch`` and ``march_rays`` once per entry of a device mesh
+frame, or of every frame of a stack, from the i-th: S1's and S2's launch
+per mesh entry), ``march_batch`` (K4, a stack of frames; used by
+engine/batch.py) and ``march_rays`` (K6, a ray list; used by
+engine/allsky.py). The sharded launches ``march_rowshard`` and
+``march_batch_rowshard`` run ``march_dealt``, and ``march_rays_rowshard``
+runs ``march_rays``, once per entry of a device mesh
 (parallel/sharding.py), each on its entry's device and stream, and gather
 the outputs on the mesh's first device: the counterparts of
 ``_compiled_rowshard``, ``_compiled_batch_rowshard`` and
-``_compiled_dirs_rowshard``. S1 and S3 deal their work (tile rows, 32-ray
-tiles) across the entries where the TPU forms cut contiguous slabs and
-blocks, so that every card gets the same mix of costly and cheap rays. A tensor on the CPU runs the plain version,
+``_compiled_dirs_rowshard``. S1, S2 and S3 deal their work (the tile rows
+of every frame, 32-ray tiles) across the entries where the TPU forms cut
+contiguous slabs, whole frames and blocks, so that every card gets the
+same mix of costly and cheap rays. A tensor on the CPU runs the plain
+version,
 ``march_plain`` and its band, progressive, batch and ray-list forms: the
 lockstep torch version with the kernel's arithmetic (the reference's
 march bookkeeping, as the spec oracle takes it: each step from the
@@ -700,14 +703,10 @@ def march_band_plain(page: torch.Tensor, table: torch.Tensor,
 
 
 def march_batch_plain(pages: torch.Tensor, table: torch.Tensor,
-                      frame_size: int, stats: dict | None = None,
-                      rows: int | None = None, row0: int = 0):
-    """K4's function: (B, rows, frame_size, 3) radiance, the rows
-    row0 + [0, rows) of one frame per page of the (B, n) stack (the whole
-    frame by default), all of one structure table."""
-    if rows is not None:
-        pages = _with_row0(pages, row0)
-    return torch.stack([march_plain(p, table, frame_size, rows, stats)
+                      frame_size: int, stats: dict | None = None):
+    """K4's function: (B, frame_size, frame_size, 3) radiance, one frame
+    per page of the (B, n) stack, all of one structure table."""
+    return torch.stack([march_plain(p, table, frame_size, stats=stats)
                         for p in pages])
 
 
@@ -760,6 +759,7 @@ def persistent_grid(blocks_per_sm: int, n_sms: int, n_tiles: int,
 
 # The kernels of csrc/march.cu by their occupancy query's form argument.
 FORM_FRAMES, FORM_RAYS, FORM_PROGRESSIVE, FORM_DEALT = 0, 1, 2, 3
+FORM_DEALT_STACK = 4
 
 _OCCUPANCY: dict = {}
 
@@ -767,7 +767,8 @@ _OCCUPANCY: dict = {}
 def occupancy(device: torch.device, kind: int, form: int) -> tuple:
     """(resident blocks per SM, SMs, warps per block) of the frame
     (``form`` FORM_FRAMES), ray-list (FORM_RAYS), progressive
-    (FORM_PROGRESSIVE) or dealt (FORM_DEALT) kernel of noise kind ``kind``
+    (FORM_PROGRESSIVE), dealt (FORM_DEALT) or dealt stack
+    (FORM_DEALT_STACK) kernel of noise kind ``kind``
     on a CUDA device, from
     the kernel library's occupancy query; kept per device."""
     from ..kernels import library
@@ -800,9 +801,9 @@ def _launch(pages: torch.Tensor, table: torch.Tensor, frame_size: int,
             rows: int, stride: int | None = None) -> torch.Tensor:
     """One launch of csrc/march.cu over a (B, n) page stack:
     (B, rows, frame_size, 3) radiance on the pages' device, the rows from
-    each page's row0 on. With ``stride`` (one page, rows a whole number of
-    tile rows): the dealt kernel, whose k-th tile row is the frame's tile
-    row row0 / TILE_H + k * stride."""
+    each page's row0 on. With ``stride`` (rows a whole number of tile
+    rows): the dealt kernel (its stack form for B > 1), whose k-th tile row
+    of frame f is that frame's tile row row0 / TILE_H + k * stride."""
     from ..kernels import library
 
     if int(frame_size) <= 0 or int(rows) <= 0:
@@ -814,9 +815,10 @@ def _launch(pages: torch.Tensor, table: torch.Tensor, frame_size: int,
                       device=pages.device)
     kind = _table_kind(table)
     noise = noise_table(NOISE_KINDS[kind], pages.device)
+    form = (FORM_FRAMES if stride is None
+            else FORM_DEALT if n_frames == 1 else FORM_DEALT_STACK)
     grid, counter = _grid_and_counter(
-        pages.device, kind, FORM_FRAMES if stride is None else FORM_DEALT,
-        frame_tiles(frame_size, rows, n_frames))
+        pages.device, kind, form, frame_tiles(frame_size, rows, n_frames))
     stream = torch.cuda.current_stream(pages.device).cuda_stream
     common = (table.data_ptr(), table.numel(), noise.data_ptr(),
               out.data_ptr(), int(frame_size))
@@ -826,10 +828,10 @@ def _launch(pages: torch.Tensor, table: torch.Tensor, frame_size: int,
                                        n_frames, *common, int(rows), kind,
                                        grid, counter.data_ptr(), stream)
         else:
-            rc = lib.gamer_march_dealt(pages.data_ptr(), n_page, *common,
-                                       int(stride), int(rows) // TILE_H,
-                                       kind, grid, counter.data_ptr(),
-                                       stream)
+            rc = lib.gamer_march_dealt(pages.data_ptr(), n_page, n_frames,
+                                       *common, int(stride),
+                                       int(rows) // TILE_H, kind, grid,
+                                       counter.data_ptr(), stream)
     if rc != 0:
         raise RuntimeError(f"march kernel launch failed: CUDA error {rc} "
                            f"({lib.gamer_error_string(rc).decode()})")
@@ -893,9 +895,9 @@ def dealt(n_items: int, n: int, i: int) -> int:
 
 
 def deal_plan(mesh, n_items: int) -> list:
-    """How S1 and S3 spread ``n_items`` (tile rows, or 32-ray tiles) over
-    a mesh: [(entry, first item, stride, count)] for each entry that owns
-    items, in mesh order. The cards (the distinct CUDA devices, in order of
+    """How S1, S2 and S3 spread ``n_items`` (tile rows of each frame, or
+    32-ray tiles) over a mesh: [(entry, first item, stride, count)] for
+    each entry that owns items, in mesh order. The cards (the distinct CUDA devices, in order of
     first appearance) are dealt the items: card c of n_cards takes c,
     c + n_cards, ..., so every card gets the same mix of costly and cheap
     rays. The entries that name one card share its SMs and cut its items
@@ -926,58 +928,72 @@ def _check_deal(first: int, stride: int, count: int) -> None:
                          f"tile rows {first} + k * {stride}, k < {count}")
 
 
-def march_dealt_plain(page: torch.Tensor, table: torch.Tensor,
+def march_dealt_plain(pages: torch.Tensor, table: torch.Tensor,
                       frame_size: int, first: int, stride: int, count: int,
                       stats: dict | None = None) -> torch.Tensor:
     """The dealt kernel's function: (count * TILE_H, frame_size, 3)
-    radiance of the frame's tile rows first + k * stride, k < count, in
-    that order; rows past the frame are 0. The page's row0 is not read."""
+    radiance of one page's frame, or (B, count * TILE_H, frame_size, 3) of
+    a (B, n) stack's frames, of each frame its tile rows first + k *
+    stride, k < count, in that order; rows past the frame are 0. The
+    pages' row0 is not read."""
     _check_deal(first, stride, count)
-    ty = first + stride * torch.arange(count, device=page.device)
-    jrow = (ty[:, None] * TILE_H + torch.arange(TILE_H, device=page.device))
-    return _frame_rows_plain(page, table, frame_size,
-                             jrow.reshape(-1).to(torch.float32), stats)
+    ty = first + stride * torch.arange(count, device=pages.device)
+    jrow = (ty[:, None] * TILE_H + torch.arange(TILE_H, device=pages.device)
+            ).reshape(-1).to(torch.float32)
+    if pages.dim() == 1:
+        return _frame_rows_plain(pages, table, frame_size, jrow, stats)
+    return torch.stack([_frame_rows_plain(p, table, frame_size, jrow, stats)
+                        for p in pages])
 
 
-def march_dealt(page: torch.Tensor, table: torch.Tensor, frame_size: int,
+def march_dealt(pages: torch.Tensor, table: torch.Tensor, frame_size: int,
                 first: int, stride: int, count: int) -> torch.Tensor:
-    """S1's launch on one mesh entry: linear radiance (count * TILE_H,
-    frame_size, 3) of the frame's tile rows (TILE_H rows each) first,
-    first + stride, ..., count of them, each across the whole width,
-    stacked in that order; rows past the frame are 0 (``deal_plan`` gives
-    each entry its share). Bit-equal on the card to those rows of
-    ``march``'s frame. CPU tensors run ``march_dealt_plain``; CUDA tensors
-    launch ``march_dealt_kernel`` (counted in ``march_dealt.launch_count``)
+    """S1's and S2's launch on one mesh entry: linear radiance (count *
+    TILE_H, frame_size, 3) of one page's frame, or (B, count * TILE_H,
+    frame_size, 3) of the frames of a (B, n) stack of one structure, of
+    each frame its tile rows (TILE_H rows each) first, first + stride, ...,
+    count of them, each across the whole width, stacked in that order;
+    rows past the frame are 0 (``deal_plan`` gives each entry its share).
+    The share's first row is written into a copy of every page. Bit-equal
+    on the card to those rows of ``march``'s and ``march_batch``'s frames.
+    CPU tensors run ``march_dealt_plain``; CUDA tensors launch
+    ``march_dealt_kernel``, or ``march_dealt_stack_kernel`` for B > 1,
+    once (counted in ``march_dealt.launch_count``)
     or raise."""
-    if _on_cpu(page, table, 1):
-        return march_dealt_plain(page, table, frame_size, first, stride,
+    one = pages.dim() == 1
+    if _on_cpu(pages, table, 1 if one else 2):
+        return march_dealt_plain(pages, table, frame_size, first, stride,
                                  count)
     _check_deal(first, stride, count)
-    out = _launch(_with_row0(page, first * TILE_H)[None], table, frame_size,
-                  count * TILE_H, stride=stride)[0]
+    if one:
+        # S1 writes row0 into the page's 0-d slot, a copy from the host;
+        # written as a (1, n) stack's column (a fill), S1's launches on
+        # one card took slow calls (PERF.md)
+        stack = _with_row0(pages, first * TILE_H)[None]
+    else:
+        _check_frames(pages.shape[0])
+        stack = _with_row0(pages, first * TILE_H)
+    out = _launch(stack, table, frame_size, count * TILE_H, stride=stride)
     march_dealt.launch_count += 1
-    return out
+    return out[0] if one else out
 
 
-def march_batch(pages: torch.Tensor, table: torch.Tensor, frame_size: int,
-                rows: int | None = None, row0: int = 0) -> torch.Tensor:
+def _check_frames(n_frames: int) -> None:
+    if not 1 <= n_frames <= 65535:
+        raise ValueError(f"a launch takes 1 to 65535 frames, got {n_frames}")
+
+
+def march_batch(pages: torch.Tensor, table: torch.Tensor,
+                frame_size: int) -> torch.Tensor:
     """K4: linear radiance (B, frame_size, frame_size, 3) of B frames of
     one structure, one page each ((B, n) float32), in one launch. Each
-    frame is bit-equal on the card to ``march`` of its page. With ``rows``,
-    the launch covers the row band row0 + [0, rows) of every frame
-    ((B, rows, frame_size, 3): a row slab of a batch). CPU tensors run
-    ``march_batch_plain``; CUDA tensors launch the kernel (counted in
+    frame is bit-equal on the card to ``march`` of its page. CPU tensors
+    run ``march_batch_plain``; CUDA tensors launch the kernel (counted in
     ``march_batch.launch_count``) or raise."""
     if _on_cpu(pages, table, 2):
-        return march_batch_plain(pages, table, frame_size, rows=rows,
-                                 row0=row0)
-    if not 1 <= pages.shape[0] <= 65535:
-        raise ValueError(f"a launch takes 1 to 65535 frames, got "
-                         f"{pages.shape[0]}")
-    if rows is None:
-        out = _launch(pages, table, frame_size, frame_size)
-    else:
-        out = _launch(_with_row0(pages, row0), table, frame_size, rows)
+        return march_batch_plain(pages, table, frame_size)
+    _check_frames(pages.shape[0])
+    out = _launch(pages, table, frame_size, frame_size)
     march_batch.launch_count += 1
     return out
 
@@ -1193,20 +1209,20 @@ KIND_LAUNCHES = dict.fromkeys(NOISE_KINDS, 0)
 # ---------------------------------------------------------------------------
 
 
-def slab_rows(size: int, n: int) -> int:
-    """Rows of one of ``n`` row slabs of a ``size``-row frame, as
-    ``_compiled_rowshard`` cuts them (pallas_render.py:1157-1160): every
-    entry gets the same whole number of tile heights, so a slab here is the
-    same set of rows as a slab there. S2's 'rows' axis cuts these slabs;
-    S1 deals tile rows instead."""
-    tr = _tile_rows(size)
-    return -(-size // (n * tr)) * tr
-
-
 def _check_mesh(mesh, dims: tuple) -> None:
     if len(mesh.axis_names) not in dims:
         raise ValueError(f"need a {'- or '.join(str(d) for d in dims)}-D "
                          f"mesh, got axes {mesh.axis_names}")
+
+
+def _check_batch_mesh(mesh) -> None:
+    """A mesh that shards a batch is 1-D, or 2-D named ('batch', 'rows')."""
+    _check_mesh(mesh, (1, 2))
+    if len(mesh.axis_names) == 2 and set(mesh.axis_names) != {"batch",
+                                                              "rows"}:
+        raise ValueError(
+            f"2-D batch mesh must have axes ('batch', 'rows'), got "
+            f"{mesh.axis_names} — use parallel.pixel_tile_mesh_2d")
 
 
 def _replicas(mesh, pages: torch.Tensor, table: torch.Tensor) -> list:
@@ -1252,23 +1268,33 @@ def _gather(dst: torch.Tensor, src: torch.Tensor, mesh, i: int) -> None:
     dst.copy_(src, non_blocking=True)
 
 
-def _rowshard(strip_fn, page, table, size: int, mesh) -> torch.Tensor:
-    _check_mesh(mesh, (1,))
+def _rowshard(strip_fn, pages, table, size: int, mesh) -> torch.Tensor:
+    """S1's and S2's assembly: the frame of one page, or the frames of a
+    (B, n) stack, of ``size``, their tile rows dealt over the mesh
+    (``deal_plan``). Each entry that owns tile rows calls ``strip_fn(pages,
+    table, size, first, stride, count)`` once, on its device and stream,
+    for its rows of every frame; one strided copy an entry places them."""
+    if pages.dim() == 1:
+        _check_mesh(mesh, (1,))
+    else:
+        _check_batch_mesh(mesh)
+        _check_frames(pages.shape[0])
     tile_rows = -(-size // TILE_H)
-    out = torch.empty((tile_rows * TILE_H, size, 3), dtype=torch.float32,
-                      device=mesh.devices[0])
-    replicas = _replicas(mesh, page, table)
+    lead = tuple(pages.shape[:-1])
+    out = torch.empty(lead + (tile_rows * TILE_H, size, 3),
+                      dtype=torch.float32, device=mesh.devices[0])
+    replicas = _replicas(mesh, pages, table)
     strips = []
     for i, first, stride, count in deal_plan(mesh, tile_rows):
         pg, tb = replicas[i]
         with _on_entry(mesh, i):
             strips.append((i, first, stride, count,
                            strip_fn(pg, tb, size, first, stride, count)))
-    tiles = out.view(tile_rows, TILE_H, size, 3)
+    tiles = out.view(lead + (tile_rows, TILE_H, size, 3))
     for i, first, stride, count, strip in strips:
-        _gather(tiles[first::stride][:count],
-                strip.view(count, TILE_H, size, 3), mesh, i)
-    return out[:size]
+        _gather(tiles[..., first::stride, :, :, :][..., :count, :, :, :],
+                strip.view(lead + (count, TILE_H, size, 3)), mesh, i)
+    return out[..., :size, :, :]
 
 
 def march_rowshard_plain(page: torch.Tensor, table: torch.Tensor, size: int,
@@ -1303,83 +1329,39 @@ def march_rowshard(page: torch.Tensor, table: torch.Tensor, size: int,
     return _rowshard(strips, page, table, size, mesh)
 
 
-def batch_mesh_shape(mesh) -> tuple:
-    """(batch entries, row entries) of a mesh that shards a batch: a 1-D
-    mesh is all batch; a 2-D mesh must be named ('batch', 'rows')."""
-    _check_mesh(mesh, (1, 2))
-    if len(mesh.axis_names) == 1:
-        return mesh.size, 1
-    if set(mesh.axis_names) != {"batch", "rows"}:
-        raise ValueError(
-            f"2-D batch mesh must have axes ('batch', 'rows'), got "
-            f"{mesh.axis_names} — use parallel.pixel_tile_mesh_2d")
-    return mesh.axis_size("batch"), mesh.axis_size("rows")
-
-
-def _batch_rowshard(batch_fn, pages, table, size: int, mesh) -> torch.Tensor:
-    n_b, n_r = batch_mesh_shape(mesh)
-    if len(mesh.axis_names) == 2:
-        entry = mesh.index
-    else:
-        def entry(batch, rows):
-            return batch
-    n_frames = pages.shape[0]
-    if n_frames % n_b:
-        raise ValueError(f"{n_frames} pages do not tile the mesh's {n_b} "
-                         f"batch entries: pad the stack")
-    per = n_frames // n_b
-    rows_local = slab_rows(size, n_r) if n_r > 1 else size
-    out = torch.empty((n_frames, size, size, 3), dtype=torch.float32,
-                      device=mesh.devices[0])
-    replicas = _replicas(mesh, pages, table)
-    slabs = []
-    for b in range(n_b):
-        for r in range(n_r):
-            row0 = r * rows_local
-            if row0 >= size:
-                break
-            rows = min(rows_local, size - row0)
-            i = entry(batch=b, rows=r)
-            pg, tb = replicas[i]
-            with _on_entry(mesh, i):
-                slabs.append((i, b, row0, batch_fn(
-                    pg[b * per:(b + 1) * per], tb, size, rows=rows,
-                    row0=row0)))
-    for i, b, row0, slab in slabs:
-        _gather(out[b * per:(b + 1) * per, row0:row0 + slab.shape[1]], slab,
-                mesh, i)
-    return out
-
-
 def march_batch_rowshard_plain(pages: torch.Tensor, table: torch.Tensor,
                                size: int, mesh) -> torch.Tensor:
-    """S2's function: ``march_batch_plain`` per mesh entry on its frames
-    (and row slab), then the same assembly."""
-    return _batch_rowshard(march_batch_plain, pages, table, size, mesh)
+    """S2's function: ``march_dealt_plain`` per mesh entry on its tile rows
+    of every frame, then the same assembly."""
+    return _rowshard(march_dealt_plain, pages, table, size, mesh)
 
 
 def march_batch_rowshard(pages: torch.Tensor, table: torch.Tensor, size: int,
                          mesh) -> torch.Tensor:
     """S2, the counterpart of ``_compiled_batch_rowshard`` and of the 1-D
     batch ``shard_map`` of ``engine/batch.py``: linear radiance
-    (B, size, size, 3) of a page stack spread over a mesh. On a 1-D mesh of
-    n entries, entry i launches ``march_batch`` on the pages
-    i * B/n + [0, B/n); on a ('batch', 'rows') mesh each batch entry's
-    frames are also cut into row slabs over 'rows', the row offset written
-    into every page of the entry's stack. B must be a multiple of the batch
-    entries (the caller pads). On the card every frame is bit-equal to
+    (B, size, size, 3) of a (B, n) page stack of one structure, any
+    B >= 1, spread over a 1-D or a ('batch', 'rows') mesh. Every frame's
+    tile rows are dealt as S1's (``deal_plan``): on a mesh of n cards
+    entry i launches ``march_dealt`` once over the tile rows i, i + n, ...
+    of all B frames, so every card gets its share of every frame, with no
+    pad frame and no row slab; entries that name one card cut its rows
+    into contiguous runs. A ('batch', 'rows') mesh is checked for its axis
+    names and dealt the same way, by card, its entries in mesh order. Each
+    entry's strips are placed into the frames on the mesh's first device,
+    one strided copy an entry. On the card every frame is bit-equal to
     ``march_batch``'s. CPU tensors run ``march_batch_rowshard_plain``; CUDA
     tensors launch the kernel (each launch counted in
     ``march_batch_rowshard.launch_count``) or raise."""
     if _on_cpu(pages, table, 2):
         return march_batch_rowshard_plain(pages, table, size, mesh)
 
-    def batch(*args, **kwargs):
-        out = march_batch(*args, **kwargs)
+    def strips(*args):
+        out = march_dealt(*args)
         march_batch_rowshard.launch_count += 1
         return out
 
-    return _batch_rowshard(batch, pages, table, size, mesh)
+    return _rowshard(strips, pages, table, size, mesh)
 
 
 def _rays_rowshard(rays_fn, page, table, dirs, mesh) -> torch.Tensor:

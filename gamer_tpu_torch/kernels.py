@@ -131,9 +131,9 @@ def load(path) -> ctypes.CDLL:
     lib.gamer_march_progressive.argtypes = [p, i, p, i, p, p, i, i, i, i, i,
                                             p, p, p, p]
     lib.gamer_march_progressive.restype = i
-    # page, n_page, table, n_table, noise, out, frame_size,
+    # pages, n_page, n_frames, table, n_table, noise, out, frame_size,
     # tile_row_stride, n_tile_rows, kind, grid, counter, stream
-    lib.gamer_march_dealt.argtypes = [p, i, p, i, p, p, i, i, i, i, i, p,
+    lib.gamer_march_dealt.argtypes = [p, i, i, p, i, p, p, i, i, i, i, i, p,
                                       p]
     lib.gamer_march_dealt.restype = i
     # flags, n_bands, next_band, event, timeout_ms (CDLL: the GIL is

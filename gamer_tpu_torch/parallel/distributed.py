@@ -103,8 +103,11 @@ def global_batch_mesh(devices: Optional[Sequence] = None) -> Mesh:
 def pixel_tile_mesh_2d(rows_axis: Optional[int] = None,
                        devices: Optional[Sequence] = None) -> Mesh:
     """A (batch, rows) 2-D mesh over this process's cards (or the given
-    devices): each frame's row slabs over 'rows', frames over 'batch'.
-    ``rows_axis`` defaults to the device count (one frame at a time)."""
+    devices), the JAX package's form of a batch mesh (frames over 'batch',
+    row slabs over 'rows'). The port checks its axis names and deals every
+    frame's tile rows by card over its entries, as on a 1-D mesh
+    (``cuda_render.march_batch_rowshard``). ``rows_axis`` defaults to the
+    device count."""
     devices = tuple(local_cuda_devices() if devices is None else devices)
     rows_axis = rows_axis or len(devices)
     if len(devices) % rows_axis:

@@ -12,18 +12,18 @@ contract to a network service:
     drained into ONE batched launch (engine/batch.render_batch, K4): B
     requests cost one dispatch, the replacement for the reference's
     thread-per-image fan-out (rasterthread.cpp);
-  * a launch takes any number of pages without a rebuild, and a pad frame
-    costs a whole frame of card time, so a batch is padded only up to a
-    multiple of the mesh size (``padded_frames`` counts those frames);
-    the JAX service pads to power-of-two buckets, to compile few
-    executables;
+  * a launch takes any number of pages without a rebuild, on one card or
+    dealt over a mesh, so a batch is never padded (``padded_frames``, kept
+    for the JAX service's metrics, stays 0); the JAX service pads to
+    power-of-two buckets, to compile few executables, and to a multiple
+    of the mesh;
   * single jobs render progressively in row bands (K5) with percent-done
     and cooperative abort between bands (rasterizer.cpp:283-313); an
     aborted job keeps its partially filled frame, like the reference's
     aborted back buffer; small singles are one fused launch (K1);
-  * with ``mesh=`` (parallel/sharding.Mesh) every single frame is
-    row-sharded over the mesh (S1) and every batch and animation is
-    sharded over the batch axis (S2);
+  * with ``mesh=`` (parallel/sharding.Mesh) the tile rows of every single
+    frame (S1) and of every frame of a batch or animation (S2) are dealt
+    over the mesh's cards;
   * a render failure fails THAT job and the worker lives on.
 
 The JSON scene payload is the scene-dict API (scene.schema.scene_from_dict),
@@ -151,24 +151,15 @@ class Job:
         }
 
 
-def _bucket(n: int, multiple_of: int = 1) -> int:
-    """Smallest multiple of ``multiple_of`` >= n: the frames of one launch,
-    padded only so that they tile a ``multiple_of``-entry mesh. (The JAX
-    service rounds up to a power of two as well, so that few executables
-    are compiled; ``march_batch`` takes any count without a rebuild, and a
-    pad frame costs a whole frame of card time.)"""
-    return -(-n // multiple_of) * multiple_of
-
-
 class RenderService:
     """Job queue + device worker. Usable directly (no HTTP) and as the
     state behind ``serve()``.
 
     device: where the march runs, "cuda" (the default; raises where there
     is no card) or "cpu" (the plain torch march). mesh: a
-    parallel/sharding.Mesh; single frames are row-sharded over it and
-    batches and animations sharded over the batch axis, on its devices
-    (``device`` is then its first entry).
+    parallel/sharding.Mesh; the tile rows of single frames, batches and
+    animations are dealt over its devices (``device`` is then its first
+    entry).
     batch_window_s: after picking up a job, wait this long for compatible
     requests to arrive before launching (0 = batch only what is already
     queued). bands: progress granularity for single jobs. max_queue:
@@ -261,10 +252,6 @@ class RenderService:
         if autostart:
             self.start()
 
-    @property
-    def n_entries(self) -> int:
-        return 1 if self.mesh is None else self.mesh.size
-
     # -- client surface ----------------------------------------------------
 
     def submit(self, scene, preview=None) -> int:
@@ -322,13 +309,12 @@ class RenderService:
     def submit_warm(self, scene, buckets=(1, 2, 4, 8),
                     sizes: Optional[list] = None) -> int:
         """Queue a warm-up: render ``scene`` once through the single-frame
-        path and once per batch size in ``buckets`` (times the mesh size)
-        through the batched path, at every requested size, so the first
-        real client finds the kernel library built and loaded, the lookup
-        tables on the card and the allocator's pools filled. Runs in the
-        long-running lane: queued interactive jobs are served between
-        shapes. Returns the job id; /job/<id>/result.json lists seconds per
-        shape."""
+        path and once per batch size in ``buckets`` through the batched
+        path, at every requested size, so the first real client finds the
+        kernel library built and loaded, the lookup tables on the card and
+        the allocator's pools filled. Runs in the long-running lane: queued
+        interactive jobs are served between shapes. Returns the job id;
+        /job/<id>/result.json lists seconds per shape."""
         scene = self._coerce_scene(scene)
         buckets = [int(b) for b in buckets]
         if not buckets or any(b < 1 or b > 1024 for b in buckets):
@@ -850,23 +836,16 @@ class RenderService:
         finally:
             self._preempting = False
 
-    def _padded(self, scenes: list) -> list:
-        """The scenes of one launch, the last one repeated up to a multiple
-        of the mesh size."""
-        pad = _bucket(len(scenes), self.n_entries) - len(scenes)
-        return scenes + [scenes[-1]] * pad
-
     def _render_batch(self, jobs: List[Job]) -> None:
         """One launch for every compatible queued request."""
-        scenes = self._padded([j.scene for j in jobs])
         # dispatch only: the frames stay on the device, and their copy to
         # pinned memory is queued on a side stream; the completer waits for
         # it while the worker packs the next launch (pipeline=True)
-        frames = batch.render_batch(scenes, device=self.device,
-                                    device_out=True, mesh=self._batch_mesh)
-        pending = self._download.start(frames[:len(jobs)])
+        frames = batch.render_batch([j.scene for j in jobs],
+                                    device=self.device, device_out=True,
+                                    mesh=self._batch_mesh)
+        pending = self._download.start(frames)
         with self._cond:
-            self.metrics["padded_frames"] += len(scenes) - len(jobs)
             self.metrics["batches"] += 1
             self.metrics["batched_frames"] += len(jobs)
 
@@ -880,15 +859,12 @@ class RenderService:
         self._handoff(jobs, finalize)
 
     def _render_animation(self, job: Job) -> None:
-        """One batched launch for a whole fly-through or morph, padded to a
-        multiple of the mesh size like request batches."""
-        scenes = self._padded(list(job.anim_scenes))
-        frames = batch.render_batch(scenes, device=self.device,
-                                    mesh=self._batch_mesh)
-        job.frames = frames[:job.n_frames]
+        """One batched launch for a whole fly-through or morph."""
+        job.frames = batch.render_batch(list(job.anim_scenes),
+                                        device=self.device,
+                                        mesh=self._batch_mesh)
         job.image = job.frames[0]
         with self._cond:
-            self.metrics["padded_frames"] += len(scenes) - job.n_frames
             self.metrics["frames_rendered"] += job.n_frames - 1  # +1 in _finish
         self._finish(job, DONE)
 
@@ -922,10 +898,9 @@ class RenderService:
                                                    device=self.device)
                 label = f"{sc.config.size}px/single"
             else:
-                n = b * self.n_entries
-                batch.render_batch([sc] * n, device=self.device,
+                batch.render_batch([sc] * b, device=self.device,
                                    mesh=self._batch_mesh)
-                label = f"{sc.config.size}px/batch{n}"
+                label = f"{sc.config.size}px/batch{b}"
             timings[label] = round(time.time() - t0, 3)
             with self._cond:
                 self.metrics["warmed_executables"] += 1

@@ -30,7 +30,11 @@ default one variant, csrc/ as it is). Then, on the same inputs:
   the tile counter at its end), the perlin progressive launch on both
   builds, the 8-frame orbit batch, the nside-512 all-sky ray list and the
   still as 2 slabs one after another, each for simplex, perlin and iq
-  (S1 against an earlier tree: ``torch_mesh_cards.py --tree``); the iq
+  (S1 against an earlier tree: ``torch_mesh_cards.py --tree``); card 0
+  of four's dealt share (``march_dealt``, every fourth tile row) of 8, 5
+  and 3 orbit frames, S2's launch on four cards, against those rows of
+  the old build's K4 frames (timed on the variants; the old build's time
+  there is K4's whole frames); the iq
   scene whose hash arguments pass the table
   (``chip_smoke.iq_far_scene``: still and progressive launch), two
   instances at 64^2, dusty_disk with dither at 256^2, odd shapes (size
@@ -164,9 +168,10 @@ def load_old(path: Path) -> ctypes.CDLL:
 
 
 def k1_band(page, table, rows: int, row0: int, size: int = SIZE):
-    """The rows row0 + [0, rows) of a frame through the frame kernel
-    (``march_batch`` of one page): K1's code on every build."""
-    return cr.march_batch(page[None], table, size, rows=rows, row0=row0)[0]
+    """The rows row0 + [0, rows) of a frame through the frame kernel (one
+    launch of ``gamer_march_batch`` of the page, its row0 set): K1's code
+    on every build."""
+    return cr._launch(cr._with_row0(page[None], row0), table, size, rows)[0]
 
 
 def sass_distance(a: list, b: list) -> int:
@@ -283,6 +288,18 @@ def cases(dev, held: list):
                                   dev)
         same(f"K4{label} {FRAMES}-frame orbit {SIZE}^2",
              lambda p=fly_pages, t=fly_tab: cr.march_batch(p, t, SIZE), True)
+        if kind == "simplex":
+            # S2 on four cards: card 0's dealt share (tile rows 0, 4, ...) of
+            # the first n orbit frames, against those rows of K4's frames
+            for n in (FRAMES, 5, 3):
+                def k4_rows(p=fly_pages[:n], t=fly_tab):
+                    return cr.march_batch(p, t, SIZE).view(
+                        p.shape[0], SIZE // cr.TILE_H, cr.TILE_H, SIZE,
+                        3)[:, 0::4].reshape(p.shape[0], -1, SIZE, 3)
+
+                out[f"S2 card 0 of 4, {n} orbit frames {SIZE}^2"] = (
+                    k4_rows, lambda p=fly_pages[:n], t=fly_tab: cr.march_dealt(
+                        p, t, SIZE, 0, 4, SIZE // cr.TILE_H // 4), True)
         sky_page, sky_tab, _, _ = cr.prepare(cs.allsky_scene(noise_kind=kind),
                                              dev)
         same(f"K6{label} nside {NSIDE}",
@@ -497,7 +514,8 @@ def main() -> int:
             occ = {f"{kind} form {form}": lib.gamer_march_occupancy(k, form)
                    for k, kind in enumerate(cr.NOISE_KINDS)
                    for form in (cr.FORM_FRAMES, cr.FORM_RAYS,
-                                cr.FORM_PROGRESSIVE, cr.FORM_DEALT)}
+                                cr.FORM_PROGRESSIVE, cr.FORM_DEALT,
+                                cr.FORM_DEALT_STACK)}
         report = {"block_threads": lib.gamer_march_block_threads(),
                   "blocks_per_sm": occ,
                   "ptxas": {n: v for n, v in code["ptxas"].items()

@@ -1,18 +1,22 @@
-"""The sharded launches (S1, S3), the sharded autograd fits and the
+"""The sharded launches (S1, S2, S3), the sharded autograd fits and the
 sharded XLA-form frame of gamer_tpu_torch on a mesh of several cards,
 beside the same calls on one card: the results held to the same gates as
-chip_smoke.py's (JAX's tolerances for its own sharded fits; S1, S3, the
-batch and the XLA-form frame bit for bit), the times and peak memory
+chip_smoke.py's (JAX's tolerances for its own sharded fits; S1, S2, S3,
+the batch and the XLA-form frame bit for bit), the times and peak memory
 printed for each.
 
     python3 scripts/torch_mesh_cards.py            # every visible card
     python3 scripts/torch_mesh_cards.py --cpu 4    # 4 CPU entries, tiny sizes
-    python3 scripts/torch_mesh_cards.py --launches-only   # S1 and S3 alone
+    python3 scripts/torch_mesh_cards.py --launches-only   # S1-S3 alone
     python3 scripts/torch_mesh_cards.py --launches-only --entries 4
-        # S1 and S3 on 4 entries over the visible cards in turn
+        # S1-S3 on 4 entries over the visible cards in turn
     python3 scripts/torch_mesh_cards.py --launches-only --tree DIR
         # the same cases on another tree's gamer_tpu_torch (and its
         # chip_smoke.py), e.g. an earlier commit unpacked with git archive
+    python3 scripts/torch_mesh_cards.py --launches-only --only "S2 " \
+        --bounds build/s2_bounds.json [--tree DIR]
+        # S2's cases alone; the bounds' plain runs made once and reused
+        # by the next run that names the same file
     python3 scripts/torch_mesh_cards.py --launches-only --entries 4 \
         --only "S1 512^2" --reps 64 [--pages-ahead]
         # one case, 64 calls: S1's call-to-call spread on one card
@@ -37,6 +41,20 @@ written into a copy of the page) once, before the timed calls, so that a
 call launches the march kernels and the counters' fills alone. The peer
 access of every pair of cards and ``nvidia-smi topo -m`` are printed
 first.
+
+S2 (``S2_CASES``): ``render_batch_linear(scenes, mesh=)``, the entry
+point that fly-throughs, dataset chunks and the fd fits' probe sets call,
+on the 1-D batch mesh of the cards and on a ('batch', 'rows') mesh of two
+rows over the same cards: the smoke's 8 orbit frames of the spiral at
+512^2 (both meshes), 3 of them, the 5 frames of an fd probe set of two
+galaxy parameters, and the seven presets, one frame each (7 structure
+groups). Each entry's kernel ms is the sum of its launches (one a
+structure group), beside its tiles; the bound a card is the plain
+version's work counts of every frame at 128^2, scaled, over the entries;
+one card is ``march_batch`` of each group's pages, one after another,
+bit-equal to the sharded call's frames. On an earlier tree (``--tree``)
+the same call runs that tree's S2 (whole frames, the groups padded to the
+batch entries, row slabs over 'rows').
 
 Prints one line per case and, last, a JSON object of the readings; exits
 non-zero if a gate fails. With one card it compares the card named n
@@ -80,6 +98,17 @@ S1_CASES = ((512, "simplex"), (2048, "simplex"), (4096, "simplex"),
             (4096, "perlin"), (4096, "iq"))
 S3_NSIDES = (512, 1024)
 S1_CPU, S3_CPU = ((16, "simplex"), (20, "iq")), (4,)
+# S2's cases: name -> (frames, 2-D mesh?) at S2_SIZE (S2_CPU on CPU
+# entries); the frames are "orbit N", "fd" (an fd probe set: the spiral,
+# then winding_b and winding_n each x (1 +- FD_H)) or "presets"
+S2_SIZE, S2_CPU, FD_H = 512, 16, 0.05
+S2_CASES = {
+    "S2 8 orbit frames": ("orbit 8", False),
+    "S2 8 orbit frames 2x2": ("orbit 8", True),
+    "S2 3 orbit frames": ("orbit 3", False),
+    "S2 5 fd probe frames": ("fd", False),
+    "S2 7 presets": ("presets", False),
+}
 # the plain run whose work counts, scaled, give a case's bound
 BOUND_SIZE, BOUND_NSIDE = 128, 32
 # a call this many times its case's median counts as slow
@@ -118,7 +147,7 @@ class EntryTimes:
             if not self.cuda:
                 out = fn(page, *args, **kwargs)
                 self.launches.append((str(page.device), None, None,
-                                      self.tiles(out)))
+                                      self.tiles(out), None))
                 return out
             stream = torch.cuda.current_stream(page.device)
             e0, e1 = (torch.cuda.Event(enable_timing=True) for _ in "ab")
@@ -126,7 +155,7 @@ class EntryTimes:
             out = fn(page, *args, **kwargs)
             e1.record(stream)
             self.launches.append((str(page.device), e0, e1,
-                                  self.tiles(out)))
+                                  self.tiles(out), stream.cuda_stream))
             return out
         # the wrapper counts its launches under its module name, now this
         timed.launch_count = getattr(fn, "launch_count", 0)
@@ -147,11 +176,12 @@ class EntryTimes:
         return timed
 
     def read(self):
-        """([(device, kernel ms, tiles)] in launch order, assembly ms)."""
+        """([(device, kernel ms, tiles, stream)] in launch order, assembly
+        ms)."""
         for d in range(torch.cuda.device_count()):
             torch.cuda.synchronize(d)
-        return ([(dev, e0.elapsed_time(e1), t)
-                 for dev, e0, e1, t in self.launches],
+        return ([(dev, e0.elapsed_time(e1), t, st)
+                 for dev, e0, e1, t, st in self.launches],
                 sum(e0.elapsed_time(e1) for e0, e1 in self.copies))
 
 
@@ -168,14 +198,53 @@ def topology(cuda: bool) -> dict:
     return {"peer": peer, "topo": topo}
 
 
+def s2_scenes(frames: str, size: int, preview: dict) -> list:
+    """The scenes of an S2 case's ``frames`` (see S2_CASES)."""
+    from gamer_tpu_torch.models import presets
+    from gamer_tpu_torch.scene.cameracontrols import orbit_path
+
+    base = spiral_scene(size, **preview)
+    if frames.startswith("orbit "):
+        cams = orbit_path(base.camera, 8, horizontal_deg=120.0)
+        return [dataclasses.replace(base, camera=c)
+                for c in cams[:int(frames.split()[1])]]
+    if frames == "fd":
+        return [base] + [scaled(base, field, 1.0 + sign * FD_H, gp=True)
+                         for field in ("winding_b", "winding_n")
+                         for sign in (1.0, -1.0)]
+    return [spiral_scene(size, galaxy=make(), **preview)
+            for make in presets.GALLERY.values()]
+
+
+def per_entry(rows: list, n: int) -> list:
+    """Each rep's launches summed per mesh entry (the launches of one
+    stream on the card; on CPU entries launch i % n): [(device, ms, tiles,
+    launches)] in the order of each entry's first launch."""
+    out = []
+    for r in rows:
+        sums = {}
+        for i, (dev, ms, tiles, stream) in enumerate(r["entries"]):
+            key = (dev, stream) if stream is not None else i % n
+            got = sums.setdefault(key, [dev, 0.0, 0, 0])
+            got[1] += ms
+            got[2] += tiles
+            got[3] += 1
+        out.append(dict(r, entries=[tuple(v) for v in sums.values()]))
+    return out
+
+
 def sharded_launch_cases(cuda: bool, cards, card: str, reps: int,
                          readings: dict, failed: list, only: str = "",
-                         pages_ahead: bool = False) -> None:
-    """S1 and S3 on ``cards`` beside one card's K1 / K6 (see the module's
-    docstring); readings["S1 ..."] / ["S3 ..."] per case."""
+                         pages_ahead: bool = False,
+                         bounds_path: Path | None = None) -> None:
+    """S1, S3 and S2 on ``cards`` beside one card's K1 / K6 / K4 (see the
+    module's docstring); readings["S1 ..."] / ["S3 ..."] / ["S2 ..."] per
+    case."""
     import gamer_tpu_torch as gt
     from gamer_tpu_torch.engine import cuda_render as cr
     from gamer_tpu_torch.engine.allsky import allsky_dirs
+    from gamer_tpu_torch.engine.batch import _scene_groups
+    from gamer_tpu_torch.parallel import Mesh
 
     dev = torch.device("cuda", 0) if cuda else torch.device("cpu")
     n = cards.size
@@ -238,8 +307,8 @@ def sharded_launch_cases(cuda: bool, cards, card: str, reps: int,
                 entries, assembly = times.read()
                 call_ms = call[0].elapsed_time(call[1])
             else:
-                entries = [(d, float("nan"), t)
-                           for d, _, _, t in times.launches]
+                entries = [(d, float("nan"), t, st)
+                           for d, _, _, t, st in times.launches]
                 assembly = call_ms = float("nan")
             rows.append({"entries": entries, "assembly_ms": assembly,
                          "wall_ms": wall, "call_ms": call_ms})
@@ -249,8 +318,11 @@ def sharded_launch_cases(cuda: bool, cards, card: str, reps: int,
         ms = np.array([[e[1] for e in r["entries"]] for r in rows])
         med = np.median(ms, axis=0)
         mean = float(med.mean())
+        # S2's entries sum their launches (e[3]); a launch's warps
         out = {"entries": [{"device": e[0], "ms": float(m), "tiles": e[2],
-                            "warps": warps(e[0], e[2])}
+                            "warps": warps(e[0], e[2] // e[3]
+                                           if len(e) > 3 else e[2]),
+                            "launches": e[3] if len(e) > 3 else 1}
                            for e, m in zip(rows[0]["entries"], med)],
                "entry_ms_reps": ms.tolist(),
                "heaviest_over_mean": float(med.max() / mean),
@@ -310,7 +382,8 @@ def sharded_launch_cases(cuda: bool, cards, card: str, reps: int,
         return march_bound(stats, in_bytes, out_bytes, kind)[0] / n
 
     def frame_tiles(out):
-        return cr.frame_tiles(out.shape[1], out.shape[0])
+        return cr.frame_tiles(out.shape[-2], out.shape[-3],
+                              out.shape[0] if out.dim() == 4 else 1)
 
     def list_tiles(out):
         return cr.ray_tiles(out.shape[0])
@@ -360,6 +433,54 @@ def sharded_launch_cases(cuda: bool, cards, card: str, reps: int,
                          + dirs.numel() * 4, dirs.numel() * 4)
         summary(f"S3 nside {nside}", rows, one_ms, bound, same, main_same)
         del dirs
+
+    # S2: render_batch_linear on the batch mesh and the (batch, rows) mesh
+    size = S2_SIZE if cuda else S2_CPU
+    meshes = {False: Mesh(cards.devices, ("batch",))}
+    if n >= 4 and n % 2 == 0:
+        meshes[True] = Mesh(cards.devices, ("batch", "rows"), (n // 2, 2))
+    bounds = (json.loads(bounds_path.read_text())
+              if bounds_path is not None and bounds_path.exists() else {})
+    for name, (frames, two_d) in S2_CASES.items():
+        if only not in name or two_d not in meshes:
+            continue
+        mesh = meshes[two_d]
+        scenes = s2_scenes(frames, size, preview)
+        groups = []
+        for st, pages, _ in _scene_groups(scenes):
+            groups.append((torch.as_tensor(pages, device=dev),
+                           cr.upload_table(cr._build_table(
+                               st, cr._build_layout(st)), dev)))
+        one_ms, _ = one_card_ms(lambda: [cr.march_batch(pg, tb, size)
+                                         for pg, tb in groups])
+        want = gt.render_batch_linear(scenes, device=dev)
+        gt.render_batch_linear(scenes, mesh=mesh)  # warm-up: the streams
+        rows, got = sharded(lambda: gt.render_batch_linear(scenes, mesh=mesh),
+                            ("march_dealt", "march_batch",
+                             "march_dealt_plain", "march_batch_plain"),
+                            frame_tiles)
+        same = equal(got, want)
+        del got, want
+        key = f"{frames} {size}"
+        if key not in bounds:  # every frame's work at BOUND_SIZE, scaled
+            small = min(size, BOUND_SIZE)
+            total = 0.0
+            for scene in s2_scenes(frames, small, preview):
+                bp, bt, _, _ = cr.prepare(scene, dev)
+                stats = {}
+                cr.march_plain(bp, bt, small, stats=stats)
+                scale = (size / small) ** 2
+                total += march_bound({k: v * scale for k, v in stats.items()},
+                                     bp.numel() * 4 + bt.numel() * 4,
+                                     size * size * 12,
+                                     scene.config.noise_kind)[0]
+            bounds[key] = total
+            if bounds_path is not None:
+                bounds_path.parent.mkdir(parents=True, exist_ok=True)
+                bounds_path.write_text(json.dumps(bounds))
+        summary(name, per_entry(rows, mesh.size), one_ms, bounds[key] / n,
+                same, same)
+        del groups
 
 
 def main() -> int:
@@ -436,8 +557,10 @@ def main() -> int:
     k = int(args[args.index("--entries") + 1]) if "--entries" in args else n
     launch_mesh = Mesh([cards.devices[i % n] for i in range(k)])
     only = args[args.index("--only") + 1] if "--only" in args else ""
+    bounds = (Path(args[args.index("--bounds") + 1]).resolve()
+              if "--bounds" in args else None)
     sharded_launch_cases(cuda, launch_mesh, card, reps, readings, failed,
-                         only, "--pages-ahead" in args)
+                         only, "--pages-ahead" in args, bounds)
     if "--launches-only" in args:
         print(json.dumps({"card": card, "entries": n, "readings": readings,
                           "failed": failed}))

@@ -628,12 +628,12 @@ def test_concurrent_launches_keep_their_own_counters(cuda):
 
 
 def test_occupancy_meets_the_register_budget(cuda):
-    """The frame, ray-list, progressive and dealt kernels of every kind
-    hold at least MIN_BLOCKS blocks of 256 threads per SM, and a launch's
-    grid is the card's resident blocks."""
+    """The frame, ray-list, progressive, dealt and dealt stack kernels of
+    every kind hold at least MIN_BLOCKS blocks of 256 threads per SM, and a
+    launch's grid is the card's resident blocks."""
     for kind in range(len(cr.NOISE_KINDS)):
         for form in (cr.FORM_FRAMES, cr.FORM_RAYS, cr.FORM_PROGRESSIVE,
-                     cr.FORM_DEALT):
+                     cr.FORM_DEALT, cr.FORM_DEALT_STACK):
             blocks, sms, warps = cr.occupancy(cuda, kind, form)
             assert warps == 8 and blocks >= MIN_BLOCKS
             assert sms == torch.cuda.get_device_properties(
@@ -749,6 +749,95 @@ def test_dealt_shares_on_every_card(cuda, kind):
             cr.march_rays(sky_page, sky_table, dirs))
 
 
+def _orbit_stack(size, n_frames, device, **cfg):
+    """(pages (B, n), table) of B orbit frames of the spiral, one
+    structure, on ``device``."""
+    from gamer_tpu_torch.engine.batch import _scene_groups
+    from gamer_tpu_torch.scene.cameracontrols import orbit_path
+
+    scene = _scene(presets.spiral(), size, **cfg)
+    cams = orbit_path(scene.camera, n_frames, horizontal_deg=90.0)
+    st, pages, _ = _scene_groups([dataclasses.replace(scene, camera=c)
+                                  for c in cams])[0]
+    return (torch.as_tensor(pages, device=device),
+            cr.upload_table(cr._build_table(st, cr._build_layout(st)),
+                            device))
+
+
+def _preset_scenes(size):
+    """One scene of each gallery preset: 7 structure groups of a frame."""
+    from gamer_tpu_torch.golden import oracle_scene
+
+    return [oracle_scene(name, size) for name in presets.GALLERY]
+
+
+@pytest.mark.parametrize("n_frames", [1, 3, 5])
+def test_dealt_stack_equals_march_batch(cuda, n_frames):
+    """S2 on one card: B orbit frames at 96^2 (24 tile rows) on 2, 3 and 4
+    entries of the card, and on a 2 x 2 ('batch', 'rows') mesh, are one
+    march_dealt launch an entry over its rows of all B frames (no pad
+    frame), bit-equal to march_batch's frames; a dealt share of the stack
+    (every third tile row, as on three cards) is those rows of
+    march_batch's frames; size 500 (125 tile rows) on 3 entries and the
+    seven presets (7 structure groups of one frame) on 4 entries too."""
+    pages, tab = _orbit_stack(96, n_frames, cuda)
+    want = cr.march_batch(pages, tab, 96)
+    for mesh in (_one_card_mesh(2, ("batch",)), _one_card_mesh(3, ("batch",)),
+                 _one_card_mesh(4, ("batch",)),
+                 _one_card_mesh(4, ("batch", "rows"), (2, 2))):
+        before = cr.march_dealt.launch_count
+        got = cr.march_batch_rowshard(pages, tab, 96, mesh)
+        assert cr.march_dealt.launch_count == before + mesh.size
+        assert torch.equal(got, want)
+    tiles = want.view(n_frames, 96 // cr.TILE_H, cr.TILE_H, 96, 3)
+    for i in range(3):
+        strips = cr.march_dealt(pages, tab, 96, i, 3, cr.dealt(24, 3, i))
+        assert torch.equal(strips, tiles[:, i::3].reshape(n_frames, -1, 96,
+                                                          3))
+    pages, tab = _orbit_stack(500, n_frames, cuda)
+    assert torch.equal(
+        cr.march_batch_rowshard(pages, tab, 500,
+                                _one_card_mesh(3, ("batch",))),
+        cr.march_batch(pages, tab, 500))
+    if n_frames == 1:
+        scenes = _preset_scenes(64)
+        before = cr.march_batch_rowshard.launch_count
+        got = gt.render_batch_linear(scenes, mesh=_one_card_mesh(4, (
+            "batch",)))
+        assert cr.march_batch_rowshard.launch_count == before + 4 * 7
+        assert torch.equal(got, gt.render_batch_linear(scenes,
+                                                       device="cuda"))
+
+
+@pytest.mark.parametrize("kind", ["simplex", "perlin", "iq"])
+def test_dealt_batch_on_every_card(cuda, kind):
+    """S2 dealt over every visible card (needs at least two): 5 orbit
+    frames at 256^2 on the 1-D batch mesh, on two entries a card and, with
+    an even count of cards, on the ('batch', 'rows') mesh of two rows,
+    bit-equal to card 0's march_batch, one launch an entry; for simplex
+    also the seven presets in one render_batch_linear call."""
+    import gamer_tpu_torch.parallel as par
+
+    n = torch.cuda.device_count()
+    if n < 2:
+        pytest.skip("needs at least two CUDA cards")
+    mesh = par.global_batch_mesh()
+    pages, tab = _orbit_stack(256, 5, cuda, noise_kind=kind)
+    want = cr.march_batch(pages, tab, 256)
+    before = cr.march_dealt.launch_count
+    assert torch.equal(cr.march_batch_rowshard(pages, tab, 256, mesh), want)
+    assert cr.march_dealt.launch_count == before + n
+    meshes = [par.global_batch_mesh(list(mesh.devices) * 2)]
+    if n % 2 == 0:
+        meshes.append(par.pixel_tile_mesh_2d(rows_axis=2))
+    for m in meshes:
+        assert torch.equal(cr.march_batch_rowshard(pages, tab, 256, m), want)
+    if kind == "simplex":
+        scenes = _preset_scenes(128)
+        assert torch.equal(gt.render_batch_linear(scenes, mesh=mesh),
+                           gt.render_batch_linear(scenes, device="cuda"))
+
+
 def test_rowshard_supersample_and_stars(cuda):
     scene = _scene(presets.spiral(), 48, supersample=2, no_stars=40,
                    star_seed=7)
@@ -803,8 +892,9 @@ def test_sharded_kernels_match_plain(cuda):
 
 
 def test_batch_and_ray_shards_equal_unsharded(cuda):
-    """S2 (1-D with a pad frame, and 2-D) and S3 (192 rays, 6 tiles dealt
-    to 5 entries) are bit-equal to the unsharded launches."""
+    """S2 (3 frames on a 1-D mesh of 2 entries, no pad frame, and on a
+    2-D one) and S3 (192 rays, 6 tiles dealt to 5 entries) are bit-equal
+    to the unsharded launches."""
     from gamer_tpu_torch.scene.cameracontrols import orbit_path
 
     scene = _scene(presets.spiral(), 80)

@@ -1,6 +1,6 @@
 """The port's render service on the CPU (``device="cpu"``, the plain
 march): the analogs of tests/test_serve.py on ``presets.spiral()``: job
-lifecycle, cross-request batching, the padding rule, abort, failure
+lifecycle, cross-request batching, launches without pad frames, abort, failure
 isolation, the pipeline, a mesh, animations, warm jobs, fit jobs (every
 mode of submit_fit and submit_fit_multiview, each held bit for bit to its
 library call, and abort between steps), the HTTP surface and the CLI
@@ -48,7 +48,6 @@ from gamer_tpu_torch.serve import (  # noqa: E402
     FAILED,
     QueueFull,
     RenderService,
-    _bucket,
     _gif,
     serve,
 )
@@ -115,12 +114,31 @@ def _done(svc, jid):
     return job
 
 
-@pytest.mark.parametrize("n,multiple,want", [
-    (1, 1, 1), (3, 1, 3), (5, 1, 5), (9, 1, 9), (3, 8, 8), (9, 8, 16),
-    (5, 3, 6), (24, 24, 24), (25, 24, 48)])
-def test_bucket_pads_only_to_the_mesh_multiple(n, multiple, want):
-    """No power-of-two bucket: a launch takes any page count."""
-    assert _bucket(n, multiple) == want
+@pytest.mark.parametrize("n,entries", [
+    (2, 1), (3, 1), (5, 1), (9, 1), (3, 2), (5, 3), (2, 4), (7, 4), (9, 8)])
+def test_batch_launches_the_requests_as_they_are(service, scene, monkeypatch,
+                                                 n, entries):
+    """n queued requests are one launch of exactly n frames, on one device
+    and on a mesh of any size (the deal takes any count): no pad frame, and
+    each job gets its own frame. The launch is stubbed: no march runs."""
+    launched = []
+
+    def render_batch(scenes, device, device_out=False, mesh=None):
+        launched.append((len(scenes), mesh))
+        return torch.arange(len(scenes), dtype=torch.uint8)[
+            :, None, None, None].expand(-1, 8, 8, 3).contiguous()
+
+    monkeypatch.setattr(serve_module.batch, "render_batch", render_batch)
+    mesh = None if entries == 1 else Mesh(["cpu"] * entries)
+    svc = service(autostart=False, mesh=mesh)
+    jids = [svc.submit(s) for s in _orbit(scene, n)]
+    svc.start()
+    jobs = [_done(svc, j) for j in jids]
+    assert launched == [(n, svc._batch_mesh)]
+    assert all(j.batched for j in jobs)
+    assert [int(j.image.max()) for j in jobs] == list(range(n))
+    assert svc.metrics["padded_frames"] == 0
+    assert svc.metrics["batched_frames"] == n
 
 
 def test_default_device_is_the_card_and_raises_without_one():
@@ -359,15 +377,15 @@ def test_pipeline_off_is_synchronous(service, scene):
 
 
 def test_service_over_device_mesh(service, scene):
-    """RenderService(mesh=...): batches pad to a multiple of the mesh and
-    shard over the batch axis, single jobs row-shard the frame."""
+    """RenderService(mesh=...): batches deal every frame's tile rows over
+    the mesh with no pad frame, single jobs deal the frame's."""
     scenes = _orbit(scene, 3)
     svc = service(autostart=False, mesh=Mesh(["cpu"] * 2))
     jids = [svc.submit(s) for s in scenes]
     svc.start()
     jobs = [_done(svc, j) for j in jids]
     assert all(j.batched for j in jobs)
-    assert svc.metrics["padded_frames"] == 1  # 4 frames on 2 entries, 3 live
+    assert svc.metrics["padded_frames"] == 0  # 3 frames on 2 entries
     for j, s in zip(jobs, scenes):
         assert _max_diff(j.image, gt.render_scene(s, device="cpu")) <= 1
     job = _done(svc, svc.submit(scene))

@@ -78,16 +78,10 @@ def test_rowshard_matches_unsharded(n, unsharded_40):
 
 
 def test_rowshard_slab_geometry_is_the_jax_one():
-    """A slab is a whole number of tile heights, the same for every entry
-    (pallas_render.py:1157-1160): S2's 'rows' axis and the XLA-form frame
-    cut these slabs. S1 deals tile rows instead: its plain frame of a size
-    that does not tile is each entry's strips placed at their rows."""
-    from gamer_tpu.engine.pallas_render import _tile_rows
-
-    for size, n in ((20, 3), (20, 8), (40, 8), (100, 3), (512, 4),
-                    (1024, 3), (2048, 8)):
-        tr = _tile_rows(size)
-        assert cr.slab_rows(size, n) == -(-size // (n * tr)) * tr
+    """The JAX package cuts a frame into slabs of a whole number of tile
+    heights (pallas_render.py:1157-1160); S1 and S2 deal tile rows
+    instead: S1's plain frame of a size that does not tile is each entry's
+    strips placed at their rows."""
     page, table, size, _ = cr.prepare(_scene(40, ray_step=0.2), "cpu")
     whole = cr.march_plain(page, table, size)
     placed = torch.zeros_like(whole).view(size // cr.TILE_H, cr.TILE_H,

@@ -112,13 +112,15 @@ def orbit():
 
 
 @pytest.mark.parametrize("mesh", [
-    Mesh(["cpu"] * 2, ("batch",)),               # 3 frames: one pad frame
+    Mesh(["cpu"] * 2, ("batch",)),               # 3 frames on 2 entries
     Mesh(["cpu"] * 4, ("batch", "rows"), (2, 2)),
     Mesh(["cpu"] * 6, ("rows", "batch"), (2, 3)),  # axis order is by name
 ], ids=["1d-2", "2d-2x2", "2d-rows-first"])
 def test_flythrough_shards_match_unsharded(mesh, orbit):
-    """A 3-frame orbit at size 40 (row slabs of 32 and 8): a group is
-    padded to the mesh's batch divisor and the pad frames sliced off."""
+    """A 3-frame orbit at size 40 (10 tile rows of each frame dealt over
+    the entries, each entry a card of its own): every entry marches its
+    rows of all three frames, with no pad frame, on a 1-D mesh and on a
+    ('batch', 'rows') mesh in either axis order."""
     scene, cams, want = orbit
     got = gt.render_flythrough(scene, cams, mesh=mesh)
     assert got.shape == (3, 40, 40, 3) and (got[0] != got[2]).any()
@@ -133,16 +135,27 @@ def test_batch_mesh_axis_names_and_tiling():
     with pytest.raises(ValueError, match="1- or 2-D mesh"):
         gt.render_batch([scene], mesh=Mesh(["cpu"] * 8, ("a", "b", "c"),
                                            (2, 2, 2)))
-    page, table, _, _ = cr.prepare(scene, "cpu")
-    with pytest.raises(ValueError, match="do not tile"):
-        cr.march_batch_rowshard(page[None].repeat(3, 1), table, 8,
+    # 3 pages on 2 entries need no pad frame (at 4^2, one tile row: the
+    # second entry owns none); an empty galaxy marches in no time and
+    # every element of the uninitialised output must come back 0 (the
+    # values of 3 frames on 2 entries are held in
+    # test_flythrough_shards_match_unsharded); an empty stack raises
+    page, table, _, _ = cr.prepare(_scene(4, galaxy=presets.GalaxyData()),
+                                   "cpu")
+    pages = page[None].repeat(3, 1)
+    got = cr.march_batch_rowshard(pages, table, 4,
+                                  Mesh(["cpu"] * 2, ("batch",)))
+    assert got.shape == (3, 4, 4, 3) and not got.any()
+    with pytest.raises(ValueError, match="1 to 65535 frames"):
+        cr.march_batch_rowshard(pages[:0], table, 4,
                                 Mesh(["cpu"] * 2, ("batch",)))
     assert tbatch.make_batch_mesh(["cpu"] * 3).axis_names == ("batch",)
 
 
 def test_mixed_structure_batch_on_a_mesh():
     """Two structure groups (spiral x2, dusty_disk x1) on a 2-entry mesh:
-    each group is padded and sliced on its own."""
+    each group is dealt on its own, the lone dusty_disk frame's two tile
+    rows one an entry, with no pad frame."""
     a = _scene(8, ray_step=0.2)
     b = dataclasses.replace(a, instances=[gamer_tpu.GalaxyInstance(
         galaxy=presets.dusty_disk())])
