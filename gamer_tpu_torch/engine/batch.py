@@ -14,7 +14,10 @@ its single ``render_scene``. With ``mesh=`` each structure group's frames
 are spread over the entries of a device mesh (``march_batch_rowshard``):
 the tile rows of every frame of the group are dealt to the cards, on a 1-D
 or a ('batch', 'rows') mesh alike, so a group of any size is one launch
-per entry, with no pad frame.
+per entry, with no pad frame. All host prep of a batch (the pages, every
+group's table and its upload) is done before the first launch, as the
+profiler span ``gamer.prep`` (``_prepare_groups``); ``render_batch`` marks
+the other layers as ``render_scene`` does (``engine/cuda_render.py``).
 """
 
 from __future__ import annotations
@@ -27,6 +30,7 @@ import torch
 
 from ..ops.camera import inv_view_projection_batch
 from ..scene.schema import CameraParams, Scene
+from ..utils.profiling import span
 from .cuda_render import (
     _build_layout,
     _build_table,
@@ -44,32 +48,54 @@ from .scene_prep import flatten_scene
 f32 = np.float32
 
 
-def _scene_groups(scenes: Sequence[Scene]):
+def _scene_groups(scenes: Sequence[Scene], layouts: dict | None = None):
     """Pack each scene's page and group the frames by static structure
     (insertion ordered, as ``gamer_tpu.engine.batch._scene_groups``).
+    ``layouts``, where given, is filled with each structure's page layout.
 
     Returns [(static, pages (n, page_len) float32, frame indices)]."""
-    flat = [flatten_scene(s) for s in scenes]
-    inv_vps = inv_view_projection_batch(
-        [np.asarray(s.camera.camera, f32) for s in scenes],
-        [s.camera.target for s in scenes], [s.camera.up for s in scenes],
-        [s.camera.fov for s in scenes])
-    layouts = {}
+    with span("gamer.prep.flatten"):
+        flat = [flatten_scene(s) for s in scenes]
+    with span("gamer.prep.camera"):
+        inv_vps = inv_view_projection_batch(
+            [np.asarray(s.camera.camera, f32) for s in scenes],
+            [s.camera.target for s in scenes], [s.camera.up for s in scenes],
+            [s.camera.fov for s in scenes])
+    layouts = {} if layouts is None else layouts
     groups: dict = {}
-    for i, (scene, (st, params), inv_vp) in enumerate(zip(scenes, flat,
-                                                          inv_vps)):
-        lay = layouts.get(st)
-        if lay is None:
-            lay = layouts[st] = _build_layout(st)
-        cfg = scene.config
-        page = _pack_scalars(st, lay, params,
-                             np.asarray(scene.camera.camera, f32), inv_vp,
-                             cfg.ray_step, cfg.min_ray_step)
-        pages, idx = groups.setdefault(st, ([], []))
-        pages.append(page)
-        idx.append(i)
-    return [(st, np.stack(pages), np.asarray(idx))
-            for st, (pages, idx) in groups.items()]
+    with span("gamer.prep.pack"):
+        for i, (scene, (st, params), inv_vp) in enumerate(zip(scenes, flat,
+                                                              inv_vps)):
+            lay = layouts.get(st)
+            if lay is None:
+                lay = layouts[st] = _build_layout(st)
+            cfg = scene.config
+            page = _pack_scalars(st, lay, params,
+                                 np.asarray(scene.camera.camera, f32), inv_vp,
+                                 cfg.ray_step, cfg.min_ray_step)
+            pages, idx = groups.setdefault(st, ([], []))
+            pages.append(page)
+            idx.append(i)
+        return [(st, np.stack(pages), np.asarray(idx))
+                for st, (pages, idx) in groups.items()]
+
+
+def _prepare_groups(scenes: Sequence[Scene], device: torch.device) -> list:
+    """All host prep of a batch, before any launch, as the span
+    ``gamer.prep``: ``_scene_groups``, then each group's structure table
+    from the layout it built, and the group's pages and table uploaded to
+    ``device``. Returns [(pages tensor, table tensor, frame indices)]."""
+    with span("gamer.prep"):
+        layouts = {}
+        groups = _scene_groups(scenes, layouts)
+        prepared = []
+        for st, pages, idx in groups:
+            with span("gamer.prep.table"):
+                table = _build_table(st, layouts[st])
+            with span("gamer.prep.upload"):
+                prepared.append((torch.as_tensor(pages, device=device),
+                                 upload_table(table, device), idx))
+        return prepared
 
 
 BATCH_AXIS = "batch"
@@ -83,18 +109,19 @@ def make_batch_mesh(devices=None, axis_name: str = BATCH_AXIS):
     return make_pixel_mesh(devices, axis_name)
 
 
-def _render_group(static, pages: np.ndarray, size: int, ss: int,
-                  device: torch.device, mesh=None) -> torch.Tensor:
-    """One launch for one structure group (one per mesh entry that owns
-    tile rows on a mesh, each over its rows of every frame) -> (n, size,
-    size, 3) linear radiance on ``device``, supersampling pooled in linear
-    space."""
-    table = upload_table(_build_table(static, _build_layout(static)), device)
-    pages = torch.as_tensor(pages, device=device)
-    if mesh is None:
-        return pool_linear(march_batch(pages, table, size * ss), ss)
-    return pool_linear(march_batch_rowshard(pages, table, size * ss, mesh),
-                       ss)
+def _render_group(pages: torch.Tensor, table: torch.Tensor, size: int,
+                  ss: int, mesh=None) -> torch.Tensor:
+    """One launch for one structure group, its pages and table prepared on
+    the output device (one launch per mesh entry that owns tile rows on a
+    mesh, each over its rows of every frame) -> (n, size, size, 3) linear
+    radiance on that device, supersampling pooled in linear space."""
+    with span("gamer.march"):
+        if mesh is None:
+            lin = march_batch(pages, table, size * ss)
+        else:
+            lin = march_batch_rowshard(pages, table, size * ss, mesh)
+    with span("gamer.epilogue"):
+        return pool_linear(lin, ss)
 
 
 def render_batch_linear(scenes: Sequence[Scene], device="cuda",
@@ -113,14 +140,14 @@ def render_batch_linear(scenes: Sequence[Scene], device="cuda",
             raise ValueError("all scenes in a batch must share the size")
         if s.config.supersample != ss:
             raise ValueError("all scenes in a batch must share the supersample")
-    groups = _scene_groups(scenes)
+    groups = _prepare_groups(scenes, dev)
     if len(groups) == 1:
-        return _render_group(groups[0][0], groups[0][1], size, ss, dev, mesh)
+        return _render_group(*groups[0][:2], size, ss, mesh)
     linear = torch.zeros((len(scenes), size, size, 3), dtype=torch.float32,
                          device=dev)
-    for static, pages, idx in groups:
+    for pages, table, idx in groups:
         linear[torch.as_tensor(idx, device=dev)] = _render_group(
-            static, pages, size, ss, dev, mesh)
+            pages, table, size, ss, mesh)
     return linear
 
 
@@ -136,20 +163,26 @@ def render_batch(scenes: Sequence[Scene], device="cuda",
     ``device`` (on the first device of ``mesh``). Star overlays are made
     once per unique star configuration;
     the post chain runs per frame with its own scalars."""
-    linear = render_batch_linear(scenes, device, mesh)
-    fields = {}
-    frames = []
-    for lin, s in zip(linear, scenes):
-        cfg = s.config
-        if cfg.no_stars > 0:
-            key = _star_key(cfg)
-            if key not in fields:
-                fields[key] = _star_overlay(cfg, linear.device)
-            lin = lin + fields[key]
-        frames.append(post_process(lin, f32(cfg.exposure), f32(cfg.gamma),
-                                   f32(cfg.saturation)))
-    img = torch.stack(frames)
-    return img if device_out else img.cpu().numpy()
+    with span("gamer.render"):
+        linear = render_batch_linear(scenes, device, mesh)
+        with span("gamer.epilogue"):
+            fields = {}
+            frames = []
+            for lin, s in zip(linear, scenes):
+                cfg = s.config
+                if cfg.no_stars > 0:
+                    key = _star_key(cfg)
+                    if key not in fields:
+                        fields[key] = _star_overlay(cfg, linear.device)
+                    lin = lin + fields[key]
+                frames.append(post_process(lin, f32(cfg.exposure),
+                                           f32(cfg.gamma),
+                                           f32(cfg.saturation)))
+            img = torch.stack(frames)
+        if device_out:
+            return img
+        with span("gamer.readback"):
+            return img.cpu().numpy()
 
 
 def render_flythrough(scene: Scene, cameras: Sequence[CameraParams],

@@ -37,6 +37,12 @@ sample's distance to the camera, the exit on its distance along the
 chord, in double where the reference keeps doubles, where
 pallas_render.py:428-434,578 accumulates the path length in float32; the
 minimax atan); a CUDA tensor launches the kernel or raises.
+
+``render_scene`` marks its layers as profiler spans (``utils.profiling.
+span``): ``gamer.render`` around the call, ``gamer.prep`` (``prepare``,
+with ``gamer.prep.flatten``, ``.camera``, ``.pack``, ``.table`` and
+``.upload`` inside), ``gamer.march`` (on a mesh ``gamer.replicate`` and
+``gamer.assembly`` inside), ``gamer.epilogue`` and ``gamer.readback``.
 """
 
 from __future__ import annotations
@@ -70,6 +76,7 @@ from ..scene.schema import (
     CID_STARS_SMALL,
     Scene,
 )
+from ..utils.profiling import span
 from .diff import conservative_step_bound
 from .render import abs_i32, hash3_i32, pool_linear, post_process
 from .scene_prep import COMP_FIELDS, SceneStatic, flatten_scene
@@ -1283,7 +1290,8 @@ def _rowshard(strip_fn, pages, table, size: int, mesh) -> torch.Tensor:
     lead = tuple(pages.shape[:-1])
     out = torch.empty(lead + (tile_rows * TILE_H, size, 3),
                       dtype=torch.float32, device=mesh.devices[0])
-    replicas = _replicas(mesh, pages, table)
+    with span("gamer.replicate"):
+        replicas = _replicas(mesh, pages, table)
     strips = []
     for i, first, stride, count in deal_plan(mesh, tile_rows):
         pg, tb = replicas[i]
@@ -1291,9 +1299,10 @@ def _rowshard(strip_fn, pages, table, size: int, mesh) -> torch.Tensor:
             strips.append((i, first, stride, count,
                            strip_fn(pg, tb, size, first, stride, count)))
     tiles = out.view(lead + (tile_rows, TILE_H, size, 3))
-    for i, first, stride, count, strip in strips:
-        _gather(tiles[..., first::stride, :, :, :][..., :count, :, :, :],
-                strip.view(lead + (count, TILE_H, size, 3)), mesh, i)
+    with span("gamer.assembly"):
+        for i, first, stride, count, strip in strips:
+            _gather(tiles[..., first::stride, :, :, :][..., :count, :, :, :],
+                    strip.view(lead + (count, TILE_H, size, 3)), mesh, i)
     return out[..., :size, :, :]
 
 
@@ -1441,20 +1450,27 @@ def _device(device) -> torch.device:
 
 def prepare(scene: Scene, device):
     """(page, table, march size, pool factor) for a scene, with page and
-    table on ``device``."""
-    cfg = scene.config
-    _check_march_cap(scene)
-    static, params = flatten_scene(scene)
-    camera = np.asarray(scene.camera.camera, np.float32)
-    inv_vp = inv_view_projection(camera, scene.camera.target, scene.camera.up,
-                                 scene.camera.fov)
-    lay = _build_layout(static)
-    page = _pack_scalars(static, lay, params, camera, inv_vp,
-                         cfg.ray_step, cfg.min_ray_step)
-    table = _build_table(static, lay)
-    ss = cfg.supersample
-    return (torch.as_tensor(page, device=device),
-            upload_table(table, device), cfg.size * ss, ss)
+    table on ``device``: the span ``gamer.prep``."""
+    with span("gamer.prep"):
+        cfg = scene.config
+        _check_march_cap(scene)
+        with span("gamer.prep.flatten"):
+            static, params = flatten_scene(scene)
+        with span("gamer.prep.camera"):
+            camera = np.asarray(scene.camera.camera, np.float32)
+            inv_vp = inv_view_projection(camera, scene.camera.target,
+                                         scene.camera.up, scene.camera.fov)
+        with span("gamer.prep.pack"):
+            lay = _build_layout(static)
+            page = _pack_scalars(static, lay, params, camera, inv_vp,
+                                 cfg.ray_step, cfg.min_ray_step)
+        with span("gamer.prep.table"):
+            table = _build_table(static, lay)
+        with span("gamer.prep.upload"):
+            page, table = (torch.as_tensor(page, device=device),
+                           upload_table(table, device))
+        ss = cfg.supersample
+        return page, table, cfg.size * ss, ss
 
 
 def mesh_device(mesh) -> torch.device:
@@ -1463,16 +1479,26 @@ def mesh_device(mesh) -> torch.device:
     return _device(mesh.devices[0])
 
 
+def _marched(scene: Scene, dev: torch.device, mesh) -> tuple:
+    """(the frame's linear radiance before pooling, the pool factor):
+    ``prepare``, then the march (K1, or S1 on ``mesh``) as the span
+    ``gamer.march``."""
+    page, table, size, ss = prepare(scene, dev)
+    with span("gamer.march"):
+        if mesh is None:
+            return march(page, table, size), ss
+        return march_rowshard(page, table, size, mesh), ss
+
+
 def render_linear(scene: Scene, device="cuda", mesh=None) -> torch.Tensor:
     """Linear radiance (size, size, 3) float32 on ``device`` (supersampled
     frames pooled in linear space). With ``mesh`` (1-D) the frame's tile
     rows are dealt over its entries (S1) and assembled, then pooled, on
     its first device; ``device`` is then not consulted."""
     dev = _device(device) if mesh is None else mesh_device(mesh)
-    page, table, size, ss = prepare(scene, dev)
-    if mesh is None:
-        return pool_linear(march(page, table, size), ss)
-    return pool_linear(march_rowshard(page, table, size, mesh), ss)
+    lin, ss = _marched(scene, dev, mesh)
+    with span("gamer.epilogue"):
+        return pool_linear(lin, ss)
 
 
 def render_scene(scene: Scene, device="cuda", device_out: bool = False,
@@ -1485,14 +1511,18 @@ def render_scene(scene: Scene, device="cuda", device_out: bool = False,
     bit-equal to the unsharded one."""
     dev = _device(device) if mesh is None else mesh_device(mesh)
     cfg = scene.config
-    lin = render_linear(scene, dev, mesh)
-    if cfg.no_stars > 0:
-        lin = lin + _star_overlay(cfg, dev)
-    img = post_process(lin, f32(cfg.exposure), f32(cfg.gamma),
-                       f32(cfg.saturation))
-    if device_out:
-        return img
-    return img.cpu().numpy()
+    with span("gamer.render"):
+        lin, ss = _marched(scene, dev, mesh)
+        with span("gamer.epilogue"):
+            lin = pool_linear(lin, ss)
+            if cfg.no_stars > 0:
+                lin = lin + _star_overlay(cfg, dev)
+            img = post_process(lin, f32(cfg.exposure), f32(cfg.gamma),
+                               f32(cfg.saturation))
+        if device_out:
+            return img
+        with span("gamer.readback"):
+            return img.cpu().numpy()
 
 
 def render_dirs(scene: Scene, dirs, device="cuda", device_out: bool = False,

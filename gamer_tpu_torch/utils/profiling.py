@@ -12,6 +12,13 @@ counter; here:
     can lose kernel records in a later session; such a trace is detected
     (a launch call whose kernel record is missing, or no kernel record at
     all) and reported with a ``TraceLossWarning``.
+  - ``span(name)``: the render path's spans (``gamer.render``,
+    ``gamer.prep`` and its parts, ``gamer.march``, ``gamer.replicate``,
+    ``gamer.assembly``, ``gamer.epilogue``, ``gamer.readback``). While a
+    profiler session records on the calling thread, a span is a
+    ``record_function`` range: a ``user_annotation`` event in the same
+    trace and on the same clock as the device's kernel and copy records.
+    Otherwise it costs one flag check.
   - ``RenderStats``: rays/s and Msamples/s from frame timings.
 """
 
@@ -28,6 +35,21 @@ from typing import List
 import torch
 
 TRACE_FILE = "trace.json"
+
+# what a span is when no profiler records: one object, shared
+_OFF = contextlib.nullcontext()
+
+
+def span(name: str):
+    """A context manager that marks the block as the span ``name`` in a
+    profiler session that records on this thread (``profile_trace``, or
+    any ``torch.profiler`` session): a ``record_function(name)`` range,
+    nested in the span open around it. With no session it checks one flag
+    and returns a shared no-op context: no range, no clock read, nothing
+    allocated."""
+    if not torch._C._autograd._profiler_enabled():
+        return _OFF
+    return torch.autograd.profiler.record_function(name)
 
 
 class TraceLossWarning(RuntimeWarning):
